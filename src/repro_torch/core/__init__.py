@@ -1,0 +1,8 @@
+"""B⊕LD core for the serving path: Boolean tensors, scaling, threshold
+activation, Boolean and packed linear layers."""
+from .activation import boolean_activation
+from .boolean_linear import (PACKED_GEMV_MAX_M, PackedBool, boolean_dense,
+                             boolean_dense_inference, matmul_f32,
+                             pack_boolean_weight)
+from .scaling import backward_scale, preactivation_alpha
+from .variation import BOOL_DTYPE, random_boolean
