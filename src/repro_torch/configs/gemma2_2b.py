@@ -27,5 +27,5 @@ CONFIG = ModelConfig(
 SMOKE = CONFIG.scaled(
     name="gemma2-2b-smoke",
     n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
-    vocab_size=128, sliding_window=32, attn_chunk=64,
+    vocab_size=128, sliding_window=32, attn_chunk=64, remat=False,
 )

@@ -1,36 +1,111 @@
-"""Boolean linear layer forward (paper §3.1 Eq 1) and packed serving weights.
+"""Boolean linear layer (paper §3.1 Eq 1, §3.3 Eqs 3-8) and packed serving
+weights.
 
 Under the ±1 embedding the counting neuron s = Σ xnor(x, w) is a multiply-
-accumulate, y = x · e(W) (+ b), summed in fp32 as in the JAX package's
-``core/boolean_linear.py``.
+accumulate, y = x · e(W) (+ b), summed in fp32. The backward for a real
+upstream signal Z (Eqs 4-8) is the linear VJP on the embedded Booleans:
+
+    δLoss/δx = Z · e(W)ᵀ  (Eq 6/8, × √(2/n) with App C.4's ``bwd_norm``,
+                           projected to ±1 with ``sign_backward``)
+    δLoss/δW = Xᵀ · Z     (Eq 5/7, fp32 vote counts over every batch row)
+
+The votes run through the fused weight-backward kernel
+(``kernels.boolean_weight_bwd`` at α = 0) and are rounded to the weight
+view's dtype, where the JAX package's ``core/boolean_linear.py`` rounds them.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import pack_bits, packed_xnor_gemv, unpack_bits
+from repro_torch.kernels import (boolean_weight_bwd, pack_bits,
+                                 packed_xnor_gemv, unpack_bits)
+
+from .scaling import backward_scale
+
+
+class _MatmulF32(torch.autograd.Function):
+    """One GEMM of same-dtype low-precision operands on the card with an
+    fp32 result. Its backward sums in fp32 and rounds to the operands'
+    dtypes, as JAX transposes a dot with ``preferred_element_type=f32``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.matmul(g2, w.to(torch.float32).t()).to(x.dtype) \
+                .reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = torch.matmul(x.reshape(-1, x.shape[-1]).to(torch.float32).t(),
+                              g2).to(w.dtype)
+        return gx, gw
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w summed in fp32 and returned in fp32 (``preferred_element_type=
-    float32`` in the JAX package). bf16 inputs on the card go through the
-    GEMM's fp32 output; elsewhere the operands are widened first, which is
-    exact for bf16."""
+    float32`` in the JAX package), differentiable. bf16 inputs on the card
+    go through the GEMM's fp32 output; elsewhere the operands are widened
+    first, which is exact for bf16."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w)
     if x.is_cuda and x.dtype == w.dtype:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(*x.shape[:-1], w.shape[-1])
+        return _MatmulF32.apply(x, w)
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
-def boolean_dense(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
-    """y = x @ w (+ b) on the ±1 weight view, fp32 counts cast to x.dtype.
-    Forward only; the Boolean-variation backward comes with training."""
-    y = matmul_f32(x, w).to(x.dtype)
-    if b is not None:
-        y = y + b.to(y.dtype)
-    return y
+class _BooleanDense(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, bwd_norm, sign_backward):
+        y = matmul_f32(x, w).to(x.dtype)
+        if b is not None:
+            y = y + b.to(y.dtype)
+        ctx.save_for_backward(x, w)
+        ctx.has_b, ctx.bwd_norm, ctx.sign_backward = \
+            b is not None, bwd_norm, sign_backward
+        return y
+
+    @staticmethod
+    def backward(ctx, z):
+        x, w = ctx.saved_tensors
+        m, n = w.shape
+        gx = None
+        if ctx.needs_input_grad[0]:
+            # Eq 6/8: upstream signal aggregated over fan-out
+            gx = matmul_f32(z, w.t())
+            if ctx.bwd_norm:
+                gx = gx * backward_scale(n)
+            if ctx.sign_backward:
+                gx = torch.where(gx >= 0, 1.0, -1.0)
+            gx = gx.to(x.dtype)
+        # Eq 5/7: weight votes over all batch-like rows, fp32 counts rounded
+        # to the weight view's dtype
+        z2 = z.reshape(-1, n).contiguous()
+        gw = boolean_weight_bwd(x.reshape(-1, m).contiguous(), z2,
+                                alpha=0.0).to(w.dtype)
+        gb = z2.to(torch.float32).sum(0).to(w.dtype) if ctx.has_b else None
+        return gx, gw, gb, None, None
+
+
+def boolean_dense(x: torch.Tensor, w: torch.Tensor, b=None,
+                  bwd_norm: bool = True,
+                  sign_backward: bool = False) -> torch.Tensor:
+    """y = x @ w (+ b) on the ±1 weight view, fp32 counts cast to x.dtype,
+    with the Boolean-variation backward.
+
+    x: (..., m) real or ±1 activations; w: (m, n) ±1 view (bf16/fp32), whose
+    gradient is the vote tensor the flip-rule optimizer reads, never a
+    weight update; b: (n,) real bias or None. ``bwd_norm`` applies the
+    √(2/n) App-C.4 normalisation to δLoss/δx; ``sign_backward`` projects it
+    to ±1 (Boolean backprop signal, Alg 6).
+    """
+    return _BooleanDense.apply(x, w, b, bwd_norm, sign_backward)
 
 
 class PackedBool:

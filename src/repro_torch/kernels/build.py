@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("packed_xnor_gemv", "paged_flash_decode")
+SOURCES = ("packed_xnor_gemv", "paged_flash_decode", "boolean_weight_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -113,6 +113,10 @@ _SIGNATURES = {
         "paged_flash_decode": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
         "paged_flash_decode_error_string": [_I],
+    },
+    "boolean_weight_bwd": {
+        "boolean_weight_bwd": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _F, _P],
+        "boolean_weight_bwd_error_string": [_I],
     },
 }
 

@@ -1,5 +1,5 @@
 """Attention: GQA with Boolean projections, chunked flash attention for
-prefill, sliding-window + global alternation (gemma2), logit softcap, and
+training and prefill, sliding-window + global alternation (gemma2), logit softcap, and
 the block-table paged decode of continuous batching.
 
 Q heads are padded up to a multiple of 16 and the padded heads' outputs are
@@ -75,7 +75,7 @@ def _repeat_kv(x, n_rep: int):
 
 
 # ---------------------------------------------------------------------------
-# Chunked flash attention (prefill)
+# Chunked flash attention (training / prefill)
 # ---------------------------------------------------------------------------
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap_val: float = 0.0, chunk: int = 1024):
@@ -124,6 +124,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             m = m_new
         out[:, :, qs] = acc / torch.clamp(l[..., None], min=1e-30)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def attention_apply(cfg: ModelConfig, p, x, positions, *,
+                    local: bool = False, axis_size: int = 16):
+    """Full training/prefill attention block body (no residual/norm)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim_
+    hp = cfg.heads_padded(axis_size)
+    kvp = cfg.kv_heads_padded(axis_size)
+    q, k, v = _qkv(cfg, p, x, positions, axis_size)
+    out = flash_attention(q, _repeat_kv(k, hp // kvp), _repeat_kv(v, hp // kvp),
+                          causal=True,
+                          window=cfg.sliding_window if local else 0,
+                          softcap_val=cfg.attn_logit_softcap,
+                          chunk=cfg.attn_chunk)
+    out = _head_mask(cfg, out, axis_size)
+    return proj_apply(cfg, p["wo"], out.reshape(B, S, hp * hd))
 
 
 # ---------------------------------------------------------------------------

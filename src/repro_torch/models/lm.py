@@ -1,5 +1,5 @@
-"""Decoder LM on the dense path: block roles, init, bucketed prefill and the
-paged decode step.
+"""Decoder LM on the dense path: block roles, init, the training forward and
+loss, bucketed prefill and the paged decode step.
 
 Block parameters are stacked on a leading ``n_groups`` axis, as in the JAX
 package's ``models/lm.py``; its ``lax.scan`` over groups becomes a Python
@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from . import attention as A
 from . import ffn as F
@@ -123,6 +124,76 @@ def _apply_block_decode(cfg: ModelConfig, bp, role, bcache, x, pos,
         cfg, bp["attn"], h, bcache, block_table, pos,
         local=(role["mixer"] == "attn_local"))
     return _ffn_residual(cfg, bp, role, x + mix), new_c
+
+
+# ---------------------------------------------------------------------------
+# Forward (train) and loss
+# ---------------------------------------------------------------------------
+def unbind_tree(tree, n: int):
+    """Stacked (n, ...) leaves -> n per-group trees of views. Its backward
+    stacks the groups' grads once (``torch.unbind``), where indexing each
+    group would scatter into a zeroed full-size grad per group."""
+    if isinstance(tree, dict):
+        parts = {k: unbind_tree(v, n) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in tree} for g in range(n)]
+    return torch.unbind(tree, 0)
+
+
+def _apply_block(cfg: ModelConfig, bp, role, x, positions):
+    h = rmsnorm_apply(bp["norm1"], x)
+    x = x + A.attention_apply(cfg, bp["attn"], h, positions,
+                              local=(role["mixer"] == "attn_local"))
+    return _ffn_residual(cfg, bp, role, x)
+
+
+def _apply_group(cfg: ModelConfig, roles, gp, x, positions):
+    for i, role in enumerate(roles):
+        x = _apply_block(cfg, gp[f"b{i}"], role, x, positions)
+    return x
+
+
+def lm_forward(cfg: ModelConfig, params, batch):
+    """-> (logits fp32 (B, S, Vp), aux_loss scalar). With ``cfg.remat`` each
+    group runs under ``torch.utils.checkpoint`` and is recomputed in the
+    backward (the JAX package's ``jax.checkpoint`` of the scanned body)."""
+    if cfg.frontend != "tokens":
+        raise NotImplementedError("embedding frontends are not ported yet")
+    tokens = batch["tokens"]
+    h = embed_apply(cfg, params["embed"], tokens).to(cfg.dtype)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=h.device) \
+        .expand(B, S)
+    roles = _dense_roles(cfg)
+    for gp in unbind_tree(params["blocks"], cfg.n_groups):
+        if cfg.remat:
+            h = torch.utils.checkpoint.checkpoint(
+                _apply_group, cfg, roles, gp, h, positions,
+                use_reentrant=False)
+        else:
+            h = _apply_group(cfg, roles, gp, h, positions)
+    h = rmsnorm_apply(params["final_norm"], h)
+    logits = head_apply(cfg, params["head"], h)
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def lm_loss(cfg: ModelConfig, params, batch):
+    """Cross-entropy over the padded vocab with the padded slots masked,
+    a max-shifted log-sum-exp, optional ``loss_mask`` weights, and
+    ``+ 0.01 · aux``. -> (loss, {"nll", "aux"})."""
+    logits, aux = lm_forward(cfg, params, batch)
+    labels = batch["labels"].long()
+    pad_mask = torch.arange(cfg.vocab_padded, device=logits.device) \
+        < cfg.vocab_size
+    logits = logits.masked_fill(~pad_mask, -1e30)
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - picked
+    weights = batch.get("loss_mask")
+    if weights is None:
+        weights = torch.ones_like(labels, dtype=torch.float32)
+    loss = (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,11 @@ from repro_torch.core import (PackedBool, boolean_dense,
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The architecture fields of the JAX package's ``ModelConfig``; its
-    mesh, remat and sharding fields have no counterpart in the port yet."""
+    """The architecture and training fields of the JAX package's
+    ``ModelConfig``. Its mesh and sharding fields have no counterpart yet;
+    ``reduce_bf16``, ``remat_policy="save_block_outs"`` and
+    ``block_grad_barriers`` exist for cross-shard and XLA scheduling and
+    raise ``NotImplementedError`` until the multi-device slice."""
     name: str
     family: str                    # dense | ssm | moe | hybrid | audio | vlm
     n_layers: int
@@ -54,14 +57,28 @@ class ModelConfig:
     # B⊕LD knobs
     boolean: bool = True           # Boolean projections (int8 weights)
     act_boolean: bool = True       # threshold activation in FFN hidden
+    sign_backward: bool = False    # 1-bit inter-layer backprop signal
+    bwd_norm: bool = True          # App-C.4 variance normalization
 
     # frontend
     frontend: str = "tokens"
 
     # numerics / memory
     dtype: torch.dtype = torch.bfloat16
-    attn_chunk: int = 1024         # flash-attention KV chunk (prefill)
+    remat: bool = True             # recompute each group in the backward
+    remat_policy: str = "full"     # "save_block_outs": multi-device slice
+    attn_chunk: int = 1024         # flash-attention KV chunk
     kv_cache_quant: bool = False   # int8 KV cache (kv-quant slice)
+    reduce_bf16: bool = False      # bf16 cross-shard partials: multi-device
+    block_grad_barriers: bool = False  # XLA scheduling: multi-device
+
+    def __post_init__(self):
+        if self.reduce_bf16 or self.block_grad_barriers \
+                or self.remat_policy != "full":
+            raise NotImplementedError(
+                "reduce_bf16, block_grad_barriers and remat_policy="
+                f"{self.remat_policy!r} serve cross-shard training; they "
+                "come with the multi-device slice")
 
     # -- derived -----------------------------------------------------------
     @property
@@ -154,7 +171,7 @@ def proj_apply(cfg: ModelConfig, p, x, *, scale: Optional[float] = None):
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
     if cfg.boolean:
-        y = boolean_dense(x, w)
+        y = boolean_dense(x, w, None, cfg.bwd_norm, cfg.sign_backward)
         s = (1.0 / math.sqrt(w.shape[0])) if scale is None else scale
         y = y * torch.tensor(s, dtype=y.dtype)
         if b is not None:

@@ -12,6 +12,7 @@ import torch
 
 import repro_torch
 from repro_torch.configs import get_smoke
+from repro_torch.launch import train as train_launcher
 from repro_torch.models import lm_init
 from repro_torch.serve import ServeEngine
 
@@ -37,6 +38,11 @@ def test_import_loads_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(SUBMODULES) >= 20
+    # the training slice's modules are among those imported
+    assert {"repro_torch.core.optimizer", "repro_torch.kernels.boolean_bwd",
+            "repro_torch.train.step", "repro_torch.train.loop",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+            "repro_torch.launch.train"} <= set(SUBMODULES)
 
 
 IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|repro)(?!\w)", re.M)
@@ -63,3 +69,11 @@ def test_engine_default_device_refuses_a_host_without_cuda(monkeypatch):
     eng = ServeEngine(cfg, params, max_len=32, packed=True, device="cpu")
     out = eng.generate_batch([np.arange(5, dtype=np.int32)], 3)
     assert out[0].shape == (3,) and (out[0] < cfg.vocab_size).all()
+
+
+def test_train_launcher_default_device_refuses_a_host_without_cuda(monkeypatch):
+    """``--device`` defaults to "cuda"; with no card the launcher raises
+    before building anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_launcher.main(["--arch", "gemma2-2b", "--smoke", "--steps", "1"])

@@ -19,8 +19,9 @@ from repro.kernels import pack_bits as jax_pack_bits
 from repro.kernels import unpack_bits as jax_unpack_bits
 from repro.kernels.paged_attention import paged_flash_decode as jax_paged_decode
 from repro.models import attention as JA
-from repro_torch.kernels import (KERNELS, pack_bits, packed_xnor_gemv,
-                                 paged_flash_decode, ref, unpack_bits)
+from repro_torch.kernels import (KERNELS, boolean_weight_bwd, pack_bits,
+                                 packed_xnor_gemv, paged_flash_decode, ref,
+                                 unpack_bits)
 
 
 def _pm1(rng, shape):
@@ -151,7 +152,8 @@ def test_cpu_tensors_never_count_launches():
     packed_xnor_gemv(x, w, k_valid=64)
     q, kp, vp, bt, pos = (torch.from_numpy(a) for a in _decode_inputs(2))
     paged_flash_decode(q, kp, vp, bt, pos)
-    assert [k.launches for k in KERNELS] == [0, 0]
+    boolean_weight_bwd(x, torch.ones((3, 8)))
+    assert [k.launches for k in KERNELS] == [0, 0, 0]
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
