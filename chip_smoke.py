@@ -6,25 +6,29 @@
 Run from the repository root on a host with one CUDA card (Hopper: the
 kernels are built for sm_90a). Phases, each fatal on failure:
 
-1. build   -- nvcc builds every kernel of the path from src/repro_torch/csrc
+1. build   -- nvcc builds every kernel of the paths from src/repro_torch/csrc
               (one nvcc per source, in parallel) into build/;
 2. kernels -- each kernel against its plain PyTorch version on the card, at
               the shapes its path gives it at gemma2-2b widths (serving for
-              the GEMV and paged decode, one training microbatch for the
-              weight backward), with the stated tolerance;
-              kernel, plain-version and library times (CUDA events, median
-              of 20 launches, L2 flushed before each) beside the bound;
+              the GEMV, paged decode over bf16 and int8 pools, the flash
+              prefill and the paged prefix attention; one training
+              microbatch for the weight backward), with the stated
+              tolerance; kernel, plain-version and library times (CUDA
+              events, median of 20 launches, L2 flushed before each) beside
+              the bound;
 3. serve   -- gemma2-2b at its published widths (26 layers, d_model 2304,
               vocab 256000, bf16), packed Boolean weights from the port's
               lm_init on a seeded generator, through ServeEngine.session:
               16 requests of 16..600 prompt tokens, 32 tokens each, some
               submitted mid-flight and one cancelled. The launch counters
-              are zeroed just before and read just after; both kernels must
-              have run exactly as often as the path calls them;
+              are zeroed just before and read just after; every kernel must
+              have run exactly as often as the path calls it (the flash
+              prefill once a layer of every prefill);
 4. check   -- a small fp32 model (gemma2-2b smoke widths, head_dim 64)
               served on the card with the kernels and on the CPU with the
               plain versions: logits within tolerance, greedy tokens
-              identical;
+              identical, also under prefix-cached traffic with and without
+              kv-quant;
 5. train   -- gemma2-2b at its published widths, bf16, remat on, trained
               through make_train_step + TrainLoop with hybrid_optimizer
               (the launcher's cosine schedules) on the SyntheticLM
@@ -37,7 +41,22 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               steps on the card (kernels) and on the CPU (plain versions)
               from the same state each step: losses within tolerance, flip
               decisions identical except counted ties, and a checkpoint of
-              the card's params and optimizer state round-trips bit for bit.
+              the card's params and optimizer state round-trips bit for bit;
+7. prefix  -- gemma2-2b at its published widths served through
+              ServeEngine(packed=True, prefix_cache=True).session, once
+              over a bf16 KV pool and once with kv_cache_quant (int8 pools
+              with fp32 per-row scales): a 512-token system prompt shared
+              by 16 requests (distinct tails of 16..256 tokens, 32 tokens
+              each; the first cold, the rest partial hits), then 4 repeats
+              of earlier full prompts. Launch counters exact (flash prefill
+              per cold prefill, paged prefix attention per tail prefill,
+              paged decode per decode step, none for an exact hit), prefix
+              statistics as expected, exact-hit streams bit-identical to
+              the streams that seeded their records, pages conserved after
+              the drain; each partial-hit stream is compared with a cold run
+              of its full prompt (a divergence where the cold run's top-2
+              logit margin exceeds 1.0 fails). TTFT by admission kind, the
+              decode step and peak memory are reported.
 
 The last lines are one JSON object of kernel results, the card's name and
 power limit as nvidia-smi reports them, and the result object.
@@ -157,32 +176,181 @@ def check_paged_decode(torch, flush, gen, cfg):
                        dtype=torch.int32, device="cuda")
     bt[0, 1:] = 0                       # a short request: the rest garbage
     live_rows = sum(min(C, (p + page) // page) * page for p in pos.tolist())
+    # int8 pools with per-(row, head) scales, |v| < ~5 like the bf16 pool
+    k8 = torch.randint(-127, 128, kp.shape, generator=gen, device="cuda",
+                       dtype=torch.int8)
+    v8 = torch.randint(-127, 128, kp.shape, generator=gen, device="cuda",
+                       dtype=torch.int8)
+    ks = torch.rand(kp.shape[:3], generator=gen, device="cuda") * 0.035 + 0.005
+    vs = torch.rand(kp.shape[:3], generator=gen, device="cuda") * 0.035 + 0.005
+    pools = {"bf16": (kp, vp, None, None), "int8": (k8, v8, ks, vs)}
     rows, worst = [], 0.0
-    for label, window in (("global", 0), ("local", cfg.sliding_window),
-                          ("window-100", 100)):
-        kw = dict(window=window, softcap_val=cfg.attn_logit_softcap)
-        out = paged_flash_decode(q, kp, vp, bt, pos, **kw)
-        ref = paged_flash_decode_plain(q, kp, vp, bt, pos, **kw)
+    for pool, (k_, v_, ks_, vs_) in pools.items():
+        row_bytes = hd * k_.element_size() + (4 if ks_ is not None else 0)
+        for label, window in (("global", 0), ("local", cfg.sliding_window),
+                              ("window-100", 100)):
+            kw = dict(window=window, softcap_val=cfg.attn_logit_softcap)
+            args = (q, k_, v_, bt, pos, ks_, vs_)
+            out = paged_flash_decode(*args, **kw)
+            ref = paged_flash_decode_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = 1e-4    # fp32 online softmax vs one softmax, |v| < ~5
+            print(f"  paged decode {pool} pool {label}: max_abs_err={err:.3g} "
+                  f"(tol {tol})")
+            assert err <= tol, f"paged decode {pool} {label}: {err} > {tol}"
+            worst = max(worst, err)
+            ms = time_ms(torch, lambda: paged_flash_decode(*args, **kw), flush)
+            plain = time_ms(torch, lambda: paged_flash_decode_plain(*args, **kw),
+                            flush)
+            b_ms, b_by = bound(q.numel() * 2 + live_rows * KV * row_bytes * 2
+                               + bt.numel() * 4 + pos.numel() * 4
+                               + out.numel() * 4,
+                               4.0 * live_rows * KV * R * hd, "bf16")
+            rows.append({"pool": pool, "layer": label, "window": window,
+                         "L": L, "KV": KV, "R": R, "hd": hd,
+                         "live_rows": live_rows, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain, "library_ms": None,
+                         "bound_ms": b_ms, "bound_by": b_by})
+            print(f"    kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
+                  f"{b_ms:.4f} ms ({b_by}); library: none (no single PyTorch "
+                  "call computes softcapped attention over a paged pool)")
+    return rows, worst
+
+
+def _live_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal (windowed) attention over S rows needs:
+    sum over t of min(t + 1, window)."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+# gemma2-2b prefill of one layer (16 padded q heads over 4 KV heads, head_dim
+# 256): (label, S, window, dtype)
+FLASH_CASES = (("global", 256, 0, "bf16"), ("local", 256, 4096, "bf16"),
+               ("global", 1024, 0, "bf16"), ("local", 1024, 4096, "bf16"),
+               ("window-256", 1024, 256, "bf16"), ("global", 256, 0, "fp32"))
+
+
+def check_flash(torch, flush, gen, cfg):
+    from repro_torch.kernels import flash_attention_fwd, flash_attention_plain
+
+    H, KV, hd = cfg.heads_padded(), cfg.kv_heads_padded(), cfg.head_dim_
+    n_rep = H // KV
+    rows, worst = [], 0.0
+    for label, S, window, dt in FLASH_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q = torch.randn((H, S, hd), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((KV, S, hd), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((KV, S, hd), generator=gen, device="cuda").to(dtype)
+        kw = dict(causal=True, window=window, softcap=cfg.attn_logit_softcap,
+                  n_rep=n_rep)
+        out = flash_attention_fwd(q, k, v, **kw)
+        ref = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        tol = 1e-4        # fp32 online softmax vs one softmax, |v| < ~5
-        print(f"  paged decode {label}: max_abs_err={err:.3g} (tol {tol})")
-        assert err <= tol, f"paged decode {label}: {err} > {tol}"
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        # both round one fp32 result (reassociated) to the output dtype: at
+        # most one bf16 ulp apart; fp32 outputs differ by reassociation only
+        tol = (2.0 ** -7 if dt == "bf16" else 1e-5) * scale + 1e-6
+        print(f"  flash prefill {label} S={S} window={window} {dt}: "
+              f"max_abs_err={err:.3g} (tol {tol:.3g})")
+        assert err <= tol, f"flash {label} S={S} {dt}: {err} > {tol}"
         worst = max(worst, err)
-        ms = time_ms(torch, lambda: paged_flash_decode(q, kp, vp, bt, pos, **kw),
-                     flush)
-        plain = time_ms(torch, lambda: paged_flash_decode_plain(
-            q, kp, vp, bt, pos, **kw), flush)
-        b_ms, b_by = bound(q.numel() * 2 + live_rows * KV * hd * 2 * 2
-                           + bt.numel() * 4 + pos.numel() * 4 + out.numel() * 4,
-                           4.0 * live_rows * KV * R * hd, "bf16")
-        rows.append({"layer": label, "window": window, "L": L, "KV": KV,
-                     "R": R, "hd": hd, "live_rows": live_rows,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
-        print(f"    kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
-              f"{b_ms:.4f} ms ({b_by}); library: none (no single PyTorch call "
-              "computes softcapped attention over a paged pool)")
+        ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, **kw), flush)
+        plain = time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw),
+                        flush)
+        kr, vr = (x.repeat_interleave(n_rep, 0)[None] for x in (k, v))
+        sdpa = time_ms(torch, lambda: torch.nn.functional
+                       .scaled_dot_product_attention(q[None], kr, vr,
+                                                     is_causal=True), flush)
+        pairs = H * _live_pairs(S, window)
+        b_ms, b_by = bound((q.numel() * 2 + k.numel() * 2) * q.element_size(),
+                           4.0 * hd * pairs, "bf16")
+        rows.append({"case": label, "S": S, "window": window, "dtype": dt,
+                     "BH": H, "KV": KV, "hd": hd, "live_pairs": pairs,
+                     "max_abs_err": err, "tol": tol, "ms": ms,
+                     "plain_ms": plain, "library_ms": None,
+                     "sdpa_causal_no_softcap_ms": sdpa, "bound_ms": b_ms,
+                     "bound_by": b_by})
+        print(f"    kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms:.4f} "
+              f"ms ({b_by}); library: none (no single PyTorch call computes "
+              f"softcapped attention); sdpa(is_causal, no softcap or window: "
+              f"not the same function) {sdpa:.4f} ms")
+    return rows, worst
+
+
+# the prefix-cache tail prefill of phase 7: a 512-row prefix in 32 scattered
+# pages of 16 rows, tail buckets of 128 and 256 rows (5 padded rows each)
+PREFIX_ROWS, PREFIX_PAGE = 512, 16
+
+
+def check_prefix(torch, flush, gen, cfg):
+    from repro_torch.kernels import (paged_prefix_attention,
+                                     paged_prefix_attention_plain)
+
+    H, KV, hd = cfg.heads_padded(), cfg.kv_heads_padded(), cfg.head_dim_
+    n_rep, page, npp = H // KV, PREFIX_PAGE, PREFIX_ROWS // PREFIX_PAGE
+    n_pages = 8 * (1024 // page) + 1
+    shape = (n_pages, page, KV, hd)
+    page_ids = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[:npp]
+                + 1).to(torch.int32)
+    kp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                       dtype=torch.int8)
+    v8 = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                       dtype=torch.int8)
+    ks = torch.rand(shape[:3], generator=gen, device="cuda") * 0.035 + 0.005
+    vs = torch.rand(shape[:3], generator=gen, device="cuda") * 0.035 + 0.005
+    pools = {"bf16": (kp, vp, None, None), "int8": (k8, v8, ks, vs)}
+    rows, worst = [], 0.0
+    for T in (128, 256):
+        length = T - 5
+        q = torch.randn((H, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        kt = torch.randn((T, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        vt = torch.randn((T, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        for pool, (k_, v_, ks_, vs_) in pools.items():
+            args = (q, kt, vt, k_, v_, page_ids, PREFIX_ROWS, PREFIX_ROWS,
+                    length, ks_, vs_)
+            kw = dict(n_rep=n_rep, window=0, softcap_val=cfg.attn_logit_softcap)
+            out = paged_prefix_attention(*args, **kw)
+            ref = paged_prefix_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            live_v = v_[page_ids.long()].float()
+            if vs_ is not None:
+                live_v = live_v * vs_[page_ids.long()][..., None]
+            vmax = max(vt.float().abs().max().item(),
+                       live_v.abs().max().item())
+            # both cast p to bf16 before the value product, each relative to
+            # its own running max: p may round one bf16 ulp apart
+            tol = 2.0 ** -7 * vmax + 1e-5
+            print(f"  paged prefix {pool} pool T={T} (length {length}) over "
+                  f"{PREFIX_ROWS} prefix rows: max_abs_err={err:.3g} "
+                  f"(tol {tol:.3g})")
+            assert err <= tol, f"paged prefix {pool} T={T}: {err} > {tol}"
+            worst = max(worst, err)
+            ms = time_ms(torch, lambda: paged_prefix_attention(*args, **kw),
+                         flush)
+            plain = time_ms(torch, lambda: paged_prefix_attention_plain(
+                *args, **kw), flush)
+            row_bytes = hd * k_.element_size() + (4 if ks_ is not None else 0)
+            pairs = H * sum(PREFIX_ROWS + min(t + 1, length) for t in range(T))
+            b_ms, b_by = bound(q.numel() * 2 + kt.numel() * 2 * 2
+                               + PREFIX_ROWS * KV * row_bytes * 2
+                               + page_ids.numel() * 4 + out.numel() * 4,
+                               4.0 * hd * pairs, "bf16")
+            rows.append({"pool": pool, "T": T, "length": length,
+                         "prefix_rows": PREFIX_ROWS, "H": H, "KV": KV,
+                         "hd": hd, "live_pairs": pairs, "max_abs_err": err,
+                         "tol": tol, "ms": ms, "plain_ms": plain,
+                         "library_ms": None, "bound_ms": b_ms,
+                         "bound_by": b_by})
+            print(f"    kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
+                  f"{b_ms:.4f} ms ({b_by}); library: none (no single PyTorch "
+                  "call computes softcapped attention over a paged pool)")
     return rows, worst
 
 
@@ -298,7 +466,7 @@ def profile_segment(torch, engine, prompts, n_tok):
 
 def serve(torch, seed: int):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import KERNELS, packed_xnor_gemv, paged_flash_decode
+    from repro_torch.kernels import KERNELS
     from repro_torch.models import lm_init
     from repro_torch.serve import RequestStatus, SamplingParams, ServeEngine
 
@@ -349,8 +517,7 @@ def serve(torch, seed: int):
             assert handles[cancel_rid].cancel()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t_serve
-    launches = {"packed_xnor_gemv": packed_xnor_gemv.launches,
-                "paged_flash_decode": paged_flash_decode.launches}
+    launches = {k.__name__: k.launches for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
 
     # the same run again, timed per segment, for the step and token rates
@@ -381,14 +548,18 @@ def serve(torch, seed: int):
     gemv_prefills = sum(c for b, c in stats["prefills"].items() if b <= 256)
     per_layer = 4 * cfg.n_layers
     want = {"packed_xnor_gemv": per_layer * (d_steps + gemv_prefills),
-            "paged_flash_decode": cfg.n_layers * d_steps}
+            "paged_flash_decode": cfg.n_layers * d_steps,
+            "boolean_weight_bwd": 0,
+            "flash_attention_fwd": cfg.n_layers * sum(stats["prefills"].values()),
+            "paged_prefix_attention": 0}
     print(f"  served {len(handles)} requests in {serve_s:.2f} s: "
           f"{d_steps} decode steps, prefill buckets {dict(stats['prefills'])}")
     print(f"  launches {launches}, expected {want} ({per_layer} GEMV per decode "
           f"step and per prefill of <= 256 rows, {cfg.n_layers} paged decode "
-          "per decode step)")
+          f"per decode step, {cfg.n_layers} flash prefill per prefill)")
     assert launches == want, (launches, want)
-    assert all(v > 0 for v in launches.values()), launches
+    for name in ("packed_xnor_gemv", "paged_flash_decode", "flash_attention_fwd"):
+        assert launches[name] > 0, launches
     for h in handles:
         toks = h.tokens_so_far()
         assert all(0 <= t < cfg.vocab_size for t in toks), h.rid
@@ -422,7 +593,101 @@ def serve(torch, seed: int):
     torch.cuda.synchronize()
     assert tuple(logits.shape) == (1, 1, cfg.vocab_padded), logits.shape
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
-    return launches, metrics
+    return engine, launches, metrics
+
+
+# ---------------------------------------------------------------------------
+# prefix-cached traffic (phases 4 and 7)
+# ---------------------------------------------------------------------------
+def prefix_traffic(torch, engine, prompts, repeats, n_tok, *, lanes, page,
+                   segment):
+    """Request 0 alone (cold), then requests 1.. together (partial hits on
+    the shared system prompt), then, once they are done, repeats of the
+    prompts ``repeats`` (exact hits, or partial hits where no exact record
+    exists). The launch counters are zeroed just before and read after the
+    drain, and around the repeats' admission round. Returns the streams,
+    each request's admission kind, TTFT by kind (the session's own
+    submit-to-first-token stamps), decode step times, session stats and
+    launch counts; the pages must be conserved after the drain."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.serve import SamplingParams
+
+    cuda = engine.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    for k in KERNELS:
+        k.launches = 0
+    sess = engine.session(lanes=lanes, page_size=page, segment=segment,
+                          prefix_cache=True)
+    handles, kinds, step_ms = [], {}, []
+
+    def submit(i):
+        handles.append(sess.submit(prompts[i], SamplingParams(max_tokens=n_tok)))
+
+    def note_kinds():
+        for h in handles:
+            if h.rid not in kinds and h.tokens_ready:
+                hit = h._req.hit
+                kinds[h.rid] = ("cold" if hit is None else
+                                "exact" if hit.exact else "partial")
+
+    def drain():
+        while True:
+            sync()
+            t = time.perf_counter()
+            steps0 = sess.stats["decode_steps"]
+            if not sess.step():
+                return
+            sync()
+            if sess.stats["decode_steps"] > steps0:
+                step_ms.append((time.perf_counter() - t) * 1e3 / segment)
+            note_kinds()
+
+    submit(0)
+    drain()
+    for i in range(1, len(prompts)):
+        submit(i)
+    drain()
+    before = {k.__name__: k.launches for k in KERNELS}
+    for i in repeats:
+        submit(i)
+    sess.step()                                  # the repeats' admission
+    sync()
+    repeat_round = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+    note_kinds()
+    drain()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    alloc = sess.sched.alloc                     # page conservation
+    assert alloc.refs[0] == 1 and all(alloc.refs[p] == 0 for p in alloc.free_pages)
+    assert not sess.sched.active
+    assert sess.prefix.owned_pages + alloc.n_free == alloc.n_pages - 1
+    audit = sess.audit()
+    stats = {"decode_steps": sess.stats["decode_steps"],
+             "prefills": sum(sess.stats["prefills"].values()),
+             "tail_prefills": sum(sess.stats["tail_prefills"].values()),
+             "buckets": {str(b): c for b, c in (sess.stats["prefills"]
+                                                + sess.stats["tail_prefills"])
+                         .items()},
+             "exact_admits": sess.stats["exact_admits"],
+             "prefix": dict(sess.prefix.stats)}
+    sess.close()
+    ttft, admit = {}, {}
+    for h in handles:
+        ttft.setdefault(kinds[h.rid], []).append(h.ttft_ms)
+        admit.setdefault(kinds[h.rid], []).append(h.admit_ms)
+    return {"streams": [h.tokens_so_far() for h in handles],
+            "kinds": [kinds[h.rid] for h in handles], "ttft_ms": ttft,
+            "admit_ms": admit,
+            "step_ms": step_ms, "stats": stats, "launches": launches,
+            "repeat_round_launches": repeat_round, "audit": audit}
+
+
+def expected_kinds(n, repeats, quant):
+    """Request 0 cold, the rest of the first n partial; a repeat is exact
+    where its prompt left an exact record — every prompt on a bf16 pool,
+    only the cold one under kv-quant (a kv-quant tail prefill never seeds
+    a record)."""
+    return (["cold"] + ["partial"] * (n - 1)
+            + ["exact" if (i == 0 or not quant) else "partial" for i in repeats])
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +727,35 @@ def agree_with_cpu(torch, seed: int):
     same = sum(a == b for a, b in zip(*outs))
     print(f"  smoke greedy streams identical card vs CPU: {same}/{len(prompts)}")
     assert outs[0] == outs[1], outs
-    return {"smoke_logits_max_abs_err": err, "smoke_streams_identical": same}
+
+    # prefix-cached traffic, scaled down: a 32-token system prompt, 6 tails
+    system = rng.integers(0, cfg.vocab_size, (32,)).astype(np.int32)
+    tails = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+             for n in (5, 17, 9, 30, 12, 3)]
+    pfx_prompts = [np.concatenate([system, t]) for t in tails]
+    repeats = (0, 2, 4)
+    pfx = {}
+    for quant in (False, True):
+        qcfg = cfg.scaled(kv_cache_quant=quant)
+        res = [prefix_traffic(torch, ServeEngine(qcfg, params, max_len=128,
+                                                 packed=True, device=d),
+                              pfx_prompts, repeats, 8, lanes=4, page=16,
+                              segment=4)
+               for d in ("cuda", "cpu")]
+        label = "kv-quant" if quant else "bf16-layout fp32"
+        want = expected_kinds(len(pfx_prompts), repeats, quant)
+        assert res[0]["kinds"] == res[1]["kinds"] == want, \
+            (res[0]["kinds"], res[1]["kinds"], want)
+        n_same = sum(a == b for a, b in zip(res[0]["streams"],
+                                            res[1]["streams"]))
+        print(f"  smoke prefix traffic ({label}): kinds {res[0]['kinds']}; "
+              f"streams identical card vs CPU {n_same}/{len(want)}")
+        assert res[0]["streams"] == res[1]["streams"], \
+            (res[0]["streams"], res[1]["streams"])
+        assert res[0]["stats"]["prefix"] == res[1]["stats"]["prefix"]
+        pfx["kv_quant" if quant else "fp32_pool"] = n_same
+    return {"smoke_logits_max_abs_err": err, "smoke_streams_identical": same,
+            "smoke_prefix_streams_identical": pfx}
 
 
 # ---------------------------------------------------------------------------
@@ -552,7 +845,8 @@ def train(torch, seed: int):
     launches = {k.__name__: k.launches for k in KERNELS}
     per_mb = 7 * cfg.n_layers
     want = {"packed_xnor_gemv": 0, "paged_flash_decode": 0,
-            "boolean_weight_bwd": TIMED_STEPS * TRAIN_MICRO * per_mb}
+            "boolean_weight_bwd": TIMED_STEPS * TRAIN_MICRO * per_mb,
+            "flash_attention_fwd": 0, "paged_prefix_attention": 0}
     peak = torch.cuda.max_memory_allocated()
     print(f"  launches over the {TIMED_STEPS} timed steps {launches}, expected "
           f"{want} ({per_mb} weight-backward launches a microbatch)")
@@ -684,6 +978,128 @@ def train_agree_with_cpu(torch, seed: int):
             "train_smoke_flips": n_flips, "train_smoke_ties": n_ties}
 
 
+# ---------------------------------------------------------------------------
+# 7. prefix-cached serving of gemma2-2b at published widths
+# ---------------------------------------------------------------------------
+PFX_SYSTEM, PFX_REQUESTS, PFX_TOKENS, PFX_REPEATS = 512, 16, 32, (0, 3, 7, 12)
+
+
+def _margin(logits_row) -> float:
+    """Top-1 minus top-2 logit."""
+    top = logits_row.float().topk(2).values.tolist()
+    return top[0] - top[1]
+
+
+def serve_prefix(torch, engine, seed: int):
+    import numpy as np
+    from repro_torch.models import lm_prefill
+    from repro_torch.serve import SamplingParams, ServeEngine
+
+    cfg = engine.cfg
+    V = cfg.vocab_size
+    rng = np.random.default_rng(seed + 7)
+    system = rng.integers(0, V, (PFX_SYSTEM,)).astype(np.int32)
+    tail_lens = rng.integers(16, 257, (PFX_REQUESTS,))
+    prompts = [np.concatenate([system, rng.integers(0, V, (n,)).astype(np.int32)])
+               for n in tail_lens]
+    out = {}
+    for quant in (False, True):
+        label = "kv-quant" if quant else "bf16"
+        eng = engine if not quant else ServeEngine(
+            cfg.scaled(kv_cache_quant=True), engine.params, max_len=1024,
+            packed=True)
+        gc_collect(torch)
+        torch.cuda.reset_peak_memory_stats()
+        res = prefix_traffic(torch, eng, prompts, PFX_REPEATS, PFX_TOKENS,
+                             lanes=8, page=16, segment=8)
+        peak = torch.cuda.max_memory_allocated()
+        st, launches = res["stats"], res["launches"]
+        want_kinds = expected_kinds(PFX_REQUESTS, PFX_REPEATS, quant)
+        assert res["kinds"] == want_kinds, (res["kinds"], want_kinds)
+        n_exact = want_kinds.count("exact")
+        n_partial = want_kinds.count("partial")
+        pstats = st["prefix"]
+        assert (pstats["exact_hits"], pstats["partial_hits"], pstats["misses"]) \
+            == (n_exact, n_partial, 1), pstats
+        assert (st["exact_admits"], st["prefills"], st["tail_prefills"]) \
+            == (n_exact, 1, n_partial), st
+        L = cfg.n_layers
+        # the projections of a prefill of <= 256 rows take the GEMV
+        gemv_prefills = sum(c for b, c in st["buckets"].items() if int(b) <= 256)
+        want = {"packed_xnor_gemv": 4 * L * (st["decode_steps"] + gemv_prefills),
+                "paged_flash_decode": L * st["decode_steps"],
+                "boolean_weight_bwd": 0,
+                "flash_attention_fwd": L * st["prefills"],
+                "paged_prefix_attention": L * st["tail_prefills"]}
+        print(f"  {label}: kinds {dict((k, want_kinds.count(k)) for k in ('cold', 'partial', 'exact'))}, "
+              f"prefix stats {pstats}")
+        print(f"  {label}: launches {launches}, expected {want}")
+        assert launches == want, (launches, want)
+        for name in ("paged_flash_decode", "flash_attention_fwd",
+                     "paged_prefix_attention"):
+            assert launches[name] > 0, launches
+        rr = res["repeat_round_launches"]
+        n_rep_partial = sum(k == "partial" for k in want_kinds[PFX_REQUESTS:])
+        assert rr["flash_attention_fwd"] == 0 and \
+            rr["paged_prefix_attention"] == L * n_rep_partial, rr
+        streams = res["streams"]
+        exact_same = []
+        for j, i in enumerate(PFX_REPEATS):
+            s_rep = streams[PFX_REQUESTS + j]
+            if want_kinds[PFX_REQUESTS + j] == "exact":
+                assert s_rep == streams[i], (label, i, s_rep, streams[i])
+                exact_same.append(i)
+        print(f"  {label}: exact-hit streams bit-identical to the streams that "
+              f"seeded their records: prompts {exact_same}")
+
+        # each partial-hit stream against a cold run of its full prompt
+        cold = eng.generate_batch(prompts, PFX_TOKENS, lanes=8, page_size=16,
+                                  segment=8, prefix_cache=False)
+        agree, diverged = [], []
+        for i in range(1, PFX_REQUESTS):
+            a, b = streams[i], cold[i].tolist()
+            n = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), len(b))
+            agree.append(n)
+            if n < len(b):
+                ctx = np.concatenate([prompts[i], np.asarray(b[:n], np.int32)])
+                lg, _ = lm_prefill(cfg, eng.params, {"tokens": torch.from_numpy(
+                    ctx[None]).to(eng.device)})
+                m = _margin(lg[0, -1, :V])
+                diverged.append({"request": i, "step": n, "cold_margin": m})
+                print(f"    request {i}: partial hit diverges from the cold run "
+                      f"at step {n}, cold top-2 logit margin {m:.4f}")
+        print(f"  {label}: partial-hit tokens agreeing with a cold run before "
+              f"the first divergence: {agree} (of {PFX_TOKENS} each)")
+        for d in diverged:
+            assert d["cold_margin"] <= 1.0, (label, d)
+
+        ttft = {k: statistics.median(v) for k, v in res["ttft_ms"].items()}
+        admit = {k: statistics.median(v) for k, v in res["admit_ms"].items()}
+        step = statistics.median(res["step_ms"])
+        print(f"  {label}: TTFT median (admission work alone) cold "
+              f"{ttft['cold']:.1f} ({admit['cold']:.1f}) ms, partial "
+              f"{ttft['partial']:.1f} ({admit['partial']:.1f}) ms, exact "
+              f"{ttft['exact']:.1f} ({admit['exact']:.1f}) ms; decode step "
+              f"median {step:.2f} ms; max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB")
+        out[label] = {"kinds": want_kinds, "stats": st, "launches": launches,
+                      "repeat_round_launches": rr, "ttft_ms_median": ttft,
+                      "admit_ms_median": admit, "ttft_ms": res["ttft_ms"],
+                      "admit_ms": res["admit_ms"], "step_ms_median": step,
+                      "max_memory_allocated_bytes": peak,
+                      "partial_agreement": agree, "divergences": diverged,
+                      "exact_identical": exact_same, "audit": res["audit"]}
+        if quant:
+            del eng
+    return out
+
+
+def gc_collect(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -719,11 +1135,13 @@ def main() -> int:
     gemv_rows, gemv_err = check_gemv(torch, flush, gen)
     dec_rows, dec_err = check_paged_decode(torch, flush, gen,
                                            get_config("gemma2-2b"))
+    flash_rows, flash_err = check_flash(torch, flush, gen, get_config("gemma2-2b"))
+    pfx_rows, pfx_err = check_prefix(torch, flush, gen, get_config("gemma2-2b"))
     wbwd_rows, wbwd_err = check_weight_bwd(torch, flush, gen)
     del flush
 
     print("3. serve gemma2-2b (published widths) through the packed session")
-    launches, metrics = serve(torch, args.seed)
+    engine, launches, metrics = serve(torch, args.seed)
 
     print("4. small fp32 model: card kernels vs CPU plain versions")
     metrics.update(agree_with_cpu(torch, args.seed))
@@ -734,10 +1152,23 @@ def main() -> int:
     print("6. small fp32 model training: card kernels vs CPU plain versions")
     train_metrics.update(train_agree_with_cpu(torch, args.seed))
 
+    print("7. prefix-cached serving of gemma2-2b (published widths), bf16 and "
+          "int8 KV pools")
+    prefix_metrics = serve_prefix(torch, engine, args.seed)
+    del engine
+
     decode_m8 = [r for r in gemv_rows if r["M"] == 8]
     layer_votes = [r for r in wbwd_rows if r["alpha"] == 0.0
                    and r["x_dtype"] == "torch.bfloat16"]
-    local = next(r for r in dec_rows if r["layer"] == "local")
+    local = next(r for r in dec_rows if r["layer"] == "local"
+                 and r["pool"] == "bf16")
+    local8 = next(r for r in dec_rows if r["layer"] == "local"
+                  and r["pool"] == "int8")
+    flash = next(r for r in flash_rows if (r["case"], r["S"], r["dtype"])
+                 == ("local", 1024, "bf16"))
+    pfx = next(r for r in pfx_rows if (r["pool"], r["T"]) == ("bf16", 256))
+    pfx8 = next(r for r in pfx_rows if (r["pool"], r["T"]) == ("int8", 256))
+    p7 = prefix_metrics["bf16"]["launches"]
     kernels = [
         {"name": "packed_xnor_gemv", "route": "cuda",
          "source": "src/repro_torch/csrc/packed_xnor_gemv.cu",
@@ -757,9 +1188,12 @@ def main() -> int:
          "ms": local["ms"], "plain_ms": local["plain_ms"],
          "bound_ms": local["bound_ms"], "bound_by": local["bound_by"],
          "library_ms": None,
+         "int8_ms": local8["ms"], "int8_plain_ms": local8["plain_ms"],
+         "int8_bound_ms": local8["bound_ms"],
          "shape": f"{local['L']} lanes, {local['KV']} KV heads x {local['R']} "
-                  f"q heads, head_dim {local['hd']}, bf16 pool, "
-                  f"{local['live_rows']} live rows, window {local['window']}"},
+                  f"q heads, head_dim {local['hd']}, bf16 pool (int8_*: int8 "
+                  f"pool + fp32 scales), {local['live_rows']} live rows, "
+                  f"window {local['window']}"},
         {"name": "boolean_weight_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/boolean_weight_bwd.cu",
          "replaces": "src/repro/kernels/boolean_bwd.py:52",
@@ -774,13 +1208,43 @@ def main() -> int:
          "shape": f"sum over one layer's wq, wk, wv, wo, wg, wu, wd votes at "
                   f"B={WBWD_TOKENS} tokens (one microbatch), bf16 x and z, "
                   "alpha=0"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:87",
+         "launches": p7["flash_attention_fwd"], "max_abs_err": flash_err,
+         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+         "library_ms": None,
+         "sdpa_causal_no_softcap_ms": flash["sdpa_causal_no_softcap_ms"],
+         "shape": f"one layer's cold prefill: {flash['BH']} q heads over "
+                  f"{flash['KV']} KV heads, S={flash['S']}, head_dim "
+                  f"{flash['hd']}, bf16, softcap 50, window {flash['window']}; "
+                  "launches from phase 7 (bf16 pool)"},
+        {"name": "paged_prefix_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_prefix_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:335",
+         "launches": p7["paged_prefix_attention"], "max_abs_err": pfx_err,
+         "ms": pfx["ms"], "plain_ms": pfx["plain_ms"],
+         "bound_ms": pfx["bound_ms"], "bound_by": pfx["bound_by"],
+         "library_ms": None,
+         "int8_ms": pfx8["ms"], "int8_plain_ms": pfx8["plain_ms"],
+         "int8_bound_ms": pfx8["bound_ms"],
+         "shape": f"one layer's tail prefill: {pfx['H']} q heads over "
+                  f"{pfx['KV']} KV heads, a {pfx['T']}-row tail bucket "
+                  f"({pfx['length']} real) over {pfx['prefix_rows']} prefix "
+                  "rows in 32 scattered pages, head_dim 256, bf16 pool "
+                  "(int8_*: int8 pool + fp32 scales); launches from phase 7 "
+                  "(bf16 pool)"},
     ]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"device": device_line, "seed": args.seed,
                                "build_s": secs, "gemv": gemv_rows,
                                "paged_decode": dec_rows, "weight_bwd": wbwd_rows,
+                               "flash_prefill": flash_rows,
+                               "paged_prefix": pfx_rows,
                                "serve": metrics, "train": train_metrics,
+                               "prefix_serve": prefix_metrics,
                                "kernels": kernels}, indent=1))
     print(f"details written to {out}")
     print(json.dumps({"kernels": kernels}))

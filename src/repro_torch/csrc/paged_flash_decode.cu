@@ -3,12 +3,15 @@
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention.py::
 // paged_flash_decode (body _decode_kernel). Same contract: q (L, KV, R, hd)
-// grouped queries, pools (n_pages, page, KV, hd), block_table (L, C) int32,
+// grouped queries, pools (n_pages, page, KV, hd) in q's dtype or int8 with
+// fp32 (n_pages, page, KV) per-row scales, block_table (L, C) int32,
 // pos (L,) int32 with the new token already written at pos; only the
 // min(C, (pos + page) // page) live pages of a lane are read; row kpos is
 // valid iff kpos <= pos and, with a window, kpos > pos - window; scores are
 // q.k * scale, then the tanh softcap, then the mask (-1e30); the output is
-// acc / max(l, 1e-30) in fp32.
+// acc / max(l, 1e-30) in fp32. An int8 row is dequantised on chip exactly
+// as the TPU kernel's _dequant does: fp32(int8) * its row's scale, kept in
+// fp32 (no cast to the model's dtype).
 //
 // What bounds it on the H100: the live K/V rows of every lane, read once
 // from device memory (4 KB per token per layer at gemma2-2b widths). The
@@ -34,8 +37,9 @@
 //  * a lane whose every row is masked (far past its table under a window)
 //    averages all its live rows, as the reference does: m stays -1e30, every
 //    row weighs exp(0) = 1;
-//  * pools are bf16 or fp32 here; int8 pools with per-row scales come with
-//    the kv-quant slice and are refused by the wrapper.
+//  * pools are bf16 or fp32 like q, or int8: a lane then reads hd/32 int8
+//    codes of the row (one 8-byte load at hd 256) and the row's fp32 scale
+//    (one broadcast load), a quarter of a bf16 row's bytes.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -81,10 +85,29 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ p, fl
     }
 }
 
-template <typename T, int HD, int R>
+template <int N>
+__device__ __forceinline__ void load_row(const int8_t* __restrict__ p, float (&o)[N])
+{
+    if constexpr (N % 8 == 0) {
+#pragma unroll
+        for (int i = 0; i < N; i += 8) {
+            const uint2 v = __ldg(reinterpret_cast<const uint2*>(p + i));
+            const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) o[i + j] = (float)b[j];
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) o[i] = (float)p[i];
+    }
+}
+
+// q in T; pools in KT (T, or int8 with per-(row, KV head) fp32 scales).
+template <typename T, typename KT, int HD, int R>
 __global__ void __launch_bounds__(WARPS * 32)
-paged_decode_split(const T* __restrict__ q, const T* __restrict__ kpool,
-                   const T* __restrict__ vpool, const int32_t* __restrict__ bt,
+paged_decode_split(const T* __restrict__ q, const KT* __restrict__ kpool,
+                   const KT* __restrict__ vpool, const float* __restrict__ kscale,
+                   const float* __restrict__ vscale, const int32_t* __restrict__ bt,
                    const int32_t* __restrict__ pos, float* __restrict__ part_m,
                    float* __restrict__ part_l, float* __restrict__ part_acc,
                    int KV, int page, int C, int pps, int window, float softcap,
@@ -119,10 +142,19 @@ paged_decode_split(const T* __restrict__ q, const T* __restrict__ kpool,
         const int c = c0 + i / page;
         const int row = i - (c - c0) * page;
         const int pid = bt[(size_t)ln * C + c];
-        const size_t base = (((size_t)pid * page + row) * KV + g) * HD + t * EPL;
+        const size_t cell = ((size_t)pid * page + row) * KV + g;
+        const size_t base = cell * HD + t * EPL;
         float kr[EPL], vr[EPL];
         load_row(kpool + base, kr);
         load_row(vpool + base, vr);
+        if constexpr (sizeof(KT) == 1) {   // _dequant: fp32(int8) * scale
+            const float ks = __ldg(kscale + cell), vs = __ldg(vscale + cell);
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) {
+                kr[e] *= ks;
+                vr[e] *= vs;
+            }
+        }
 
         const int kpos = c * page + row;
         const bool valid = kpos <= p && (window <= 0 || kpos > p - window);
@@ -203,48 +235,43 @@ __global__ void paged_decode_combine(const float* __restrict__ part_m,
     }
 }
 
-template <typename T, int HD, int R>
-void launch(const void* q, const void* k, const void* v, const int32_t* bt,
-            const int32_t* pos, float* pm, float* pl, float* pa, int L, int KV,
-            int page, int C, int nsplit, int pps, int window, float softcap,
-            float scale, cudaStream_t s)
+struct Args {
+    const void *q, *k, *v;
+    const float *ks, *vs;
+    const int32_t *bt, *pos;
+    float *pm, *pl, *pa;
+    int L, KV, page, C, nsplit, pps, window;
+    float softcap, scale;
+};
+
+template <typename T, typename KT, int HD, int R>
+void launch(const Args& a, cudaStream_t s)
 {
-    paged_decode_split<T, HD, R><<<dim3(L, KV, nsplit), WARPS * 32, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        bt, pos, pm, pl, pa, KV, page, C, pps, window, softcap, scale);
+    paged_decode_split<T, KT, HD, R><<<dim3(a.L, a.KV, a.nsplit), WARPS * 32, 0, s>>>(
+        static_cast<const T*>(a.q), static_cast<const KT*>(a.k),
+        static_cast<const KT*>(a.v), a.ks, a.vs, a.bt, a.pos, a.pm, a.pl, a.pa, a.KV,
+        a.page, a.C, a.pps, a.window, a.softcap, a.scale);
 }
 
-template <typename T, int HD>
-bool launch_r(int R, const void* q, const void* k, const void* v, const int32_t* bt,
-              const int32_t* pos, float* pm, float* pl, float* pa, int L, int KV,
-              int page, int C, int nsplit, int pps, int window, float softcap,
-              float scale, cudaStream_t s)
+template <typename T, typename KT, int HD>
+bool launch_r(int R, const Args& a, cudaStream_t s)
 {
-#define REPRO_R(RR)                                                                   \
-    case RR:                                                                          \
-        launch<T, HD, RR>(q, k, v, bt, pos, pm, pl, pa, L, KV, page, C, nsplit, pps,  \
-                          window, softcap, scale, s);                                 \
-        return true;
     switch (R) {
-        REPRO_R(1) REPRO_R(2) REPRO_R(4) REPRO_R(8)
+        case 1: launch<T, KT, HD, 1>(a, s); return true;
+        case 2: launch<T, KT, HD, 2>(a, s); return true;
+        case 4: launch<T, KT, HD, 4>(a, s); return true;
+        case 8: launch<T, KT, HD, 8>(a, s); return true;
         default: return false;
     }
-#undef REPRO_R
 }
 
-template <typename T>
-bool launch_hd(int HD, int R, const void* q, const void* k, const void* v,
-               const int32_t* bt, const int32_t* pos, float* pm, float* pl, float* pa,
-               int L, int KV, int page, int C, int nsplit, int pps, int window,
-               float softcap, float scale, cudaStream_t s)
+template <typename T, typename KT>
+bool launch_hd(int HD, int R, const Args& a, cudaStream_t s)
 {
     switch (HD) {
-        case 64: return launch_r<T, 64>(R, q, k, v, bt, pos, pm, pl, pa, L, KV, page, C,
-                                        nsplit, pps, window, softcap, scale, s);
-        case 128: return launch_r<T, 128>(R, q, k, v, bt, pos, pm, pl, pa, L, KV, page, C,
-                                          nsplit, pps, window, softcap, scale, s);
-        case 256: return launch_r<T, 256>(R, q, k, v, bt, pos, pm, pl, pa, L, KV, page, C,
-                                          nsplit, pps, window, softcap, scale, s);
+        case 64: return launch_r<T, KT, 64>(R, a, s);
+        case 128: return launch_r<T, KT, 128>(R, a, s);
+        case 256: return launch_r<T, KT, 256>(R, a, s);
         default: return false;
     }
 }
@@ -253,23 +280,30 @@ bool launch_hd(int HD, int R, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q: (L, KV, R, HD); k/v pools: (n_pages, page, KV, HD), bf16 (is_bf16 = 1)
-// or fp32, like q; bt: (L, C); pos: (L,); out: (L, KV, R, HD) fp32. Scratch:
-// part_m/part_l (L, KV, nsplit, R), part_acc (L, KV, nsplit, R, HD) fp32.
-// pps pages per split, nsplit * pps >= C. HD in {64, 128, 256}, R in
-// {1, 2, 4, 8}. Returns cudaGetLastError() after the launches.
-int paged_flash_decode(const void* q, const void* kpool, const void* vpool, int is_bf16,
-                       const int32_t* bt, const int32_t* pos, float* out, float* part_m,
-                       float* part_l, float* part_acc, int L, int KV, int R, int HD,
-                       int page, int C, int nsplit, int pps, int window, float softcap,
-                       float scale, void* stream)
+// q: (L, KV, R, HD), bf16 (is_bf16 = 1) or fp32; k/v pools: (n_pages, page,
+// KV, HD) in q's dtype, or int8 (pool_int8 = 1) with fp32 (n_pages, page,
+// KV) scales kscale/vscale (ignored otherwise); bt: (L, C); pos: (L,); out:
+// (L, KV, R, HD) fp32. Scratch: part_m/part_l (L, KV, nsplit, R), part_acc
+// (L, KV, nsplit, R, HD) fp32. pps pages per split, nsplit * pps >= C. HD
+// in {64, 128, 256}, R in {1, 2, 4, 8}. Returns cudaGetLastError() after
+// the launches.
+int paged_flash_decode(const void* q, const void* kpool, const void* vpool,
+                       const float* kscale, const float* vscale, int is_bf16,
+                       int pool_int8, const int32_t* bt, const int32_t* pos, float* out,
+                       float* part_m, float* part_l, float* part_acc, int L, int KV, int R,
+                       int HD, int page, int C, int nsplit, int pps, int window,
+                       float softcap, float scale, void* stream)
 {
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    const bool ok = is_bf16
-        ? launch_hd<__nv_bfloat16>(HD, R, q, kpool, vpool, bt, pos, part_m, part_l, part_acc,
-                                   L, KV, page, C, nsplit, pps, window, softcap, scale, s)
-        : launch_hd<float>(HD, R, q, kpool, vpool, bt, pos, part_m, part_l, part_acc,
-                           L, KV, page, C, nsplit, pps, window, softcap, scale, s);
+    const Args a{q, kpool, vpool, kscale, vscale, bt, pos, part_m, part_l, part_acc,
+                 L, KV, page, C, nsplit, pps, window, softcap, scale};
+    bool ok;
+    if (is_bf16)
+        ok = pool_int8 ? launch_hd<__nv_bfloat16, int8_t>(HD, R, a, s)
+                       : launch_hd<__nv_bfloat16, __nv_bfloat16>(HD, R, a, s);
+    else
+        ok = pool_int8 ? launch_hd<float, int8_t>(HD, R, a, s)
+                       : launch_hd<float, float>(HD, R, a, s);
     if (!ok) return (int)cudaErrorInvalidValue;
     paged_decode_combine<<<L * KV, 256, 0, s>>>(part_m, part_l, part_acc, out, nsplit, R, HD);
     return (int)cudaGetLastError();

@@ -21,7 +21,8 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("packed_xnor_gemv", "paged_flash_decode", "boolean_weight_bwd")
+SOURCES = ("packed_xnor_gemv", "paged_flash_decode", "boolean_weight_bwd",
+           "flash_attention", "paged_prefix_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -110,13 +111,23 @@ _SIGNATURES = {
         "xnor_gemv_error_string": [_I],
     },
     "paged_flash_decode": {
-        "paged_flash_decode": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+        "paged_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                               _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                               _P],
         "paged_flash_decode_error_string": [_I],
     },
     "boolean_weight_bwd": {
         "boolean_weight_bwd": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _F, _P],
         "boolean_weight_bwd_error_string": [_I],
+    },
+    "flash_attention": {
+        "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                _F, _P],
+        "flash_attention_error_string": [_I],
+    },
+    "paged_prefix_attention": {
+        "paged_prefix_attention": [_P] * 9 + [_I] * 14 + [_F, _F, _P],
+        "paged_prefix_attention_error_string": [_I],
     },
 }
 

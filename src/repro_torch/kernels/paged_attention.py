@@ -1,17 +1,25 @@
-"""Paged flash-decode: one new token per lane over its block-table pages.
+"""Paged attention over a block-table KV pool, pages read in place.
 
-The counterpart of the JAX package's ``kernels/paged_attention.py::
-paged_flash_decode``. CPU tensors run ``paged_flash_decode_plain`` (gather
-the lane's table into a contiguous window, masked softmax in fp32); CUDA
-tensors launch ``csrc/paged_flash_decode.cu`` or raise. The kernel streams
-pages through an online softmax split over the page range, so its
-reduction order differs from the plain version's: the two agree to a
-tolerance, not bit for bit.
+The counterparts of the JAX package's ``kernels/paged_attention.py``:
+
+  * ``paged_flash_decode`` -- one new token per lane over its block-table
+    pages. CPU tensors run ``paged_flash_decode_plain`` (gather the lane's
+    table into a contiguous window, int8 rows dequantised to fp32, masked
+    softmax in fp32); CUDA tensors launch ``csrc/paged_flash_decode.cu`` or
+    raise. The kernel streams pages through an online softmax split over
+    the page range, so its reduction order differs from the plain
+    version's: the two agree to a tolerance, not bit for bit.
+  * ``paged_prefix_attention`` -- the prefix-cache tail prefill: the tail's
+    queries over [the cached prefix's pool pages ; the tail's own K/V].
+    CPU tensors run ``paged_prefix_attention_plain`` (the JAX package's
+    parity oracle: ``gather_prefix_kv`` + ``flash_attention_abs``); CUDA
+    tensors launch ``csrc/paged_prefix_attention.cu`` or raise.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import types
 
 import torch
 
@@ -23,15 +31,47 @@ _HEAD_DIMS = (64, 128, 256)
 _GROUP_SIZES = (1, 2, 4, 8)
 
 
-def paged_flash_decode_plain(q, k_pool, v_pool, block_table, pos, *,
+def _dequant(x, scale):
+    """int8 rows -> fp32 * their per-row scale; other dtypes -> fp32 (the
+    JAX kernels' ``_dequant``)."""
+    if x.dtype == torch.int8:
+        return x.to(torch.float32) * scale[..., None]
+    return x.to(torch.float32)
+
+
+def _check_scales(k_pool, v_pool, k_scale, v_scale, who: str):
+    """int8 pools need (n_pages, page, KV) fp32 scales; others take none."""
+    quant = k_pool.dtype == torch.int8
+    if (v_pool.dtype == torch.int8) != quant:
+        raise TypeError(f"{who}: k and v pools differ in dtype "
+                        f"({k_pool.dtype}, {v_pool.dtype})")
+    if not quant:
+        if k_scale is not None or v_scale is not None:
+            raise ValueError(f"{who}: scales given for a {k_pool.dtype} pool")
+        return False
+    if k_scale is None or v_scale is None:
+        raise ValueError(f"{who}: int8 pools need k_scale and v_scale")
+    want = tuple(k_pool.shape[:3])
+    for sc in (k_scale, v_scale):
+        if tuple(sc.shape) != want or sc.dtype != torch.float32:
+            raise ValueError(f"{who}: scales must be fp32 {want}, got "
+                             f"{sc.dtype} {tuple(sc.shape)}")
+    return True
+
+
+def paged_flash_decode_plain(q, k_pool, v_pool, block_table, pos,
+                             k_scale=None, v_scale=None, *,
                              window: int = 0, softcap_val: float = 0.0):
-    """Gather + masked softmax in fp32. Shapes as ``paged_flash_decode``."""
+    """Gather + masked softmax in fp32 (int8 rows dequantised to fp32).
+    Shapes as ``paged_flash_decode``."""
     L, KV, R, hd = q.shape
     page = k_pool.shape[1]
     C = block_table.shape[1]
     bt = block_table.long()
-    k = k_pool[bt].reshape(L, C * page, KV, hd).to(torch.float32)
-    v = v_pool[bt].reshape(L, C * page, KV, hd).to(torch.float32)
+    k = _dequant(k_pool[bt], None if k_scale is None else k_scale[bt])
+    v = _dequant(v_pool[bt], None if v_scale is None else v_scale[bt])
+    k = k.reshape(L, C * page, KV, hd)
+    v = v.reshape(L, C * page, KV, hd)
     s = torch.einsum("lgrd,lcgd->lgrc", q.to(torch.float32), k) \
         * (1.0 / math.sqrt(hd))
     if softcap_val > 0:
@@ -55,14 +95,16 @@ def decode_split(L: int, KV: int, C: int):
     return -(-C // pps), pps
 
 
-def paged_flash_decode(q, k_pool, v_pool, block_table, pos, *,
+def paged_flash_decode(q, k_pool, v_pool, block_table, pos,
+                       k_scale=None, v_scale=None, *,
                        window: int = 0, softcap_val: float = 0.0):
     """Flash-decode over a paged pool, pages read in place per lane.
 
     q: (L, KV, R, hd) grouped queries; k_pool/v_pool: (n_pages, page, KV,
-    hd) in q's dtype; block_table: (L, C) int32 lane-logical page ->
-    physical page; pos: (L,) int32 positions (new token already written at
-    pos). Returns (L, KV, R, hd) fp32. ``paged_flash_decode.launches``
+    hd) in q's dtype, or int8 with k_scale/v_scale (n_pages, page, KV) fp32
+    per-(token, head) scales; block_table: (L, C) int32 lane-logical page
+    -> physical page; pos: (L,) int32 positions (new token already written
+    at pos). Returns (L, KV, R, hd) fp32. ``paged_flash_decode.launches``
     counts kernel launches.
     """
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
@@ -77,20 +119,20 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos, *,
                          f"{tuple(block_table.shape)}, pos {tuple(pos.shape)}")
     if block_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError("block_table and pos must be int32")
-    tensors = (q, k_pool, v_pool, block_table, pos)
+    quant = _check_scales(k_pool, v_pool, k_scale, v_scale, "paged decode")
+    tensors = (q, k_pool, v_pool, block_table, pos) \
+        + ((k_scale, v_scale) if quant else ())
     if all(t.device.type == "cpu" for t in tensors):
-        if k_pool.dtype == torch.int8:
-            raise NotImplementedError("int8 KV pools come with the kv-quant slice")
         return paged_flash_decode_plain(q, k_pool, v_pool, block_table, pos,
-                                        window=window, softcap_val=softcap_val)
+                                        k_scale, v_scale, window=window,
+                                        softcap_val=softcap_val)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("paged decode operands must all lie on one CUDA device")
-    if k_pool.dtype == torch.int8:
-        raise NotImplementedError("int8 KV pools come with the kv-quant slice")
-    if q.dtype not in (torch.bfloat16, torch.float32) \
-            or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+    if q.dtype not in (torch.bfloat16, torch.float32) or (
+            not quant and (k_pool.dtype != q.dtype or v_pool.dtype != q.dtype)):
         raise TypeError(f"paged decode takes bf16 or fp32 q and pools of the "
-                        f"same dtype, got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+                        f"same dtype or int8, got {q.dtype}/{k_pool.dtype}/"
+                        f"{v_pool.dtype}")
     if hd not in _HEAD_DIMS or R not in _GROUP_SIZES:
         raise ValueError(f"paged decode kernel takes head_dim in {_HEAD_DIMS} "
                          f"and group size in {_GROUP_SIZES}, got {hd}, {R}")
@@ -109,7 +151,9 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.paged_flash_decode(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            int(q.dtype == torch.bfloat16), block_table.data_ptr(),
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None,
+            int(q.dtype == torch.bfloat16), int(quant), block_table.data_ptr(),
             pos.data_ptr(), out.data_ptr(), part_m.data_ptr(),
             part_l.data_ptr(), part_acc.data_ptr(), L, KV, R, hd, page, C,
             nsplit, pps, int(window), float(softcap_val),
@@ -120,3 +164,124 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos, *,
 
 
 paged_flash_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Prefix-cache tail prefill: tail queries over [prefix pages ; tail K/V]
+# ---------------------------------------------------------------------------
+def paged_prefix_attention_plain(q, k_tail, v_tail, k_pool, v_pool, page_ids,
+                                 offset, prefix_len, length, k_scale=None,
+                                 v_scale=None, *, n_rep: int, window: int = 0,
+                                 softcap_val: float = 0.0, chunk: int = 1024):
+    """The JAX package's parity oracle of the kernel: gather the prefix rows
+    out of the pool (``gather_prefix_kv``: int8 -> fp32 * scale), cast them
+    to the tail's dtype, and run ``flash_attention_abs`` over [prefix ;
+    tail] with absolute positions. Shapes as ``paged_prefix_attention``;
+    returns (H, T, hd) fp32."""
+    from repro_torch.models.attention import (_repeat_kv, flash_attention_abs,
+                                              gather_prefix_kv)
+
+    S = k_tail.shape[0]
+    P = page_ids.shape[0] * k_pool.shape[1]
+    bcache = {"k": k_pool[None], "v": v_pool[None]}
+    quant = k_pool.dtype == torch.int8
+    if quant:
+        bcache.update(k_scale=k_scale[None], v_scale=v_scale[None])
+    prefix = gather_prefix_kv(types.SimpleNamespace(kv_cache_quant=quant),
+                              bcache, page_ids)
+    dt = k_tail.dtype
+    k = torch.cat([prefix["k"][0].to(dt), k_tail[None]], dim=1)
+    v = torch.cat([prefix["v"][0].to(dt), v_tail[None]], dim=1)
+    dev = q.device
+    positions = torch.arange(S, dtype=torch.int32, device=dev) + int(offset)
+    k_pos = torch.cat([torch.arange(P, dtype=torch.int32, device=dev),
+                       positions])
+    k_valid = torch.cat([torch.arange(P, device=dev) < int(prefix_len),
+                         torch.arange(S, device=dev) < int(length)])
+    out = flash_attention_abs(
+        q.transpose(0, 1)[None], _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
+        positions[:q.shape[1]], k_pos, k_valid, window=window,
+        softcap_val=softcap_val, chunk=chunk, out_dtype=torch.float32)
+    return out[0].transpose(0, 1)
+
+
+def paged_prefix_attention(q, k_tail, v_tail, k_pool, v_pool, page_ids,
+                           offset: int, prefix_len: int, length: int,
+                           k_scale=None, v_scale=None, *, n_rep: int,
+                           window: int = 0, softcap_val: float = 0.0,
+                           chunk: int = 1024):
+    """Tail-prefill attention over in-place prefix pages + the tail's K/V.
+
+    q: (H, T, hd) tail queries, H = KV * n_rep (GQA broadcast order);
+    k_tail/v_tail: (S, KV, hd) the tail's own rows (S >= T) in q's dtype;
+    k_pool/v_pool: (n_pages, page, KV, hd) pool blocks in q's dtype, or int8
+    with k_scale/v_scale (n_pages, page, KV) fp32; page_ids: (npp,) int32
+    physical pages of the cached prefix (entries past the live ones may be
+    the garbage page 0, never read); offset: absolute position of tail row
+    0; prefix_len / length: live prefix rows / true tail rows; ``chunk``:
+    the key rows of one online-softmax step of the plain version (the
+    model's ``attn_chunk``; the kernel streams 32-row tiles). Returns
+    (H, T, hd) fp32. ``paged_prefix_attention.launches`` counts kernel
+    launches.
+    """
+    if q.dim() != 3 or k_tail.dim() != 3 or k_pool.dim() != 4 \
+            or k_tail.shape != v_tail.shape or k_pool.shape != v_pool.shape:
+        raise ValueError(f"paged prefix shapes: q {tuple(q.shape)}, tail "
+                         f"{tuple(k_tail.shape)} / {tuple(v_tail.shape)}, pools "
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+    H, T, hd = q.shape
+    S, KV, hdt = k_tail.shape
+    n_pages, page, kvp, hdp = k_pool.shape
+    if (hdt, hdp, kvp) != (hd, hd, KV) or H != KV * n_rep or T > S \
+            or page_ids.dim() != 1:
+        raise ValueError(f"paged prefix shapes: q {tuple(q.shape)}, tail "
+                         f"{tuple(k_tail.shape)}, pools {tuple(k_pool.shape)}, "
+                         f"page_ids {tuple(page_ids.shape)}, n_rep {n_rep}")
+    if page_ids.dtype != torch.int32:
+        raise TypeError("page_ids must be int32")
+    quant = _check_scales(k_pool, v_pool, k_scale, v_scale, "paged prefix")
+    offset, prefix_len, length = int(offset), int(prefix_len), int(length)
+    if not (0 <= prefix_len <= page_ids.shape[0] * page and 0 <= length <= S):
+        raise ValueError(f"paged prefix bounds: prefix_len {prefix_len} over "
+                         f"{page_ids.shape[0]} pages of {page}, length {length} "
+                         f"over {S} tail rows")
+    tensors = (q, k_tail, v_tail, k_pool, v_pool, page_ids) \
+        + ((k_scale, v_scale) if quant else ())
+    if all(t.device.type == "cpu" for t in tensors):
+        return paged_prefix_attention_plain(
+            q, k_tail, v_tail, k_pool, v_pool, page_ids, offset, prefix_len,
+            length, k_scale, v_scale, n_rep=n_rep, window=window,
+            softcap_val=softcap_val, chunk=chunk)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("paged prefix operands must all lie on one CUDA device")
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or k_tail.dtype != q.dtype or v_tail.dtype != q.dtype \
+            or (not quant and k_pool.dtype != q.dtype):
+        raise TypeError(f"paged prefix takes bf16 or fp32 q and tail, pools of "
+                        f"their dtype or int8, got {q.dtype}/{k_tail.dtype}/"
+                        f"{k_pool.dtype}")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"paged prefix kernel takes head_dim in {_HEAD_DIMS}, "
+                         f"got {hd}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+        raise ValueError("paged prefix operands must be contiguous and "
+                         "16-byte aligned")
+    out = torch.empty((H, T, hd), dtype=torch.float32, device=q.device)
+    lib = build.library("paged_prefix_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.paged_prefix_attention(
+            q.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None, page_ids.data_ptr(),
+            out.data_ptr(), int(q.dtype == torch.bfloat16), int(quant), H, T,
+            S, KV, hd, n_rep, page, page_ids.shape[0], offset, prefix_len,
+            length, int(window), float(softcap_val), 1.0 / math.sqrt(hd),
+            ctypes.c_void_p(stream))
+    build.check("paged_prefix_attention", "paged_prefix_attention", rc)
+    paged_prefix_attention.launches += 1
+    return out
+
+
+paged_prefix_attention.launches = 0

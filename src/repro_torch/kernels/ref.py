@@ -1,7 +1,9 @@
 """Plain-torch oracles of the port's kernels: the serving GEMV stated on the
-unpacked weight, and the fused weight backward (the counterparts of the JAX
-package's ``kernels/ref.py``)."""
+unpacked weight, the fused weight backward and the materialising-softmax
+attention (the counterparts of the JAX package's ``kernels/ref.py``)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -21,3 +23,24 @@ def boolean_weight_bwd_ref(x: torch.Tensor, z: torch.Tensor, d: torch.Tensor,
         t = torch.tanh(alpha * d.to(torch.float32))
         zf = zf * (1.0 - t * t)
     return torch.matmul(x.to(torch.float32).t(), zf)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Materialising-softmax oracle of the flash kernel: (BH, S, hd) in
+    q's dtype, scores and softmax in fp32."""
+    S, hd = q.shape[1], q.shape[2]
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(hd)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S, device=q.device)
+    valid = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= pos[:, None] >= pos[None, :]
+    if window > 0:
+        valid &= pos[:, None] - pos[None, :] < window
+    s = torch.where(valid[None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)

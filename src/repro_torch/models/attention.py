@@ -1,6 +1,8 @@
 """Attention: GQA with Boolean projections, chunked flash attention for
-training and prefill, sliding-window + global alternation (gemma2), logit softcap, and
-the block-table paged decode of continuous batching.
+training, the flash-prefill kernel for cold prefill, the prefix-cache tail
+prefill over in-place pool pages, sliding-window + global alternation
+(gemma2), logit softcap, the int8 KV cache with per-(token, head) scales,
+and the block-table paged decode of continuous batching.
 
 Q heads are padded up to a multiple of 16 and the padded heads' outputs are
 masked to zero before the o-projection, because Boolean ±1 weights cannot
@@ -9,10 +11,11 @@ encode zero rows (the JAX package's layout, kept so weights bridge over).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels import paged_flash_decode
+from repro_torch.kernels import paged_flash_decode, paged_prefix_attention
 
 from .modules import ModelConfig, proj_apply, proj_init, rope, softcap
 
@@ -126,6 +129,104 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def flash_attention_abs(q, k, v, q_pos, k_pos, k_valid, *, window: int = 0,
+                        softcap_val: float = 0.0, chunk: int = 1024,
+                        out_dtype: Optional[torch.dtype] = None):
+    """Online-softmax attention with EXPLICIT absolute positions.
+
+    The prefix-cache tail prefill attends queries at absolute positions
+    ``q_pos`` over keys at ``k_pos`` (the cached prefix's rows, then the
+    tail's own), so masking is ``k_valid & (k_pos <= q_pos)`` (& the sliding
+    window) in position space. q: (B, T, H, hd); k/v: (B, K, H, hd) (kv
+    already group-broadcast); q_pos (T,), k_pos (K,) int; k_valid (K,) bool.
+    Scans KV in ``chunk``-row chunks: scores fp32, the probabilities cast to
+    v's dtype before the value product, as in the JAX package. Returns
+    (B, T, H, hd) in ``out_dtype`` (default q's dtype).
+    """
+    B, T, H, hd = q.shape
+    K = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    ck = min(chunk, K)
+    qt = q.transpose(1, 2).to(torch.float32)            # (B, H, T, hd)
+    m = torch.full((B, H, T), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, H, T, hd), device=q.device)
+    for c0 in range(0, K, ck):
+        c1 = min(K, c0 + ck)
+        kc = k[:, c0:c1].transpose(1, 2).to(torch.float32)
+        vc = v[:, c0:c1].transpose(1, 2)
+        s = torch.matmul(qt, kc.transpose(-1, -2)) * scale
+        s = softcap(s, softcap_val)
+        kpos = k_pos[c0:c1]
+        valid = k_valid[None, c0:c1] & (kpos[None, :] <= q_pos[:, None])
+        if window > 0:
+            valid &= q_pos[:, None] - kpos[None, :] < window
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.matmul(
+            p.to(vc.dtype).to(torch.float32), vc.to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(out_dtype or q.dtype)
+
+
+def gather_prefix_kv(cfg: ModelConfig, bcache, page_ids):
+    """Gather a cached prefix's K/V rows out of one block's page pool.
+
+    bcache: a stacked-groups pool block ({"k"/"v": (G, n_pages, page, KVp,
+    hd)} plus scale pools under kv_cache_quant); page_ids: (npp,) int32
+    physical pages (garbage-page 0 padding allowed — the caller masks rows
+    past ``prefix_len``). Returns {"k"/"v": (G, 1, npp*page, KVp, hd)}
+    dequantised to fp32: exactly the values decode reads for those rows.
+    """
+    npp = page_ids.shape[0]
+    page = bcache["k"].shape[2]
+    idx = page_ids.long()
+
+    def rows(name):
+        g = bcache[name][:, idx]                     # (G, npp, page, ...)
+        return g.reshape((g.shape[0], npp * page) + tuple(g.shape[3:]))[:, None]
+
+    if cfg.kv_cache_quant:
+        return {"k": kv_dequant(rows("k"), rows("k_scale")),
+                "v": kv_dequant(rows("v"), rows("v_scale"))}
+    return {"k": kv_dequant(rows("k")), "v": kv_dequant(rows("v"))}
+
+
+def flash_prefix_attention_paged(cfg: ModelConfig, bcache, page_ids, q, k, v,
+                                 offset: int, prefix_len: int,
+                                 length: Optional[int], *, local: bool = False):
+    """Tail-prefill attention over a cached prefix read IN PLACE from pool
+    pages (``kernels.paged_prefix_attention``; its plain version is
+    ``gather_prefix_kv`` + ``flash_attention_abs``).
+
+    bcache: one block's group-sliced pool leaves ({"k"/"v": (n_pages, page,
+    KVp, hd)} plus scale pools under kv_cache_quant); page_ids: (npp,) int32
+    physical prefix pages on the pool's device (garbage-page padding
+    allowed); q: (1, S, Hp, hd) tail queries; k/v: (1, S, KVp, hd) the
+    tail's own rows (before the GQA repeat); offset: the absolute position
+    of tail row 0 (the JAX package passes ``positions``, whose first entry
+    it is); prefix_len / length: live prefix rows / true tail rows
+    (``length`` None means S). Returns (1, S, Hp, hd) in q's dtype.
+    """
+    B, S, hp, hd = q.shape
+    if B != 1:
+        raise ValueError("paged prefix attention serves batch-1 admission "
+                         f"prefills; got batch {B}")
+    kvp = k.shape[2]
+    out = paged_prefix_attention(
+        q[0].transpose(0, 1).contiguous(), k[0].contiguous(),
+        v[0].contiguous(), bcache["k"], bcache["v"], page_ids, offset,
+        prefix_len, S if length is None else length,
+        bcache.get("k_scale"), bcache.get("v_scale"), n_rep=hp // kvp,
+        window=cfg.sliding_window if local else 0,
+        softcap_val=cfg.attn_logit_softcap, chunk=cfg.attn_chunk)
+    return out.transpose(0, 1)[None].to(q.dtype)
+
+
 def attention_apply(cfg: ModelConfig, p, x, positions, *,
                     local: bool = False, axis_size: int = 16):
     """Full training/prefill attention block body (no residual/norm)."""
@@ -146,22 +247,51 @@ def attention_apply(cfg: ModelConfig, p, x, positions, *,
 # ---------------------------------------------------------------------------
 # KV cache + paged decode
 # ---------------------------------------------------------------------------
+# int8 cache rows carry a PER-(token, head) fp32 scale computed at write
+# time: scale = max|row| / 127, stored beside the k/v pools, so every row
+# spans its own int8 range.
+def kv_quant(x):
+    """x: (..., hd) -> (int8 rows, fp32 per-row scale (...,)): a true
+    division, round half to even, clip to ±127 (the JAX package's
+    ``kv_quant``, bit for bit)."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def kv_dequant(x, scale=None):
+    if x.dtype == torch.int8:
+        return x.to(torch.float32) * scale[..., None]
+    return x.to(torch.float32)
+
+
 def kv_cache_entry(cfg: ModelConfig, k, v):
-    """The prefill write payload of one attention block: cfg.dtype rows."""
+    """The prefill write payload of one attention block: int8 rows + their
+    scales under cfg.kv_cache_quant, cfg.dtype rows otherwise (the leaves
+    of ``attention_cache_init``)."""
     if cfg.kv_cache_quant:
-        raise NotImplementedError("int8 KV caches come with the kv-quant slice")
+        kq, ks = kv_quant(k)
+        vq, vs = kv_quant(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     return {"k": k.to(cfg.dtype), "v": v.to(cfg.dtype)}
 
 
 def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int,
                          device, lead=(), axis_size: int = 16):
-    """Zeroed {"k", "v"}: (*lead, batch, max_len, KVp, hd) in cfg.dtype."""
-    if cfg.kv_cache_quant:
-        raise NotImplementedError("int8 KV caches come with the kv-quant slice")
+    """Zeroed {"k", "v"}: (*lead, batch, max_len, KVp, hd) in cfg.dtype, or
+    int8 with fp32 {"k_scale", "v_scale"}: (*lead, batch, max_len, KVp)
+    under cfg.kv_cache_quant."""
     shape = (*lead, batch, max_len, cfg.kv_heads_padded(axis_size),
              cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    dtype = torch.int8 if cfg.kv_cache_quant else cfg.dtype
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.kv_cache_quant:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=device)
+    return cache
 
 
 def attention_decode_paged(cfg: ModelConfig, p, x, cache, block_table, pos,
@@ -169,7 +299,8 @@ def attention_decode_paged(cfg: ModelConfig, p, x, cache, block_table, pos,
     """One-token decode over a block-table PAGED cache (continuous batching).
 
     x: (L,1,D) with L scheduler lanes; cache{k,v}: (n_pages, page, KVp, hd)
-    pool blocks, UPDATED IN PLACE with the new token's row; block_table:
+    pool blocks (int8 + {"k_scale","v_scale"} (n_pages, page, KVp) under
+    kv_cache_quant), UPDATED IN PLACE with the new token's row; block_table:
     (L, C) int32; pos: (L,) int32 per-lane positions. Logical row r of lane
     l lives at ``pool[block_table[l, r // page], r % page]``. Physical page
     0 is the reserved garbage page: idle lanes point at it, and a lane past
@@ -192,12 +323,16 @@ def attention_decode_paged(cfg: ModelConfig, p, x, cache, block_table, pos,
         torch.zeros_like(block_table[:, 0])).long()
     off = (pos % page).long()
     if cache["k"].dtype == torch.int8:
-        raise NotImplementedError("int8 KV pools come with the kv-quant slice")
+        k_new, ks_new = kv_quant(k_new)
+        v_new, vs_new = kv_quant(v_new)
+        cache["k_scale"][page_id, off] = ks_new[:, 0]
+        cache["v_scale"][page_id, off] = vs_new[:, 0]
     cache["k"][page_id, off] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][page_id, off] = v_new[:, 0].to(cache["v"].dtype)
 
     out = paged_flash_decode(
         qg, cache["k"], cache["v"], block_table, pos,
+        cache.get("k_scale"), cache.get("v_scale"),
         window=cfg.sliding_window if local else 0,
         softcap_val=cfg.attn_logit_softcap)
     out = out.reshape(B, 1, hp, hd).to(x.dtype)

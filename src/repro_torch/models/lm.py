@@ -1,5 +1,6 @@
 """Decoder LM on the dense path: block roles, init, the training forward and
-loss, bucketed prefill and the paged decode step.
+loss, bucketed prefill (cold, or the tail of a prefix-cache hit) and the
+paged decode step.
 
 Block parameters are stacked on a leading ``n_groups`` axis, as in the JAX
 package's ``models/lm.py``; its ``lax.scan`` over groups becomes a Python
@@ -12,6 +13,8 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.utils.checkpoint
+
+from repro_torch.kernels import flash_attention_fwd
 
 from . import attention as A
 from . import ffn as F
@@ -100,20 +103,38 @@ def _ffn_residual(cfg: ModelConfig, bp, role, x):
     return x + F.ffn_apply(cfg, bp["ffn"], rmsnorm_apply(bp["norm2"], x))
 
 
-def _apply_block_prefill(cfg: ModelConfig, bp, role, x, positions):
-    """One block of cold prefill -> (x, cache entry {"k", "v"})."""
+def _apply_block_prefill(cfg: ModelConfig, bp, role, x, positions,
+                         length=None, offset: int = 0, prefix_len=None,
+                         prefix_pages=None, prefix_ids=None):
+    """One block of (possibly tail-) prefill -> (x, cache entry).
+
+    Cold (``prefix_pages`` None): the flash-prefill kernel over the block's
+    own rows, the q rows (batch, head) reading KV head ``h // n_rep`` in
+    place of a repeated copy. Tail: ``prefix_pages`` (the block's pool
+    leaves) and ``prefix_ids`` (the prefix's physical pages) — the queries
+    at ``offset + i`` attend over the prefix read in place from the pool
+    and the tail's own rows (``paged_prefix_attention``).
+    """
     B, S, _ = x.shape
+    local = role["mixer"] == "attn_local"
     h = rmsnorm_apply(bp["norm1"], x)
     q, k, v = A._qkv(cfg, bp["attn"], h, positions)
-    hp, kvp = cfg.heads_padded(), cfg.kv_heads_padded()
-    out = A.flash_attention(
-        q, A._repeat_kv(k, hp // kvp), A._repeat_kv(v, hp // kvp),
-        causal=True,
-        window=cfg.sliding_window if role["mixer"] == "attn_local" else 0,
-        softcap_val=cfg.attn_logit_softcap, chunk=cfg.attn_chunk)
+    hp, kvp, hd = cfg.heads_padded(), cfg.kv_heads_padded(), cfg.head_dim_
+    if prefix_pages is not None:
+        out = A.flash_prefix_attention_paged(
+            cfg, prefix_pages, prefix_ids, q, k, v, offset, prefix_len, length,
+            local=local)
+    else:
+        def rows(t):                    # (B, S, heads, hd) -> (B*heads, S, hd)
+            return t.transpose(1, 2).reshape(-1, S, hd).contiguous()
+
+        out = flash_attention_fwd(
+            rows(q), rows(k), rows(v), causal=True,
+            window=cfg.sliding_window if local else 0,
+            softcap=cfg.attn_logit_softcap, n_rep=hp // kvp)
+        out = out.reshape(B, hp, S, hd).transpose(1, 2)
     out = A._head_mask(cfg, out)
-    x = x + A._wo_project(cfg, bp["attn"]["wo"],
-                          out.reshape(B, S, hp * cfg.head_dim_))
+    x = x + A._wo_project(cfg, bp["attn"]["wo"], out.reshape(B, S, hp * hd))
     return _ffn_residual(cfg, bp, role, x), A.kv_cache_entry(cfg, k, v)
 
 
@@ -200,7 +221,10 @@ def lm_loss(cfg: ModelConfig, params, batch):
 # Prefill / decode
 # ---------------------------------------------------------------------------
 def lm_prefill(cfg: ModelConfig, params, batch, cache=None,
-               max_len: Optional[int] = None, length: Optional[int] = None):
+               max_len: Optional[int] = None, length: Optional[int] = None,
+               offset: Optional[int] = None, prefix=None,
+               prefix_len: Optional[int] = None, prefix_pages=None,
+               prefix_ids=None, ssm_init=None, state_at=None):
     """Prefill over (B, S) ``batch["tokens"]`` -> (last-position logits
     (B, 1, Vp) fp32, cache with the prompt's K/V rows written at 0..S-1).
 
@@ -208,27 +232,55 @@ def lm_prefill(cfg: ModelConfig, params, batch, cache=None,
     padded to a bucket: logits come from position ``length - 1``. Rows at
     and past ``length`` are causally invisible to the rows before it; the
     caller masks them out of the pool (``commit_prefill``).
+
+    Prefix-cache TAIL prefill: the tokens are the uncached tail of a prompt
+    whose first ``offset`` tokens already live in pool pages. ``offset``
+    shifts the positions (RoPE is absolute); ``prefix_pages`` ({"b{i}": the
+    block's pool leaves, stacked (n_groups, ...)}) and ``prefix_ids``
+    ((npp,) int32 physical pages on the pool's device, rows valid below
+    ``prefix_len``) let the tail's queries attend over the cached rows read
+    in place. All None is exactly the cold prefill. The JAX package's
+    gathered ``prefix=`` route (its gather fallback) is the plain version of
+    ``paged_prefix_attention`` here; ``ssm_init``/``state_at`` come with the
+    mamba slice.
     """
     if cfg.frontend != "tokens":
         raise NotImplementedError("embedding frontends are not ported yet")
+    if prefix is not None:
+        raise NotImplementedError(
+            "the gathered prefix= route is the plain version of "
+            "paged_prefix_attention in the port; pass prefix_pages= and "
+            "prefix_ids=")
+    if ssm_init is not None or state_at is not None:
+        raise NotImplementedError("ssm_init/state_at (mamba prefix state) "
+                                  "come with the mamba slice")
+    tail = prefix_pages is not None
+    if tail and (prefix_ids is None or prefix_len is None or offset is None):
+        raise ValueError("a tail prefill needs offset, prefix_len, "
+                         "prefix_pages and prefix_ids")
     tokens = batch["tokens"]
     h = embed_apply(cfg, params["embed"], tokens).to(cfg.dtype)
     B, S = tokens.shape
     if cache is None:
         cache = cache_init(cfg, B, max_len or S, h.device)
-    positions = torch.arange(S, dtype=torch.int32, device=h.device) \
+    off = 0 if offset is None else int(offset)
+    positions = (torch.arange(S, dtype=torch.int32, device=h.device) + off) \
         .expand(B, S)
     roles = _dense_roles(cfg)
     for g in range(cfg.n_groups):
         gp = index_tree(params["blocks"], g)
         for i, role in enumerate(roles):
-            h, c = _apply_block_prefill(cfg, gp[f"b{i}"], role, h, positions)
+            pages = index_tree(prefix_pages[f"b{i}"], g) if tail else None
+            h, c = _apply_block_prefill(
+                cfg, gp[f"b{i}"], role, h, positions, length=length,
+                offset=off, prefix_len=prefix_len, prefix_pages=pages,
+                prefix_ids=prefix_ids)
             for name, rows in c.items():
                 cache["blocks"][f"b{i}"][name][g, :, :S] = rows
     h = rmsnorm_apply(params["final_norm"], h)
     last = S if length is None else int(length)
     logits = head_apply(cfg, params["head"], h[:, last - 1:last])
-    return logits, {"blocks": cache["blocks"], "pos": last}
+    return logits, {"blocks": cache["blocks"], "pos": last + off}
 
 
 def lm_decode_step(cfg: ModelConfig, params, cache, tokens):

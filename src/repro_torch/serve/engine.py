@@ -94,14 +94,17 @@ def _count_packed(tree) -> int:
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_len: int,
-                 packed: bool = False, device="cuda"):
+                 packed: bool = False, prefix_cache: bool = False,
+                 device="cuda"):
         """``params``: the model tree (``lm_init`` or ``bridge.
         params_from_numpy``), moved to ``device``. ``packed=True`` packs the
-        Boolean projections once, here."""
+        Boolean projections once, here. ``prefix_cache`` is the sessions'
+        default for the radix prefix index (serve/prefix_cache.py)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_len = max_len
         self.packed = packed
+        self.prefix_cache = prefix_cache
         params = tree_to(params, self.device)
         if packed:
             params = pack_weights(params)
@@ -116,15 +119,25 @@ class ServeEngine:
         return paged_pool_init(self.cfg, n_pages, page_size, self.device)
 
     def prefill_commit(self, pool, prompt: np.ndarray, length: int,
-                       page_ids: np.ndarray, page_size: int):
+                       page_ids: np.ndarray, page_size: int, *,
+                       offset: int = 0,
+                       prefix_ids: Optional[np.ndarray] = None):
         """Batch-1 prefill of a bucket-padded prompt with its true
         ``length``, then the masked scatter of its K/V rows into the pool
         pages ``page_ids`` (entries past the request's pages point at the
-        garbage page). Returns the (1, 1, Vp) fp32 last-position logits."""
+        garbage page). With ``prefix_ids`` (the physical pages of the first
+        ``offset`` cached tokens) the prompt is the uncached TAIL: it
+        prefills at positions ``offset + i`` over the prefix rows read in
+        place from ``pool``. Returns the (1, 1, Vp) fp32 last-position
+        logits."""
         tokens = torch.from_numpy(prompt[None]).to(self.device)
         scratch = cache_init(self.cfg, 1, prompt.shape[0], self.device)
+        kw = {}
+        if prefix_ids is not None:
+            kw = dict(offset=offset, prefix_len=offset, prefix_pages=pool,
+                      prefix_ids=torch.from_numpy(prefix_ids).to(self.device))
         logits, pcache = lm_prefill(self.cfg, self.params, {"tokens": tokens},
-                                    cache=scratch, length=length)
+                                    cache=scratch, length=length, **kw)
         commit_prefill(self.cfg, pool, pcache["blocks"],
                        torch.from_numpy(page_ids), page_size, length=length)
         return logits
@@ -135,15 +148,19 @@ class ServeEngine:
 
     def session(self, *, lanes: int = 4, page_size: int = 16,
                 n_pages: Optional[int] = None, segment: int = 1,
-                buckets: Optional[Sequence[int]] = None) -> ServeSession:
-        """Open a streaming serve session (serve/session.py)."""
+                buckets: Optional[Sequence[int]] = None,
+                prefix_cache: Optional[bool] = None) -> ServeSession:
+        """Open a streaming serve session (serve/session.py).
+        ``prefix_cache`` overrides the engine default."""
         return ServeSession(self, lanes=lanes, page_size=page_size,
-                            n_pages=n_pages, segment=segment, buckets=buckets)
+                            n_pages=n_pages, segment=segment, buckets=buckets,
+                            prefix_cache=prefix_cache)
 
     def generate_batch(self, prompts: Sequence,
                        n_tokens: Union[int, Sequence[int]], *,
                        lanes: int = 4, page_size: int = 16,
-                       n_pages: Optional[int] = None, segment: int = 1):
+                       n_pages: Optional[int] = None, segment: int = 1,
+                       prefix_cache: Optional[bool] = None):
         """Greedy continuous-batching generation: submit every request, run
         the session until idle, return a list of (n_tokens_i,) int32 arrays
         in request order."""
@@ -153,7 +170,7 @@ class ServeEngine:
         if len(n_tok) != n:
             raise ValueError(f"{n} prompts but {len(n_tok)} n_tokens")
         with self.session(lanes=lanes, page_size=page_size, n_pages=n_pages,
-                          segment=segment) as sess:
+                          segment=segment, prefix_cache=prefix_cache) as sess:
             handles = [sess.submit(p, SamplingParams(max_tokens=nt))
                        for p, nt in zip(prompts, n_tok)]
             sess.run_until_idle()

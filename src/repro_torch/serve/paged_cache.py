@@ -4,9 +4,11 @@ ONE pool of fixed-size pages is allocated per session; a request owns just
 the pages its prompt + token budget needs, and a per-lane block table maps
 logical cache rows to physical pages. Layout, as in the JAX package's
 ``serve/paged_cache.py``: attention roles hold ``k``/``v`` pools
-(n_groups, n_pages, page, KVp, hd); physical page 0 is RESERVED as the
-garbage page — idle and overrun lanes point at it, so their writes never
-touch pages owned by live requests.
+(n_groups, n_pages, page, KVp, hd), plus fp32 per-(token, head)
+``k_scale``/``v_scale`` pools (n_groups, n_pages, page, KVp) under
+cfg.kv_cache_quant; physical page 0 is RESERVED as the garbage page — idle
+and overrun lanes point at it, so their writes never touch pages owned by
+live requests.
 """
 from __future__ import annotations
 
@@ -70,14 +72,27 @@ def commit_prefill(cfg: ModelConfig, pool, prefill_blocks,
     return pool
 
 
+def fork_page(cfg: ModelConfig, pool, src: int, dst: int):
+    """Copy-on-write fork, in place: copy physical page ``src`` onto page
+    ``dst`` in every attention pool leaf (k/v rows and quant scales). A
+    request admitted off a cached prompt whose partly filled boundary page
+    it must write into gets a private byte-identical copy instead of
+    dirtying the shared page."""
+    for i, _ in enumerate(block_roles(cfg)):
+        for leaf in pool[f"b{i}"].values():
+            leaf[:, dst] = leaf[:, src]
+    return pool
+
+
 class PageAllocator:
     """Host-side reference-counted physical-page allocator.
 
     Page 0 is the reserved garbage page (permanently pinned). Every other
     page is FREE or carries a refcount; a page returns to the END of the
     FIFO free list exactly when its count reaches zero — the same order as
-    the JAX package's allocator, so both hand out the same page ids. Shared
-    pages (``incref``) come with the prefix cache.
+    the JAX package's allocator, so both hand out the same page ids. A page
+    shared through the prefix cache carries one ref for the index and one
+    for each live request using it (``incref``).
     """
 
     def __init__(self, n_pages: int):
@@ -106,6 +121,11 @@ class PageAllocator:
         for p in pages:
             self.refs[p] = 1
         return pages
+
+    def incref(self, page: int) -> None:
+        if page <= 0 or self.refs[page] <= 0:
+            raise ValueError(f"incref on free/garbage page {page}")
+        self.refs[page] += 1
 
     def decref(self, page: int) -> bool:
         """Drop one reference; True iff the page actually freed."""

@@ -17,19 +17,28 @@ lane pool, and the drain of finished lanes. Prompts are right-padded to the
 smallest power-of-two bucket >= their length (or to an explicit
 ``buckets=``), with the true length masking the commit.
 
+With ``prefix_cache=True`` admission goes through the radix prefix index
+(serve/prefix_cache.py): an exact repeat of a finished prompt admits with
+ZERO prefill (the first token from the stored end logits, a copy-on-write
+fork of a partly filled boundary page), a prompt sharing cached full pages
+prefills only its uncached tail over the prefix pages read in place, and a
+finishing request donates its prompt pages to the index.
+
 The segment is a Python loop over preallocated pools updated in place — the
 counterpart of the JAX package's donated ``lax.scan``. A kernel error
 propagates to the caller; there is no containment path in this slice.
 """
 from __future__ import annotations
 
+import time
 from collections import Counter
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .paged_cache import pages_for
+from .paged_cache import fork_page, pages_for
+from .prefix_cache import PrefixCache
 from .sampling import sample_tokens
 from .scheduler import (TERMINAL, Request, RequestStatus, SamplingParams,
                         Scheduler)
@@ -56,6 +65,25 @@ class RequestHandle:
     @property
     def status(self) -> RequestStatus:
         return self._req.status
+
+    @property
+    def ttft_ms(self) -> Optional[float]:
+        """Submit to first-token emission on the host clock (the first
+        token's sampling waits for the device), None before it."""
+        r = self._req
+        if r.first_token_at is None:
+            return None
+        return (r.first_token_at - r.submitted_at) * 1e3
+
+    @property
+    def admit_ms(self) -> Optional[float]:
+        """The admission's own work, from the start of its prefill (or
+        exact-record read) to the first token's emission: TTFT without the
+        queueing. None before the first token."""
+        r = self._req
+        if r.first_token_at is None:
+            return None
+        return (r.first_token_at - r.admitted_at) * 1e3
 
     @property
     def tokens_ready(self) -> int:
@@ -109,11 +137,16 @@ class ServeSession:
     current tokens) uploaded once per segment.
 
     ``stats`` counts the device work a run did: ``decode_steps`` (one per
-    step of a segment) and ``prefills`` ({bucket length: count})."""
+    step of a segment), ``prefills`` (cold prefills, {bucket length:
+    count}), ``tail_prefills`` (partial-hit tail prefills, {bucket length:
+    count}), ``exact_admits`` (zero-prefill exact hits) and ``prefix``
+    (the prefix index's counters, the JAX package's keys; None without the
+    index)."""
 
     def __init__(self, engine, *, lanes: int = 4, page_size: int = 16,
                  n_pages: Optional[int] = None, segment: int = 1,
-                 buckets: Optional[Sequence[int]] = None):
+                 buckets: Optional[Sequence[int]] = None,
+                 prefix_cache: Optional[bool] = None):
         if segment < 1 or page_size < 1 or lanes < 1:
             raise ValueError("segment, page_size and lanes must be >= 1")
         self.engine = engine
@@ -125,14 +158,21 @@ class ServeSession:
         if n_pages is None:    # full residency for every lane + garbage page
             n_pages = lanes * self._table_cols + 1
         self.n_pages = n_pages
-        self.sched = Scheduler(lanes, n_pages, page_size)
+        if prefix_cache is None:
+            prefix_cache = engine.prefix_cache
+        self.prefix = PrefixCache(page_size) if prefix_cache else None
+        self.sched = Scheduler(lanes, n_pages, page_size,
+                               prefix_cache=self.prefix)
         self.buckets = tuple(sorted(int(b) for b in buckets)) \
             if buckets else None
         self._pool = None
         self._closed = False
         self._next_rid = 0
         self._last_toks = None
-        self.stats = {"decode_steps": 0, "prefills": Counter()}
+        self.stats = {"decode_steps": 0, "prefills": Counter(),
+                      "tail_prefills": Counter(), "exact_admits": 0,
+                      "prefix": None if self.prefix is None
+                      else self.prefix.stats}
         self._bt = np.zeros((lanes, self._table_cols), np.int32)
         self._pos = np.zeros((lanes,), np.int32)
         self._cur = np.zeros((lanes, 1), np.int32)
@@ -163,6 +203,7 @@ class ServeSession:
         self.sched.check_fits(req)
         self._bucket_len(p.size)            # custom buckets must cover it
         self._next_rid += 1
+        req.submitted_at = time.perf_counter()
         self.sched.submit(req)
         return RequestHandle(self, req)
 
@@ -195,6 +236,31 @@ class ServeSession:
         self._pool = None
         self._closed = True
 
+    def audit(self) -> dict:
+        """Zero-leak oracle: rebuild the page-refcount and node-pin census
+        from the holders' own books (active requests' pages and CoW-source
+        holds, the prefix index's owned pages and records) and cross-check
+        the allocator and the index against it. Raises on any leak, double
+        count or orphan."""
+        holds: Counter = Counter()
+        pins: Counter = Counter()           # id(node) -> live-request pins
+        for req in self.sched.active.values():
+            for p in req.pages:
+                holds[p] += 1
+            if req.hit is not None:
+                for node in self.prefix._chain(req.hit.node):
+                    pins[id(node)] += 1     # pins are transitive to root
+                if req.hit.exact and req.hit.record.page is not None:
+                    holds[req.hit.record.page] += 1     # CoW-source hold
+        out = {}
+        if self.prefix is not None:
+            for p in self.prefix._owned_page_iter():
+                holds[p] += 1               # index ownership refs
+            out["prefix"] = self.prefix.audit(self.sched.alloc,
+                                              external_pins=dict(pins))
+        out["alloc"] = self.sched.alloc.audit(holds=dict(holds))
+        return out
+
     def __enter__(self):
         return self
 
@@ -202,14 +268,15 @@ class ServeSession:
         self.close()
 
     # -- phases composed by step() -------------------------------------------
-    def _bucket_len(self, S: int) -> int:
-        if self.buckets is None:
-            return _default_bucket(S)
-        for b in self.buckets:
-            if b >= S:
-                return b
-        raise ValueError(f"no prefill bucket >= prompt length {S} "
-                         f"(buckets={self.buckets})")
+    def _bucket_len(self, S: int, strict: bool = True) -> int:
+        if self.buckets is not None:
+            for b in self.buckets:
+                if b >= S:
+                    return b
+            if strict:
+                raise ValueError(f"no prefill bucket >= prompt length {S} "
+                                 f"(buckets={self.buckets})")
+        return _default_bucket(S)
 
     def _reset_lane(self, lane: int) -> None:
         """Point a released lane at the garbage page: its in-flight segment
@@ -217,24 +284,82 @@ class ServeSession:
         self._bt[lane] = 0
         self._pos[lane] = self._cur[lane] = 0
 
+    def _prefix_page_bucket(self, n: int) -> int:
+        """Pow-2 bucket of the prefix page count of a tail prefill (the JAX
+        package's bound on tail-prefill compiles; here it fixes the
+        ``page_ids`` length the kernel is given)."""
+        return _default_bucket(n, floor=1)
+
+    def _admit_exact(self, req, S: int):
+        """Exact-record admission: ZERO prefill. Shared full pages enter
+        the block table as they are; a partly filled boundary page is
+        copy-on-write forked onto the request's first private page (its
+        decode rows land there). The first token comes from the record's
+        stored end logits, the very tensor the cold run sampled from, so
+        with decode re-reading identical page bytes the stream is
+        bit-identical to the cold run."""
+        rec = req.hit.record
+        if rec.page is not None:
+            # fork dst = logical page S // page_size, which the scheduler's
+            # page order puts first among the request's private pages
+            fork_page(self.cfg, self._pool, rec.page, req.private_pages[0])
+            self.prefix.stats["cow_forks"] += 1
+        req.cache_extras = None         # the index already holds this prompt
+        self.stats["exact_admits"] += 1
+        return rec.logits
+
+    def _admit_prefill(self, req, eff, S: int):
+        """Cold / partial-hit admission: prefill ONLY the uncached tail
+        through its length bucket (the true length masks the commit),
+        scatter its rows into the request's tail pages and, with the
+        prefix index on, keep what a finish donates to it. A partial hit
+        prefills at position offset o over the o cached rows read in place
+        from the request's shared pages."""
+        o = req.hit.hit_len if req.hit is not None else 0
+        T = S - o
+        o_pages = o // self.page_size
+        bucket = self._bucket_len(T, strict=False)
+        npp_t = -(-T // self.page_size)
+        page_ids = np.zeros((-(-bucket // self.page_size),), np.int32)
+        page_ids[:npp_t] = req.pages[o_pages:o_pages + npp_t]
+        padded = np.zeros((bucket,), np.int32)
+        padded[:T] = eff[o:]
+        prefix_ids = None
+        if o_pages:
+            prefix_ids = np.zeros((self._prefix_page_bucket(o_pages),),
+                                  np.int32)
+            prefix_ids[:o_pages] = req.pages[:o_pages]
+        logits = self.engine.prefill_commit(
+            self._pool, padded, T, page_ids, self.page_size, offset=o,
+            prefix_ids=prefix_ids)
+        self.stats["tail_prefills" if o else "prefills"][bucket] += 1
+        if self.prefix is not None:
+            req.cache_extras = {
+                "tokens": np.array(eff, np.int32), "offset": o,
+                "logits": logits,
+                # an exact record promises bit-identity with a COLD run; a
+                # kv-quant tail computes over DEQUANTISED prefix rows, so it
+                # donates its tail pages but never an exact record
+                "record_ok": not (self.cfg.kv_cache_quant and o > 0)}
+        return logits
+
     def _admit_and_prefill(self):
-        """Admit pending requests into free lanes, prefill each, arm its
-        lane mirrors and emit its first token."""
+        """Admit pending requests into free lanes, produce each one's
+        end-of-prompt logits (full prefill, tail prefill, or an exact-hit
+        record read), arm its lane mirrors and emit its first token."""
         admitted = self.sched.admit()
         if admitted and self._pool is None:
             self._pool = self.engine.init_pool(self.n_pages, self.page_size)
         for req in admitted:
-            S = int(req.prompt.shape[0])
-            bucket = self._bucket_len(S)
-            npp_t = -(-S // self.page_size)
-            page_ids = np.zeros((-(-bucket // self.page_size),), np.int32)
-            page_ids[:npp_t] = req.pages[:npp_t]
-            padded = np.zeros((bucket,), np.int32)
-            padded[:S] = req.prompt
-            logits = self.engine.prefill_commit(self._pool, padded, S, page_ids,
-                                                self.page_size)
-            self.stats["prefills"][bucket] += 1
+            req.admitted_at = time.perf_counter()
+            eff = req.effective_prompt
+            S = int(eff.shape[0])
+            if req.hit is not None and req.hit.exact:
+                logits = self._admit_exact(req, S)
+            else:
+                logits = self._admit_prefill(req, eff, S)
             tok0 = int(sample_tokens(self.cfg, logits[:, -1])[0, 0])
+            req.first_token_at = time.perf_counter()
             lane = req.lane
             self._bt[lane] = 0
             self._bt[lane, :len(req.pages)] = req.pages

@@ -19,9 +19,10 @@ from repro.kernels import pack_bits as jax_pack_bits
 from repro.kernels import unpack_bits as jax_unpack_bits
 from repro.kernels.paged_attention import paged_flash_decode as jax_paged_decode
 from repro.models import attention as JA
-from repro_torch.kernels import (KERNELS, boolean_weight_bwd, pack_bits,
-                                 packed_xnor_gemv, paged_flash_decode, ref,
-                                 unpack_bits)
+from repro_torch.kernels import (KERNELS, boolean_weight_bwd,
+                                 flash_attention_fwd, pack_bits,
+                                 packed_xnor_gemv, paged_flash_decode,
+                                 paged_prefix_attention, ref, unpack_bits)
 
 
 def _pm1(rng, shape):
@@ -153,7 +154,12 @@ def test_cpu_tensors_never_count_launches():
     q, kp, vp, bt, pos = (torch.from_numpy(a) for a in _decode_inputs(2))
     paged_flash_decode(q, kp, vp, bt, pos)
     boolean_weight_bwd(x, torch.ones((3, 8)))
-    assert [k.launches for k in KERNELS] == [0, 0, 0]
+    qa = torch.from_numpy(rng.standard_normal((4, 10, 16)).astype(np.float32))
+    kt = torch.from_numpy(rng.standard_normal((10, 2, 16)).astype(np.float32))
+    flash_attention_fwd(qa, qa[:2], qa[:2], n_rep=2)
+    paged_prefix_attention(qa, kt, kt, kp, vp, bt[0], 5, 5, 10, n_rep=2)
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS) \
+        and len(KERNELS) == 5
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -167,5 +173,5 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     q, kp, vp, bt, pos = (torch.from_numpy(a) for a in _decode_inputs(4))
     with pytest.raises(TypeError):
         paged_flash_decode(q, kp, vp, bt.long(), pos)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):      # int8 pools need their scales
         paged_flash_decode(q, kp.to(torch.int8), vp.to(torch.int8), bt, pos)
