@@ -13,7 +13,10 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               the GEMV, paged decode over bf16 and int8 pools, the flash
               prefill and the paged prefix attention; one training
               microbatch for the weight backward), with the stated
-              tolerance; kernel, plain-version and library times (CUDA
+              tolerance (per element for the two prefill kernels, whose
+              query rows are scaled so the softcap binds; the prefix kernel
+              also over a garbage-padded page list); kernel, plain-version
+              and library times (CUDA
               events, median of 20 launches, L2 flushed before each) beside
               the bound;
 3. serve   -- gemma2-2b at its published widths (26 layers, d_model 2304,
@@ -55,7 +58,10 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               the streams that seeded their records, pages conserved after
               the drain; each partial-hit stream is compared with a cold run
               of its full prompt (a divergence where the cold run's top-2
-              logit margin exceeds 1.0 fails). TTFT by admission kind, the
+              logit margin exceeds 1.0 fails), and for the longest tail the
+              first layer's committed K/V rows and attention output must
+              match the cold prefill's at the same positions within bf16
+              roundings, element by element. TTFT by admission kind, the
               decode step and peak memory are reported.
 
 The last lines are one JSON object of kernel results, the card's name and
@@ -64,6 +70,7 @@ power limit as nvidia-smi reports them, and the result object.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -241,22 +248,28 @@ def check_flash(torch, flush, gen, cfg):
     rows, worst = [], 0.0
     for label, S, window, dt in FLASH_CASES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        q = torch.randn((H, S, hd), generator=gen, device="cuda").to(dtype)
+        # q x 8: scores of std ~8 reach |s| ~ 40, where the softcap of 50
+        # moves them by up to ~10 (a kernel without the tanh fails)
+        q = (8 * torch.randn((H, S, hd), generator=gen, device="cuda")).to(dtype)
         k = torch.randn((KV, S, hd), generator=gen, device="cuda").to(dtype)
         v = torch.randn((KV, S, hd), generator=gen, device="cuda").to(dtype)
         kw = dict(causal=True, window=window, softcap=cfg.attn_logit_softcap,
                   n_rep=n_rep)
-        out = flash_attention_fwd(q, k, v, **kw)
-        ref = flash_attention_plain(q, k, v, **kw)
+        out = flash_attention_fwd(q, k, v, **kw).float()
+        ref = flash_attention_plain(q, k, v, **kw).float()
+        absv = flash_attention_plain(q, k, v.abs(), **kw).float()
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        # both round one fp32 result (reassociated) to the output dtype: at
-        # most one bf16 ulp apart; fp32 outputs differ by reassociation only
-        tol = (2.0 ** -7 if dt == "bf16" else 1e-5) * scale + 1e-6
+        # per element: fp32 reassociation (2^-17 of sum p|v| / l), and for
+        # bf16 outputs one rounding of each side to the nearest bf16, at
+        # most one ulp of the larger apart
+        tol = 2.0 ** -17 * absv
+        if dt == "bf16":
+            tol = tol + 2.0 ** -7 * torch.maximum(out.abs(), ref.abs())
+        diff = (out - ref).abs()
+        err, ratio = diff.max().item(), (diff / tol).max().item()
         print(f"  flash prefill {label} S={S} window={window} {dt}: "
-              f"max_abs_err={err:.3g} (tol {tol:.3g})")
-        assert err <= tol, f"flash {label} S={S} {dt}: {err} > {tol}"
+              f"max_abs_err={err:.3g}, max err/tol {ratio:.3g}")
+        assert ratio <= 1.0, f"flash {label} S={S} {dt}: err/tol {ratio}"
         worst = max(worst, err)
         ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, **kw), flush)
         plain = time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw),
@@ -270,7 +283,7 @@ def check_flash(torch, flush, gen, cfg):
                            4.0 * hd * pairs, "bf16")
         rows.append({"case": label, "S": S, "window": window, "dtype": dt,
                      "BH": H, "KV": KV, "hd": hd, "live_pairs": pairs,
-                     "max_abs_err": err, "tol": tol, "ms": ms,
+                     "max_abs_err": err, "max_err_over_tol": ratio, "ms": ms,
                      "plain_ms": plain, "library_ms": None,
                      "sdpa_causal_no_softcap_ms": sdpa, "bound_ms": b_ms,
                      "bound_by": b_by})
@@ -282,8 +295,12 @@ def check_flash(torch, flush, gen, cfg):
 
 
 # the prefix-cache tail prefill of phase 7: a 512-row prefix in 32 scattered
-# pages of 16 rows, tail buckets of 128 and 256 rows (5 padded rows each)
+# pages of 16 rows, tail buckets of 128 and 256 rows (5 padded rows each);
+# and a 45-row prefix in 3 live pages bucketed to 4, the padding entry the
+# garbage page 0 (filled with values that would wreck any row read from it)
 PREFIX_ROWS, PREFIX_PAGE = 512, 16
+# (tail bucket T, live prefix rows, page_ids entries)
+PREFIX_CASES = ((128, 512, 32), (256, 512, 32), (128, 45, 4))
 
 
 def check_prefix(torch, flush, gen, cfg):
@@ -291,11 +308,11 @@ def check_prefix(torch, flush, gen, cfg):
                                      paged_prefix_attention_plain)
 
     H, KV, hd = cfg.heads_padded(), cfg.kv_heads_padded(), cfg.head_dim_
-    n_rep, page, npp = H // KV, PREFIX_PAGE, PREFIX_ROWS // PREFIX_PAGE
+    n_rep, page = H // KV, PREFIX_PAGE
     n_pages = 8 * (1024 // page) + 1
     shape = (n_pages, page, KV, hd)
-    page_ids = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[:npp]
-                + 1).to(torch.int32)
+    perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+            + 1).to(torch.int32)
     kp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     vp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda",
@@ -304,50 +321,59 @@ def check_prefix(torch, flush, gen, cfg):
                        dtype=torch.int8)
     ks = torch.rand(shape[:3], generator=gen, device="cuda") * 0.035 + 0.005
     vs = torch.rand(shape[:3], generator=gen, device="cuda") * 0.035 + 0.005
+    kp[0], vp[0], ks[0], vs[0] = 1e4, 1e4, 1e3, 1e3     # the garbage page
     pools = {"bf16": (kp, vp, None, None), "int8": (k8, v8, ks, vs)}
     rows, worst = [], 0.0
-    for T in (128, 256):
+    for T, prefix_len, npp in PREFIX_CASES:
         length = T - 5
-        q = torch.randn((H, T, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        n_live = -(-prefix_len // page)
+        page_ids = torch.zeros((npp,), dtype=torch.int32, device="cuda")
+        page_ids[:n_live] = perm[:n_live]
+        # q x 8: the softcap of 50 binds (scores of std ~8)
+        q = (8 * torch.randn((H, T, hd), generator=gen, device="cuda")
+             ).to(torch.bfloat16)
         kt = torch.randn((T, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
         vt = torch.randn((T, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
         for pool, (k_, v_, ks_, vs_) in pools.items():
-            args = (q, kt, vt, k_, v_, page_ids, PREFIX_ROWS, PREFIX_ROWS,
+            args = (q, kt, vt, k_, v_, page_ids, prefix_len, prefix_len,
                     length, ks_, vs_)
             kw = dict(n_rep=n_rep, window=0, softcap_val=cfg.attn_logit_softcap)
             out = paged_prefix_attention(*args, **kw)
             ref = paged_prefix_attention_plain(*args, **kw)
+            absv = paged_prefix_attention_plain(
+                q, kt, vt.abs(), k_, v_.abs(), page_ids, prefix_len,
+                prefix_len, length, ks_, vs_, **kw)
             torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            live_v = v_[page_ids.long()].float()
-            if vs_ is not None:
-                live_v = live_v * vs_[page_ids.long()][..., None]
-            vmax = max(vt.float().abs().max().item(),
-                       live_v.abs().max().item())
-            # both cast p to bf16 before the value product, each relative to
-            # its own running max: p may round one bf16 ulp apart
-            tol = 2.0 ** -7 * vmax + 1e-5
+            # per element: both cast p to bf16 before the value product,
+            # each against its own running max, so each p_j may be one bf16
+            # rounding off on either side: 2^-7 of sum p|v| / l, plus 2^-12
+            # of it for fp32 reassociation and the rounding inside absv
+            tol = (2.0 ** -7 + 2.0 ** -12) * absv
+            diff = (out - ref).abs()
+            err, ratio = diff.max().item(), (diff / tol).max().item()
             print(f"  paged prefix {pool} pool T={T} (length {length}) over "
-                  f"{PREFIX_ROWS} prefix rows: max_abs_err={err:.3g} "
-                  f"(tol {tol:.3g})")
-            assert err <= tol, f"paged prefix {pool} T={T}: {err} > {tol}"
+                  f"{prefix_len} prefix rows in {n_live} of {npp} pages: "
+                  f"max_abs_err={err:.3g}, max err/tol {ratio:.3g}")
+            assert bool(torch.isfinite(out).all()) and ratio <= 1.0, \
+                f"paged prefix {pool} T={T} prefix {prefix_len}: {ratio}"
             worst = max(worst, err)
             ms = time_ms(torch, lambda: paged_prefix_attention(*args, **kw),
                          flush)
             plain = time_ms(torch, lambda: paged_prefix_attention_plain(
                 *args, **kw), flush)
             row_bytes = hd * k_.element_size() + (4 if ks_ is not None else 0)
-            pairs = H * sum(PREFIX_ROWS + min(t + 1, length) for t in range(T))
+            pairs = H * sum(prefix_len + min(t + 1, length) for t in range(T))
             b_ms, b_by = bound(q.numel() * 2 + kt.numel() * 2 * 2
-                               + PREFIX_ROWS * KV * row_bytes * 2
+                               + prefix_len * KV * row_bytes * 2
                                + page_ids.numel() * 4 + out.numel() * 4,
                                4.0 * hd * pairs, "bf16")
             rows.append({"pool": pool, "T": T, "length": length,
-                         "prefix_rows": PREFIX_ROWS, "H": H, "KV": KV,
-                         "hd": hd, "live_pairs": pairs, "max_abs_err": err,
-                         "tol": tol, "ms": ms, "plain_ms": plain,
-                         "library_ms": None, "bound_ms": b_ms,
-                         "bound_by": b_by})
+                         "prefix_rows": prefix_len, "live_pages": n_live,
+                         "page_ids": npp, "H": H, "KV": KV, "hd": hd,
+                         "live_pairs": pairs, "max_abs_err": err,
+                         "max_err_over_tol": ratio, "ms": ms,
+                         "plain_ms": plain, "library_ms": None,
+                         "bound_ms": b_ms, "bound_by": b_by})
             print(f"    kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
                   f"{b_ms:.4f} ms ({b_by}); library: none (no single PyTorch "
                   "call computes softcapped attention over a paged pool)")
@@ -990,6 +1016,140 @@ def _margin(logits_row) -> float:
     return top[0] - top[1]
 
 
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@contextlib.contextmanager
+def first_call(owner, name: str):
+    """Keep the arguments and output of the first call of ``owner.name``
+    while the block runs; the call itself is unchanged."""
+    fn = getattr(owner, name)
+    seen = {}
+
+    def keep(*args, **kw):
+        out = fn(*args, **kw)
+        seen.setdefault("call", (args, kw, out))
+        return out
+
+    setattr(owner, name, keep)
+    try:
+        yield seen
+    finally:
+        setattr(owner, name, fn)
+
+
+def tail_route_check(torch, eng, prompt, hit: int, page: int):
+    """The first layer of a partial hit's tail prefill against the cold
+    prefill of its full prompt at the same positions, both through
+    ``ServeEngine.prefill_commit`` as the session calls it: the K/V rows
+    each commits to the pool and, over a bf16 pool, the attention output.
+    Only the projections' summation order (the GEMV at <= 256 rows, the
+    unpacked matmul above) and the attention's p (fp32 in the flash kernel,
+    bf16 in the prefix kernel) differ, so every element must agree within
+    bf16 roundings; a wrong offset, page, prefix length or mask in the tail
+    route moves whole rows. Under kv-quant the tail attends over the prefix
+    rows dequantised from the pool, so the cold attention is recomputed over
+    those same rows (its own rows from the tail on). Returns the readings;
+    fails past a tolerance."""
+    import numpy as np
+    import repro_torch.models.attention as A
+    import repro_torch.models.lm as LM
+    from repro_torch.kernels.paged_attention import gather_prefix_rows
+    from repro_torch.serve import paged_pool_init
+
+    cfg = eng.cfg
+    assert hit % page == 0 and hit < len(prompt)
+    S, T = len(prompt), len(prompt) - hit
+    n_cold, n_tail = -(-S // page), -(-T // page)
+    pool = paged_pool_init(cfg, 1 + n_cold + n_tail, page, eng.device)
+    cold_ids = np.zeros((_pow2(S) // page,), np.int32)
+    cold_ids[:n_cold] = np.arange(1, 1 + n_cold)
+    tail_ids = np.zeros((_pow2(T) // page,), np.int32)
+    tail_ids[:n_tail] = np.arange(1 + n_cold, 1 + n_cold + n_tail)
+    prefix_ids = np.zeros((_pow2(hit // page),), np.int32)
+    prefix_ids[:hit // page] = cold_ids[:hit // page]
+    padded = np.zeros((_pow2(S),), np.int32)
+    padded[:S] = prompt
+    with first_call(LM, "flash_attention_fwd") as cold:
+        eng.prefill_commit(pool, padded, S, cold_ids, page)
+    padded = np.zeros((_pow2(T),), np.int32)
+    padded[:T] = prompt[hit:]
+    with first_call(A, "flash_prefix_attention_paged") as tail:
+        eng.prefill_commit(pool, padded, T, tail_ids, page, offset=hit,
+                           prefix_ids=prefix_ids)
+
+    KV, quant = cfg.kv_heads_padded(), cfg.kv_cache_quant
+
+    def rows(name, ids, lo, hi, block="b0", group=0):
+        """Committed rows lo..hi of pages ``ids`` of one layer, fp32."""
+        blk = pool[block]
+        idx = torch.from_numpy(ids).to(eng.device)
+        scale = blk[f"{name}_scale"][group] if quant else None
+        r = gather_prefix_rows(blk[name][group], idx, scale)[lo:hi]
+        step = 0.0
+        if quant:                       # one int8 step of each row
+            step = scale.index_select(0, idx.long()).reshape(-1, KV)[lo:hi,
+                                                                     :, None]
+        return r, step
+
+    def compare(a, b, tol):
+        diff = (a - b).abs()
+        return {"max_abs_err": diff.max().item(),
+                "max_err_over_tol": (diff / tol).max().item(),
+                "share_not_equal": (diff > 0).float().mean().item()}
+
+    out = {}
+    for name in ("k", "v"):
+        a, step_a = rows(name, tail_ids[:n_tail], 0, T)   # the tail's commit
+        b, step_b = rows(name, cold_ids[:n_cold], hit, S)  # cold rows there
+        # a last-bit difference of a projection sum, carried through RoPE
+        # (which mixes each pair d, d + hd/2) and the bf16 rounding; under
+        # kv-quant it may move a code by one step of the row's scale
+        mag = torch.maximum(a.abs(), b.abs())
+        if name == "k":
+            mag = mag + mag.roll(cfg.head_dim_ // 2, dims=-1)
+        tol = 2.0 ** -6 * mag + 1e-6
+        if quant:
+            tol = tol + torch.maximum(step_a, step_b)
+        out[name] = compare(a, b, tol)
+    (qc, kc, vc), kw, out_c = cold["call"]
+    if quant:       # the cold prefill over the prefix rows the tail reads
+        kc, vc = kc.clone(), vc.clone()
+        for name, x in (("k", kc), ("v", vc)):
+            r, _ = rows(name, cold_ids[:n_cold], 0, hit)
+            x[:, :hit] = r.transpose(0, 1).to(x.dtype)
+        out_c = LM.flash_attention_fwd(qc, kc, vc, **kw)
+    absv = LM.flash_attention_fwd(qc, kc, vc.abs(), **kw)
+    hp, hd = cfg.heads_padded(), cfg.head_dim_
+    b, absv = (x.reshape(hp, -1, hd)[:, hit:S].float() for x in (out_c, absv))
+    a = tail["call"][2][0, :T].transpose(0, 1).float()
+    # p one bf16 rounding apart and the scores moved by the projections'
+    # last bits: 2^-7 of sum p|v| / l; then both outputs rounded to bf16,
+    # each by up to 2^-8 of the value
+    tol = 2.0 ** -7 * (absv + torch.maximum(a.abs(), b.abs())) + 1e-6
+    out["attention"] = compare(a, b, tol)
+    # not checked, read: how the difference grows through the layers (the
+    # relative L2 difference of each layer's committed K rows)
+    drift = []
+    for g in range(cfg.n_groups):
+        for i in range(len(pool)):
+            a = rows("k", tail_ids[:n_tail], 0, T, f"b{i}", g)[0]
+            b = rows("k", cold_ids[:n_cold], hit, S, f"b{i}", g)[0]
+            drift.append((torch.linalg.vector_norm(a - b)
+                          / torch.linalg.vector_norm(b)).item())
+    for what, r in out.items():
+        print(f"    layer-0 {what} of the {T}-row tail at offset {hit} vs the "
+              f"cold prefill: max_abs_err {r['max_abs_err']:.3g}, max err/tol "
+              f"{r['max_err_over_tol']:.3g}, share not bit-equal "
+              f"{r['share_not_equal']:.3g}")
+    print("    relative difference of the committed K rows by layer: "
+          + " ".join(f"{d:.2g}" for d in drift))
+    bad = {w: r for w, r in out.items() if not r["max_err_over_tol"] <= 1.0}
+    assert not bad, f"tail route disagrees with the cold prefill: {bad}"
+    return dict(out, k_rows_relative_difference_by_layer=drift)
+
+
 def serve_prefix(torch, engine, seed: int):
     import numpy as np
     from repro_torch.models import lm_prefill
@@ -1072,6 +1232,9 @@ def serve_prefix(torch, engine, seed: int):
               f"the first divergence: {agree} (of {PFX_TOKENS} each)")
         for d in diverged:
             assert d["cold_margin"] <= 1.0, (label, d)
+        # the longest tail: its bucket takes the GEMV, the cold one does not
+        i = max(range(1, PFX_REQUESTS), key=lambda j: len(prompts[j]))
+        route = tail_route_check(torch, eng, prompts[i], PFX_SYSTEM, 16)
 
         ttft = {k: statistics.median(v) for k, v in res["ttft_ms"].items()}
         admit = {k: statistics.median(v) for k, v in res["admit_ms"].items()}
@@ -1088,6 +1251,7 @@ def serve_prefix(torch, engine, seed: int):
                       "admit_ms": res["admit_ms"], "step_ms_median": step,
                       "max_memory_allocated_bytes": peak,
                       "partial_agreement": agree, "divergences": diverged,
+                      "tail_route": route,
                       "exact_identical": exact_same, "audit": res["audit"]}
         if quant:
             del eng
@@ -1166,8 +1330,10 @@ def main() -> int:
                   and r["pool"] == "int8")
     flash = next(r for r in flash_rows if (r["case"], r["S"], r["dtype"])
                  == ("local", 1024, "bf16"))
-    pfx = next(r for r in pfx_rows if (r["pool"], r["T"]) == ("bf16", 256))
-    pfx8 = next(r for r in pfx_rows if (r["pool"], r["T"]) == ("int8", 256))
+    pfx = next(r for r in pfx_rows if (r["pool"], r["T"], r["prefix_rows"])
+               == ("bf16", 256, PREFIX_ROWS))
+    pfx8 = next(r for r in pfx_rows if (r["pool"], r["T"], r["prefix_rows"])
+                == ("int8", 256, PREFIX_ROWS))
     p7 = prefix_metrics["bf16"]["launches"]
     kernels = [
         {"name": "packed_xnor_gemv", "route": "cuda",

@@ -27,9 +27,8 @@ def _kv_rows(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          softcap: float = 0.0, n_rep: int = 1,
-                          block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
-    """The TPU kernel's order in fp32: (block_q, block_k) blocks, the
+                          softcap: float = 0.0, n_rep: int = 1):
+    """The TPU kernel's order in fp32: (BLOCK_Q, BLOCK_K) blocks, the
     block-level causal/window skip, the query scaled before the dot, the
     softcap, -1e30 masking, an online softmax with p kept in fp32 for the
     value product, and ``acc / max(l, 1e-30)`` in q's dtype."""
@@ -40,17 +39,17 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     vf = _kv_rows(v, n_rep).to(torch.float32)
     pos = torch.arange(S, device=q.device)
     out = torch.empty((BH, S, hd), dtype=torch.float32, device=q.device)
-    for q0 in range(0, S, block_q):
-        q1 = min(S, q0 + block_q)
+    for q0 in range(0, S, BLOCK_Q):
+        q1 = min(S, q0 + BLOCK_Q)
         qpos = pos[q0:q1, None]
         m = torch.full((BH, q1 - q0, 1), -1e30, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros((BH, q1 - q0, hd), device=q.device)
-        for k0 in range(0, S, block_k):
-            if causal and (k0 > q0 + block_q - 1 or (
-                    window > 0 and k0 + block_k - 1 < q0 - window + 1)):
+        for k0 in range(0, S, BLOCK_K):
+            if causal and (k0 > q0 + BLOCK_Q - 1 or (
+                    window > 0 and k0 + BLOCK_K - 1 < q0 - window + 1)):
                 continue                        # wholly masked block
-            k1 = min(S, k0 + block_k)
+            k1 = min(S, k0 + BLOCK_K)
             kpos = pos[None, k0:k1]
             s = torch.matmul(qf[:, q0:q1], kf[:, k0:k1].transpose(1, 2))
             if softcap > 0:

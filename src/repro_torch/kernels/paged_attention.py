@@ -12,14 +12,13 @@ The counterparts of the JAX package's ``kernels/paged_attention.py``:
   * ``paged_prefix_attention`` -- the prefix-cache tail prefill: the tail's
     queries over [the cached prefix's pool pages ; the tail's own K/V].
     CPU tensors run ``paged_prefix_attention_plain`` (the JAX package's
-    parity oracle: ``gather_prefix_kv`` + ``flash_attention_abs``); CUDA
+    parity oracle: ``gather_prefix_rows`` + ``flash_attention_abs``); CUDA
     tensors launch ``csrc/paged_prefix_attention.cu`` or raise.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-import types
 
 import torch
 
@@ -169,39 +168,90 @@ paged_flash_decode.launches = 0
 # ---------------------------------------------------------------------------
 # Prefix-cache tail prefill: tail queries over [prefix pages ; tail K/V]
 # ---------------------------------------------------------------------------
+def gather_prefix_rows(pool, page_ids, scale=None):
+    """The rows of pages ``page_ids`` of one pool leaf, in page order, in
+    fp32 (int8 rows times their per-row ``scale``): pool (..., n_pages,
+    page, KV, hd) -> (..., npp * page, KV, hd). Entries past the live pages
+    may be the garbage page 0; the caller masks its rows."""
+    idx = page_ids.to(device=pool.device, dtype=torch.long)
+    g = _dequant(pool.index_select(-4, idx),
+                 None if scale is None else scale.index_select(-3, idx))
+    return g.reshape(g.shape[:-4] + (-1,) + g.shape[-2:])
+
+
+def flash_attention_abs(q, k, v, q_pos, k_pos, k_valid, *, window: int = 0,
+                        softcap_val: float = 0.0, chunk: int = 1024,
+                        out_dtype=None):
+    """Online-softmax attention with EXPLICIT absolute positions.
+
+    The prefix-cache tail prefill attends queries at absolute positions
+    ``q_pos`` over keys at ``k_pos`` (the cached prefix's rows, then the
+    tail's own), so masking is ``k_valid & (k_pos <= q_pos)`` (& the sliding
+    window) in position space. q: (B, T, H, hd); k/v: (B, K, H, hd) (kv
+    already group-broadcast); q_pos (T,), k_pos (K,) int; k_valid (K,) bool.
+    Scans KV in ``chunk``-row chunks: scores fp32, the probabilities cast to
+    v's dtype before the value product, as in the JAX package. Returns
+    (B, T, H, hd) in ``out_dtype`` (default q's dtype).
+    """
+    B, T, H, hd = q.shape
+    K = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    ck = min(chunk, K)
+    qt = q.transpose(1, 2).to(torch.float32)            # (B, H, T, hd)
+    m = torch.full((B, H, T), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, H, T, hd), device=q.device)
+    for c0 in range(0, K, ck):
+        c1 = min(K, c0 + ck)
+        kc = k[:, c0:c1].transpose(1, 2).to(torch.float32)
+        vc = v[:, c0:c1].transpose(1, 2)
+        s = torch.matmul(qt, kc.transpose(-1, -2)) * scale
+        if softcap_val > 0:
+            s = softcap_val * torch.tanh(s / softcap_val)
+        kpos = k_pos[c0:c1]
+        valid = k_valid[None, c0:c1] & (kpos[None, :] <= q_pos[:, None])
+        if window > 0:
+            valid &= q_pos[:, None] - kpos[None, :] < window
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.matmul(
+            p.to(vc.dtype).to(torch.float32), vc.to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(out_dtype or q.dtype)
+
+
 def paged_prefix_attention_plain(q, k_tail, v_tail, k_pool, v_pool, page_ids,
                                  offset, prefix_len, length, k_scale=None,
                                  v_scale=None, *, n_rep: int, window: int = 0,
                                  softcap_val: float = 0.0, chunk: int = 1024):
     """The JAX package's parity oracle of the kernel: gather the prefix rows
-    out of the pool (``gather_prefix_kv``: int8 -> fp32 * scale), cast them
-    to the tail's dtype, and run ``flash_attention_abs`` over [prefix ;
+    out of the pool (``gather_prefix_rows``: int8 -> fp32 * scale), cast
+    them to the tail's dtype, and run ``flash_attention_abs`` over [prefix ;
     tail] with absolute positions. Shapes as ``paged_prefix_attention``;
     returns (H, T, hd) fp32."""
-    from repro_torch.models.attention import (_repeat_kv, flash_attention_abs,
-                                              gather_prefix_kv)
-
     S = k_tail.shape[0]
     P = page_ids.shape[0] * k_pool.shape[1]
-    bcache = {"k": k_pool[None], "v": v_pool[None]}
-    quant = k_pool.dtype == torch.int8
-    if quant:
-        bcache.update(k_scale=k_scale[None], v_scale=v_scale[None])
-    prefix = gather_prefix_kv(types.SimpleNamespace(kv_cache_quant=quant),
-                              bcache, page_ids)
     dt = k_tail.dtype
-    k = torch.cat([prefix["k"][0].to(dt), k_tail[None]], dim=1)
-    v = torch.cat([prefix["v"][0].to(dt), v_tail[None]], dim=1)
+    k = torch.cat([gather_prefix_rows(k_pool, page_ids, k_scale).to(dt),
+                   k_tail])
+    v = torch.cat([gather_prefix_rows(v_pool, page_ids, v_scale).to(dt),
+                   v_tail])
     dev = q.device
     positions = torch.arange(S, dtype=torch.int32, device=dev) + int(offset)
     k_pos = torch.cat([torch.arange(P, dtype=torch.int32, device=dev),
                        positions])
     k_valid = torch.cat([torch.arange(P, device=dev) < int(prefix_len),
                          torch.arange(S, device=dev) < int(length)])
+    # the GQA broadcast: q head h reads KV head h // n_rep
     out = flash_attention_abs(
-        q.transpose(0, 1)[None], _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-        positions[:q.shape[1]], k_pos, k_valid, window=window,
-        softcap_val=softcap_val, chunk=chunk, out_dtype=torch.float32)
+        q.transpose(0, 1)[None], k.repeat_interleave(n_rep, dim=1)[None],
+        v.repeat_interleave(n_rep, dim=1)[None], positions[:q.shape[1]],
+        k_pos, k_valid, window=window, softcap_val=softcap_val, chunk=chunk,
+        out_dtype=torch.float32)
     return out[0].transpose(0, 1)
 
 

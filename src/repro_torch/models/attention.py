@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import paged_flash_decode, paged_prefix_attention
+from repro_torch.kernels.paged_attention import (  # noqa: F401 (reference names)
+    flash_attention_abs, gather_prefix_rows)
 
 from .modules import ModelConfig, proj_apply, proj_init, rope, softcap
 
@@ -129,50 +131,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.transpose(1, 2).to(q.dtype)
 
 
-def flash_attention_abs(q, k, v, q_pos, k_pos, k_valid, *, window: int = 0,
-                        softcap_val: float = 0.0, chunk: int = 1024,
-                        out_dtype: Optional[torch.dtype] = None):
-    """Online-softmax attention with EXPLICIT absolute positions.
-
-    The prefix-cache tail prefill attends queries at absolute positions
-    ``q_pos`` over keys at ``k_pos`` (the cached prefix's rows, then the
-    tail's own), so masking is ``k_valid & (k_pos <= q_pos)`` (& the sliding
-    window) in position space. q: (B, T, H, hd); k/v: (B, K, H, hd) (kv
-    already group-broadcast); q_pos (T,), k_pos (K,) int; k_valid (K,) bool.
-    Scans KV in ``chunk``-row chunks: scores fp32, the probabilities cast to
-    v's dtype before the value product, as in the JAX package. Returns
-    (B, T, H, hd) in ``out_dtype`` (default q's dtype).
-    """
-    B, T, H, hd = q.shape
-    K = k.shape[1]
-    scale = 1.0 / math.sqrt(hd)
-    ck = min(chunk, K)
-    qt = q.transpose(1, 2).to(torch.float32)            # (B, H, T, hd)
-    m = torch.full((B, H, T), -1e30, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((B, H, T, hd), device=q.device)
-    for c0 in range(0, K, ck):
-        c1 = min(K, c0 + ck)
-        kc = k[:, c0:c1].transpose(1, 2).to(torch.float32)
-        vc = v[:, c0:c1].transpose(1, 2)
-        s = torch.matmul(qt, kc.transpose(-1, -2)) * scale
-        s = softcap(s, softcap_val)
-        kpos = k_pos[c0:c1]
-        valid = k_valid[None, c0:c1] & (kpos[None, :] <= q_pos[:, None])
-        if window > 0:
-            valid &= q_pos[:, None] - kpos[None, :] < window
-        s = torch.where(valid, s, torch.full_like(s, -1e30))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.matmul(
-            p.to(vc.dtype).to(torch.float32), vc.to(torch.float32))
-        m = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.transpose(1, 2).to(out_dtype or q.dtype)
-
-
 def gather_prefix_kv(cfg: ModelConfig, bcache, page_ids):
     """Gather a cached prefix's K/V rows out of one block's page pool.
 
@@ -182,18 +140,11 @@ def gather_prefix_kv(cfg: ModelConfig, bcache, page_ids):
     past ``prefix_len``). Returns {"k"/"v": (G, 1, npp*page, KVp, hd)}
     dequantised to fp32: exactly the values decode reads for those rows.
     """
-    npp = page_ids.shape[0]
-    page = bcache["k"].shape[2]
-    idx = page_ids.long()
-
     def rows(name):
-        g = bcache[name][:, idx]                     # (G, npp, page, ...)
-        return g.reshape((g.shape[0], npp * page) + tuple(g.shape[3:]))[:, None]
+        scale = bcache[f"{name}_scale"] if cfg.kv_cache_quant else None
+        return gather_prefix_rows(bcache[name], page_ids, scale)[:, None]
 
-    if cfg.kv_cache_quant:
-        return {"k": kv_dequant(rows("k"), rows("k_scale")),
-                "v": kv_dequant(rows("v"), rows("v_scale"))}
-    return {"k": kv_dequant(rows("k")), "v": kv_dequant(rows("v"))}
+    return {"k": rows("k"), "v": rows("v")}
 
 
 def flash_prefix_attention_paged(cfg: ModelConfig, bcache, page_ids, q, k, v,

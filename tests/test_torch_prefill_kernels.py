@@ -153,6 +153,29 @@ def test_prefix_plain_matches_jax_kernel(quant, window, softcap, chunk, dtype):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("quant", [False, True])
+def test_gather_prefix_kv_matches_jax(quant):
+    """The plain version's gather over a stacked-groups pool block, with
+    garbage-page padding: the same fp32 rows as the JAX package, bit for
+    bit (int8 rows times their scale is one fp32 product)."""
+    q, kt, vt, kp, vp, ks, vs, page_ids, n_rep = _prefix_inputs(quant,
+                                                                "float32")
+    stack = lambda a: np.stack([a, a[::-1]])            # 2 groups
+    block = {"k": stack(kp), "v": stack(vp)}
+    if quant:
+        block.update(k_scale=stack(ks), v_scale=stack(vs))
+    want = JA.gather_prefix_kv(jax_smoke("gemma2-2b").scaled(
+        kv_cache_quant=quant), {n: jnp.asarray(a) for n, a in block.items()},
+        jnp.asarray(page_ids))
+    got = TA.gather_prefix_kv(get_smoke("gemma2-2b").scaled(
+        kv_cache_quant=quant), {n: _t(a) for n, a in block.items()},
+        _t(page_ids))
+    for name in ("k", "v"):
+        assert got[name].dtype == torch.float32
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      np.asarray(want[name]))
+
+
 # ---------------------------------------------------------------------------
 # kernel #2's int8 branch and kv-quant
 # ---------------------------------------------------------------------------
