@@ -7,7 +7,8 @@ Run from the repository root on a host with one CUDA card (Hopper: the
 kernels are built for sm_90a). Phases, each fatal on failure:
 
 1. build   -- nvcc builds every kernel of the paths from src/repro_torch/csrc
-              (one nvcc per source, in parallel) into build/;
+              (seven sources, one nvcc each, all started together) into
+              build/;
 2. kernels -- each kernel against its plain PyTorch version on the card, at
               the shapes its path gives it at gemma2-2b widths (serving for
               the GEMV, paged decode over bf16 and int8 pools, the flash
@@ -15,8 +16,11 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               microbatch for the weight backward), with the stated
               tolerance (per element for the two prefill kernels, whose
               query rows are scaled so the softcap binds; the prefix kernel
-              also over a garbage-padded page list); kernel, plain-version
-              and library times (CUDA
+              also over a garbage-padded page list); the two ±1 GEMMs
+              (boolean_matmul in counts and fused-threshold mode,
+              packed_xnor_matmul) bit-exact at the four ±1-input convs of
+              VGG-SMALL at batch 100, one SMALL-EDSR block conv and a ragged
+              shape; kernel, plain-version and library times (CUDA
               events, median of 20 launches, L2 flushed before each) beside
               the bound;
 3. serve   -- gemma2-2b at its published widths (26 layers, d_model 2304,
@@ -62,7 +66,20 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               first layer's committed K/V rows and attention output must
               match the cold prefill's at the same positions within bf16
               roundings, element by element. TTFT by admission kind, the
-              decode step and peak memory are reported.
+              decode step and peak memory are reported;
+8. vision  -- Boolean VGG-SMALL at published widths (stages 128/256/512,
+              fc 1024, 32x32x3, 10 classes; weights from vgg_init on the
+              seed) over 10 batches of 100 synthetic class-conditional
+              images, evaluated with float-view, int8 and PackedBool
+              Boolean leaves, without and with BN: launch counters exact (4
+              a batch for the route's kernel, 0 for every other), the
+              kernel routes' ±1 activations and predictions identical to
+              the plain route's (the GEMMs' plain versions on the card) and
+              to each other, the float route's (cuDNN) differences counted;
+              3 training steps of the example (flip rule + Adam) at batch
+              100; SMALL-EDSR (8 blocks, width 64, x2) on 4 x 128x128
+              through the three leaf forms (8 launches a kernel forward,
+              outputs identical to the plain route). Images/s per route.
 
 The last lines are one JSON object of kernel results, the card's name and
 power limit as nvidia-smi reports them, and the result object.
@@ -72,6 +89,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -82,9 +100,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): memory rate, bf16
-# tensor-core rate, fp32 rate outside the tensor cores.
+# tensor-core rate, fp32 rate outside the tensor cores, int8 tensor-core
+# rate (integer operations a second).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 GEMV_SHAPES = (("wqkv", 2304, 6144), ("wo", 4096, 2304),
                ("wgu", 2304, 18432), ("wd", 9216, 2304))
 FLUSH_BYTES = 1 << 30            # > the 50 MB L2; zeroing it keeps the card
@@ -434,6 +453,91 @@ def check_weight_bwd(torch, flush, gen):
     return rows, worst
 
 
+# the ±1-input Boolean convs of phase 8 as GEMMs (M pixels, K = 9·Cin, N =
+# Cout): VGG-SMALL at batch 100 (stages 1 and 2), one SMALL-EDSR block conv
+# on 4 x 128 x 128, and a ragged shape (K not a multiple of 16, M and N not
+# of the 128 tile, N not of 4: the kernels' byte-load path)
+GEMM_SHAPES = (("vgg s1c0", 25600, 1152, 256), ("vgg s1c1", 25600, 2304, 256),
+               ("vgg s2c0", 6400, 2304, 512), ("vgg s2c1", 6400, 4608, 512),
+               ("edsr block", 65536, 576, 64), ("ragged", 1000, 100, 70))
+VGG_GEMMS = GEMM_SHAPES[:4]
+# H100 SXM: 132 SMs x 16 population counts a clock (compute capability 9.0,
+# NVIDIA's CUDA C++ Programming Guide) x 1.98 GHz boost clock
+POPC_PER_S = 132 * 16 * 1.98e9
+
+
+def check_bool_gemm(torch, flush, gen):
+    """boolean_matmul (counts and the fused threshold at tau 0) and
+    packed_xnor_matmul at the phase-8 shapes, each bit-exact against its
+    plain version; torch._int_mm (cuBLASLt int8) on the unpacked operands,
+    the faster of w row-major and column-major, as the library yardstick
+    where it takes the shape."""
+    from repro_torch.kernels import (boolean_matmul, boolean_matmul_plain,
+                                     pack_bits, packed_xnor_matmul,
+                                     packed_xnor_matmul_plain)
+
+    rows = []
+    for name, M, K, N in GEMM_SHAPES:
+        x = torch.where(torch.rand((M, K), generator=gen, device="cuda") < 0.5,
+                        1, -1).to(torch.int8)
+        w = torch.where(torch.rand((K, N), generator=gen, device="cuda") < 0.5,
+                        1, -1).to(torch.int8)
+        xp, wp = pack_bits(x, axis=1), pack_bits(w, axis=0)
+        Kw = xp.shape[1]
+        # the yardstick only; the port never calls it. w is a stored weight,
+        # so it is timed both row-major and column-major (cuBLASLt's int8
+        # tensor-core kernels want B column-major), and the faster counts.
+        lib_layouts = {}
+        if K % 8 == 0 and N % 8 == 0 and M > 16:
+            for layout, wl in (("row_major", w), ("col_major", w.t().contiguous().t())):
+                try:
+                    assert torch.equal(torch._int_mm(x, wl), torch._int_mm(x, w))
+                    lib_layouts[layout] = time_ms(
+                        torch, lambda wl=wl: torch._int_mm(x, wl), flush)
+                except RuntimeError as e:
+                    print(f"  torch._int_mm refused {name} ({layout} w): {e}")
+        lib = min(lib_layouts.values()) if lib_layouts else None
+        if lib_layouts:
+            print(f"  torch._int_mm {name}: " + "  ".join(
+                f"{k} w {v:.4f} ms" for k, v in lib_layouts.items()))
+        ops = 2.0 * M * K * N
+        cases = (
+            ("boolean_matmul counts", lambda: boolean_matmul(x, w),
+             lambda: boolean_matmul_plain(x, w), M * K + K * N + 4 * M * N, lib),
+            ("boolean_matmul fused", lambda: boolean_matmul(
+                x, w, fuse_threshold=True, tau=0.0), lambda: boolean_matmul_plain(
+                x, w, fuse_threshold=True, tau=0.0), M * K + K * N + M * N, None),
+            ("packed_xnor_matmul", lambda: packed_xnor_matmul(xp, wp, k_valid=K),
+             lambda: packed_xnor_matmul_plain(xp, wp, k_valid=K),
+             4 * (M * Kw + Kw * N) + 4 * M * N, lib))
+        for kernel, fn, plain_fn, nbytes, lib_ms in cases:
+            y, ref = fn(), plain_fn()
+            torch.cuda.synchronize()
+            same = bool(torch.equal(y, ref))
+            err = (y.to(torch.int64) - ref.to(torch.int64)).abs().max().item()
+            print(f"  {kernel} {name} M={M} K={K} N={N}: bit-exact {same} "
+                  f"(max_abs_err {err})")
+            assert same, f"{kernel} {name}: differs from its plain version"
+            ms = time_ms(torch, fn, flush)
+            plain = time_ms(torch, plain_fn, flush)
+            b_ms, b_by = bound(nbytes, ops, "int8")
+            row = {"kernel": kernel, "shape": name, "M": M, "K": K, "N": N,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+            if lib_ms is not None:
+                row["library_layouts_ms"] = lib_layouts
+            if kernel == "packed_xnor_matmul":
+                row["popc_floor_ms"] = M * N * Kw / POPC_PER_S * 1e3
+            rows.append(row)
+            print(f"    kernel {ms:.4f} ms  plain {plain:.4f} ms  _int_mm "
+                  f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms  bound "
+                  f"{b_ms:.4f} ms ({b_by})"
+                  + (f"  popcount floor {row['popc_floor_ms']:.4f} ms"
+                     if "popc_floor_ms" in row else ""))
+        del x, w, xp, wp
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # 3. serve gemma2-2b at published widths
 # ---------------------------------------------------------------------------
@@ -577,7 +681,8 @@ def serve(torch, seed: int):
             "paged_flash_decode": cfg.n_layers * d_steps,
             "boolean_weight_bwd": 0,
             "flash_attention_fwd": cfg.n_layers * sum(stats["prefills"].values()),
-            "paged_prefix_attention": 0}
+            "paged_prefix_attention": 0, "boolean_matmul": 0,
+            "packed_xnor_matmul": 0}
     print(f"  served {len(handles)} requests in {serve_s:.2f} s: "
           f"{d_steps} decode steps, prefill buckets {dict(stats['prefills'])}")
     print(f"  launches {launches}, expected {want} ({per_layer} GEMV per decode "
@@ -872,7 +977,8 @@ def train(torch, seed: int):
     per_mb = 7 * cfg.n_layers
     want = {"packed_xnor_gemv": 0, "paged_flash_decode": 0,
             "boolean_weight_bwd": TIMED_STEPS * TRAIN_MICRO * per_mb,
-            "flash_attention_fwd": 0, "paged_prefix_attention": 0}
+            "flash_attention_fwd": 0, "paged_prefix_attention": 0,
+            "boolean_matmul": 0, "packed_xnor_matmul": 0}
     peak = torch.cuda.max_memory_allocated()
     print(f"  launches over the {TIMED_STEPS} timed steps {launches}, expected "
           f"{want} ({per_mb} weight-backward launches a microbatch)")
@@ -1190,7 +1296,8 @@ def serve_prefix(torch, engine, seed: int):
                 "paged_flash_decode": L * st["decode_steps"],
                 "boolean_weight_bwd": 0,
                 "flash_attention_fwd": L * st["prefills"],
-                "paged_prefix_attention": L * st["tail_prefills"]}
+                "paged_prefix_attention": L * st["tail_prefills"],
+                "boolean_matmul": 0, "packed_xnor_matmul": 0}
         print(f"  {label}: kinds {dict((k, want_kinds.count(k)) for k in ('cold', 'partial', 'exact'))}, "
               f"prefix stats {pstats}")
         print(f"  {label}: launches {launches}, expected {want}")
@@ -1258,6 +1365,224 @@ def serve_prefix(torch, engine, seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 8. Boolean VGG-SMALL and SMALL-EDSR at published widths
+# ---------------------------------------------------------------------------
+VGG_BATCH, VGG_BATCHES, VGG_TRAIN_STEPS = 100, 10, 3
+EDSR_BLOCKS, EDSR_WIDTH, EDSR_SCALE, EDSR_BATCH, EDSR_HW = 8, 64, 2, 4, 128
+LEAF_FORMS = ("float", "int8", "packed")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """While the block runs, the inference convs call the two GEMM kernels'
+    plain versions (on the card) instead of their wrappers, whose counters
+    therefore do not move."""
+    import repro_torch.core.boolean_conv as BC
+    from repro_torch.kernels import boolean_matmul_plain, packed_xnor_matmul_plain
+
+    saved = BC.boolean_matmul, BC.packed_xnor_matmul
+    BC.boolean_matmul = boolean_matmul_plain
+    BC.packed_xnor_matmul = packed_xnor_matmul_plain
+    try:
+        yield
+    finally:
+        BC.boolean_matmul, BC.packed_xnor_matmul = saved
+
+
+def leaf_form(torch, w, form):
+    """A Boolean leaf as a float ±1 view, int8, or PackedBool."""
+    from repro_torch.core import pack_boolean_weight
+
+    if form == "float":
+        return w.to(torch.float32)
+    return w if form == "int8" else pack_boolean_weight(w)
+
+
+def vgg_leaves(torch, params, form):
+    return {k: ({c: {**l, "w": leaf_form(torch, l["w"], form)}
+                 for c, l in v.items()} if k.startswith("s") else v)
+            for k, v in params.items()}
+
+
+def counted(torch, fn, want_kernel, n_launches):
+    """Run ``fn`` with the launch counters zeroed just before and read just
+    after; every kernel but ``want_kernel`` must stay at 0 and that one must
+    reach ``n_launches``. Returns (result, launches, seconds)."""
+    from repro_torch.kernels import KERNELS
+
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {k.__name__: k.launches for k in KERNELS}
+    want = {k.__name__: 0 for k in KERNELS}
+    if want_kernel is not None:
+        want[want_kernel] = n_launches
+    assert launches == want, (launches, want)
+    return out, launches, dt
+
+
+def vgg_routes(torch, cfg, params, batches, label):
+    """Each leaf form over the batches (launches counted, images/s); the
+    kernel routes against the plain route and each other; the float route's
+    differences counted."""
+    from repro_torch.vision import vgg_forward
+
+    n_pm1 = sum(n for _, n in cfg.stages) - 2      # ±1-input Boolean convs
+    kernel_of = {"float": None, "int8": "boolean_matmul",
+                 "packed": "packed_xnor_matmul"}
+    runs, out = {}, {"images": len(batches) * batches[0].shape[0]}
+    with torch.no_grad():
+        for form in LEAF_FORMS:
+            p = vgg_leaves(torch, params, form)
+            vgg_forward(p, cfg, batches[0])                  # warm-up
+            res, launches, dt = counted(
+                torch, lambda: [vgg_forward(p, cfg, x) for x in batches],
+                kernel_of[form], n_pm1 * len(batches))
+            runs[form] = res
+            out[form] = {"launches": launches, "seconds": dt,
+                         "images_per_s": out["images"] / dt}
+            if form != "float":
+                with plain_kernels():
+                    plain = [vgg_forward(p, cfg, x) for x in batches]
+                torch.cuda.synchronize()
+                for (lg, acts), (lg_p, acts_p) in zip(res, plain):
+                    assert all(torch.equal(a, b) for a, b in zip(acts, acts_p)), \
+                        f"{label} {form}: ±1 activations differ from the plain route"
+                    assert torch.equal(lg.argmax(-1), lg_p.argmax(-1))
+                out[form]["logits_max_abs_diff_vs_plain"] = max(
+                    (lg - lg_p).abs().max().item()
+                    for (lg, _), (lg_p, _) in zip(res, plain))
+    n_acts = n_pm1 + 1
+    for (lg8, a8), (lgp, ap) in zip(runs["int8"], runs["packed"]):
+        assert len(a8) == len(ap) == n_acts
+        assert all(torch.equal(a, b) for a, b in zip(a8, ap)), \
+            f"{label}: int8 and packed routes' ±1 activations differ"
+        assert torch.equal(lg8.argmax(-1), lgp.argmax(-1))
+        assert tuple(lg8.shape) == (batches[0].shape[0], cfg.n_classes)
+        assert bool(torch.isfinite(lg8).all())
+    diff = [0] * n_acts
+    pred_diff, logit_diff = 0, 0.0
+    for (lgf, af), (lg8, a8) in zip(runs["float"], runs["int8"]):
+        for i, (a, b) in enumerate(zip(af, a8)):
+            diff[i] += int((a.to(torch.int8) != b).sum())
+        pred_diff += int((lgf.argmax(-1) != lg8.argmax(-1)).sum())
+        logit_diff = max(logit_diff, (lgf - lg8).abs().max().item())
+    total = [sum(a[i].numel() for _, a in runs["int8"]) for i in range(n_acts)]
+    out["float_route"] = {"differing_activations_by_layer": diff,
+                          "activations_by_layer": total,
+                          "differing_predictions": pred_diff,
+                          "logits_max_abs_diff_vs_int8": logit_diff}
+    print(f"  {label}: kernel routes' ±1 activations identical to the plain "
+          f"route and to each other in all {n_acts} Boolean layers of "
+          f"{len(batches)} batches; predictions identical")
+    print(f"  {label}: float route (cuDNN fp32) differs from the int8 route in "
+          f"{diff} of {total} activations by layer, {pred_diff} of "
+          f"{out['images']} predictions, logits by up to {logit_diff:.3g}")
+    for form in LEAF_FORMS:
+        r = out[form]
+        print(f"  {label} {form}: {r['images_per_s']:.0f} images/s "
+              f"({r['seconds'] * 1e3 / len(batches):.2f} ms a batch of "
+              f"{batches[0].shape[0]}), launches {r['launches']}")
+    return out
+
+
+def vision(torch, seed: int):
+    from repro_torch.configs import get_config
+    from repro_torch.core.optimizer import adam, boolean_optimizer, tree_leaves
+    from repro_torch.examples import finetune_boolean_cnn as example
+    from repro_torch.vision import edsr_apply, edsr_init, vgg_init
+
+    gc_collect(torch)
+    cfg = get_config("bold-vgg-small")
+    print(f"  VGG-SMALL stages {cfg.stages}, fc {cfg.fc_dim}, "
+          f"{cfg.input_hw}x{cfg.input_hw}x{cfg.in_channels}, {cfg.n_classes} "
+          f"classes; {VGG_BATCHES} batches of {VGG_BATCH}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    xs, ys = example.synthetic_task(gen, VGG_BATCH * VGG_BATCHES,
+                                    cfg.input_hw, cfg.n_classes)
+    batches, labels = list(xs.split(VGG_BATCH)), list(ys.split(VGG_BATCH))
+    out = {}
+    for bn in (False, True):
+        c = cfg.scaled(with_bn=bn)
+        params = vgg_init(c, torch.Generator(device="cuda").manual_seed(seed))
+        out["vgg_bn" if bn else "vgg"] = vgg_routes(
+            torch, c, params, batches, "VGG-SMALL" + (" with BN" if bn else ""))
+
+    # training: the example's step (flip rule + Adam) at batch 100
+    gc_collect(torch)
+    params = vgg_init(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    bool_t, fp_t = example.split_params(params)
+    bopt, fopt = boolean_optimizer(6.0), adam(2e-3)
+    bstate, fstate = bopt.init(bool_t), fopt.init(fp_t)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(VGG_TRAIN_STEPS):
+        j = i % len(batches)
+        (loss, acc, _), launches, dt = counted(torch, lambda: example.train_step(
+            cfg, bopt, fopt, bool_t, fp_t, bstate, fstate, batches[j],
+            labels[j]), None, 0)
+        steps.append({"ms": dt * 1e3, "loss": float(loss), "acc": float(acc),
+                      "flips": sum(float(f) for f in tree_leaves(bstate.flips))})
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(s["loss"]) for s in steps), steps
+    assert all(bool(((w == 1) | (w == -1)).all()) for w in tree_leaves(bool_t))
+    out["vgg_train"] = {"steps": steps, "max_memory_allocated_bytes": peak}
+    print("  VGG-SMALL training (example step, flip rule + Adam, batch "
+          f"{VGG_BATCH}): " + ", ".join(
+              f"{s['ms']:.1f} ms loss {s['loss']:.4f} flips {s['flips']:.0f}"
+              for s in steps) + f"; max_memory_allocated {peak / 2**30:.2f} GiB")
+
+    # SMALL-EDSR through the int8 and packed routes
+    gc_collect(torch)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    params = edsr_init(gen, EDSR_BLOCKS, EDSR_WIDTH, EDSR_SCALE)
+    x = torch.rand((EDSR_BATCH, EDSR_HW, EDSR_HW, 3), generator=gen,
+                   device="cuda")
+
+    def blocks(form):
+        return {k: ({j: leaf_form(torch, w, form) for j, w in v.items()}
+                    if k.startswith("b") else v) for k, v in params.items()}
+
+    kernel_of = {"float": None, "int8": "boolean_matmul",
+                 "packed": "packed_xnor_matmul"}
+    edsr, ys_ = {}, {}
+    with torch.no_grad():
+        for form in LEAF_FORMS:
+            p = blocks(form)
+            edsr_apply(p, x, EDSR_BLOCKS, EDSR_SCALE)               # warm-up
+            y, launches, dt = counted(
+                torch, lambda: edsr_apply(p, x, EDSR_BLOCKS, EDSR_SCALE),
+                kernel_of[form], EDSR_BLOCKS)
+            assert tuple(y.shape) == (EDSR_BATCH, EDSR_HW * EDSR_SCALE,
+                                      EDSR_HW * EDSR_SCALE, 3), y.shape
+            assert bool(torch.isfinite(y).all())
+            ys_[form] = y
+            edsr[form] = {"launches": launches, "ms": dt * 1e3,
+                          "images_per_s": EDSR_BATCH / dt}
+            if form != "float":
+                with plain_kernels():
+                    y_plain = edsr_apply(p, x, EDSR_BLOCKS, EDSR_SCALE)
+                assert torch.equal(y, y_plain), f"EDSR {form}: differs from plain"
+    assert torch.equal(ys_["int8"], ys_["packed"])
+    edsr["float_route_max_abs_diff_vs_int8"] = \
+        (ys_["float"] - ys_["int8"]).abs().max().item()
+    out["edsr"] = edsr
+    print(f"  SMALL-EDSR ({EDSR_BLOCKS} blocks, width {EDSR_WIDTH}, x{EDSR_SCALE}) "
+          f"on {EDSR_BATCH} x {EDSR_HW}x{EDSR_HW}: int8 and packed routes "
+          f"identical to the plain route and to each other; float route within "
+          f"{edsr['float_route_max_abs_diff_vs_int8']:.3g}")
+    for form in LEAF_FORMS:
+        r = edsr[form]
+        print(f"  SMALL-EDSR {form}: {r['ms']:.2f} ms a forward "
+              f"({r['images_per_s']:.1f} images/s), launches {r['launches']}")
+    return out
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -1278,7 +1603,6 @@ def main() -> int:
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
     device_line = smi_line()
@@ -1302,6 +1626,7 @@ def main() -> int:
     flash_rows, flash_err = check_flash(torch, flush, gen, get_config("gemma2-2b"))
     pfx_rows, pfx_err = check_prefix(torch, flush, gen, get_config("gemma2-2b"))
     wbwd_rows, wbwd_err = check_weight_bwd(torch, flush, gen)
+    gemm_rows = check_bool_gemm(torch, flush, gen)
     del flush
 
     print("3. serve gemma2-2b (published widths) through the packed session")
@@ -1321,6 +1646,10 @@ def main() -> int:
     prefix_metrics = serve_prefix(torch, engine, args.seed)
     del engine
 
+    print("8. Boolean VGG-SMALL and SMALL-EDSR (published widths): float, int8 "
+          "and packed Boolean leaves")
+    vision_metrics = vision(torch, args.seed)
+
     decode_m8 = [r for r in gemv_rows if r["M"] == 8]
     layer_votes = [r for r in wbwd_rows if r["alpha"] == 0.0
                    and r["x_dtype"] == "torch.bfloat16"]
@@ -1335,6 +1664,30 @@ def main() -> int:
     pfx8 = next(r for r in pfx_rows if (r["pool"], r["T"], r["prefix_rows"])
                 == ("int8", 256, PREFIX_ROWS))
     p7 = prefix_metrics["bf16"]["launches"]
+
+    def gemm_row(kernel, name):
+        """One forward's four VGG ±1 GEMMs, summed, from phase 2; launches
+        summed over phase 8's counted runs (VGG without and with BN, EDSR)."""
+        rs = [r for r in gemm_rows if r["kernel"] == kernel
+              and r["shape"] in {g[0] for g in VGG_GEMMS}]
+        runs = [vision_metrics[v][f]["launches"][name]
+                for v in ("vgg", "vgg_bn") for f in LEAF_FORMS]
+        runs += [vision_metrics["edsr"][f]["launches"][name] for f in LEAF_FORMS]
+        lib = [r["library_ms"] for r in rs]
+        return {"launches": sum(runs),
+                "max_abs_err": max(r["max_abs_err"] for r in gemm_rows
+                                   if r["kernel"].startswith(name)),
+                "ms": sum(r["ms"] for r in rs),
+                "plain_ms": sum(r["plain_ms"] for r in rs),
+                "bound_ms": sum(r["bound_ms"] for r in rs),
+                "bound_by": ("bytes" if sum(r["bound_by"] == "bytes" for r in rs)
+                             * 2 >= len(rs) else "operations"),
+                "library_ms": None if None in lib else sum(lib)}
+
+    fused = [r for r in gemm_rows if r["kernel"] == "boolean_matmul fused"
+             and r["shape"] in {g[0] for g in VGG_GEMMS}]
+    packed_rows = [r for r in gemm_rows if r["kernel"] == "packed_xnor_matmul"
+                   and r["shape"] in {g[0] for g in VGG_GEMMS}]
     kernels = [
         {"name": "packed_xnor_gemv", "route": "cuda",
          "source": "src/repro_torch/csrc/packed_xnor_gemv.cu",
@@ -1401,6 +1754,29 @@ def main() -> int:
                   "rows in 32 scattered pages, head_dim 256, bf16 pool "
                   "(int8_*: int8 pool + fp32 scales); launches from phase 7 "
                   "(bf16 pool)"},
+        {"name": "boolean_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/boolean_matmul.cu",
+         "replaces": "src/repro/kernels/boolean_matmul.py:59",
+         **gemm_row("boolean_matmul counts", "boolean_matmul"),
+         "fused_ms": sum(r["ms"] for r in fused),
+         "fused_plain_ms": sum(r["plain_ms"] for r in fused),
+         "fused_bound_ms": sum(r["bound_ms"] for r in fused),
+         "shape": "sum over one VGG-SMALL forward's four +-1-input convs at "
+                  "batch 100 as GEMMs (M x K x N: 25600x1152x256, "
+                  "25600x2304x256, 6400x2304x512, 6400x4608x512), int32 counts "
+                  "(fused_*: the threshold at tau 0 fused, int8 out); "
+                  "library_ms: torch._int_mm, the faster of w row-major and "
+                  "column-major; launches over phase 8"},
+        {"name": "packed_xnor_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/packed_xnor_matmul.cu",
+         "replaces": "src/repro/kernels/packed_xnor.py:239",
+         **gemm_row("packed_xnor_matmul", "packed_xnor_matmul"),
+         "popc_floor_ms": sum(r["popc_floor_ms"] for r in packed_rows),
+         "shape": "the same four GEMMs with both operands bit-packed along K; "
+                  "library_ms: torch._int_mm on the unpacked int8 operands "
+                  "(the faster w layout); "
+                  "popc_floor_ms: M*N*Kw population counts at 16 a clock an SM, "
+                  "1.98 GHz; launches over phase 8"},
     ]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -1409,8 +1785,10 @@ def main() -> int:
                                "paged_decode": dec_rows, "weight_bwd": wbwd_rows,
                                "flash_prefill": flash_rows,
                                "paged_prefix": pfx_rows,
+                               "bool_gemm": gemm_rows,
                                "serve": metrics, "train": train_metrics,
                                "prefix_serve": prefix_metrics,
+                               "vision": vision_metrics,
                                "kernels": kernels}, indent=1))
     print(f"details written to {out}")
     print(json.dumps({"kernels": kernels}))

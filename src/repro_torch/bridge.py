@@ -1,11 +1,12 @@
 """Weight bridge: a parameter tree of numpy arrays -> the port's parameters.
 
-The JAX package's ``lm_init`` tree, with every leaf converted to numpy by
-the caller, crosses leaf by leaf, so the port never re-derives
-``jax.random`` initialisation. The tree keeps its structure and the stacked
-``(n_groups, ...)`` leading axis of block leaves; int8 ±1 Boolean leaves
-stay int8 (``pack_weights`` packs them), float leaves keep their dtype,
-bfloat16 included.
+The JAX package's ``lm_init``, ``vgg_init`` or ``edsr_init`` tree, with every
+leaf converted to numpy by the caller, crosses leaf by leaf, so the port
+never re-derives ``jax.random`` initialisation. The tree keeps its
+structure, the stacked ``(n_groups, ...)`` leading axis of block leaves and
+0-d leaves (EDSR's ``_meta``); int8 ±1 Boolean leaves stay int8
+(``pack_weights`` or ``pack_boolean_weight`` packs them), float leaves keep
+their dtype, bfloat16 included.
 """
 from __future__ import annotations
 

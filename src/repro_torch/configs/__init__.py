@@ -1,9 +1,9 @@
 """Architecture registry of the port.
 
 Each ported arch module exposes ``CONFIG`` (the published configuration)
-and ``SMOKE`` (a reduced same-family config for CPU tests). Only the dense
-gemma2-2b is ported so far; the other ids of the JAX package's registry
-raise until their families are.
+and ``SMOKE`` (a reduced same-family config for CPU tests). Ported: the
+dense gemma2-2b and the paper's VGG-SMALL; the other ids of the JAX
+package's registry raise until their families are.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ PAPER_IDS: List[str] = ["bold-bert", "bold-vgg-small"]
 
 _MODULES: Dict[str, str] = {
     "gemma2-2b": "gemma2_2b",
+    "bold-vgg-small": "bold_vgg_small",
 }
 
 

@@ -51,3 +51,10 @@ def boolean_activation(s: torch.Tensor, tau, fan_in: int = 1,
     sets the backward window α = π/(2√(3m)); ``hard_backward`` passes the
     signal through un-reweighted (ablations)."""
     return _BooleanActivation.apply(s, tau, fan_in, hard_backward)
+
+
+def boolean_activation_inference(s: torch.Tensor, tau=0.0,
+                                 dtype=torch.int8) -> torch.Tensor:
+    """Forward threshold alone, ±1 in ``dtype`` (int8 by default): the
+    inference path, no backward."""
+    return torch.where(s >= tau, 1, -1).to(dtype)

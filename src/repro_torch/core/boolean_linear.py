@@ -17,8 +17,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (boolean_weight_bwd, pack_bits,
-                                 packed_xnor_gemv, unpack_bits)
+from repro_torch.kernels import (boolean_matmul, boolean_weight_bwd,
+                                 pack_bits, packed_xnor_gemv,
+                                 packed_xnor_matmul, unpack_bits)
 
 from .scaling import backward_scale
 
@@ -119,6 +120,15 @@ class PackedBool:
     def __init__(self, bits: torch.Tensor, k: int):
         self.bits = bits
         self.k = k
+        self._colsum = None
+
+    def colsum(self) -> torch.Tensor:
+        """Σ_k e(w[..., k, n]), (..., n) int32: weight-only, computed on
+        first use and kept with the leaf."""
+        if self._colsum is None:
+            self._colsum = unpack_bits(self.bits, self.k, axis=-2).sum(
+                -2, dtype=torch.int32)
+        return self._colsum
 
     @property
     def shape(self):  # logical (unpacked) shape, for fan-in/scale logic
@@ -149,30 +159,36 @@ PACKED_GEMV_MAX_M = 256
 def boolean_dense_inference(x: torch.Tensor, w, b=None) -> torch.Tensor:
     """Serving-path Boolean dense on stored Boolean weights.
 
-    A ``PackedBool`` weight routes thin-M (decode, short prefill)
-    contractions through the packed-XNOR GEMV and returns fp32; wider ones
-    unpack transiently to a ±1 view. An int8 ±1 weight takes the mixed-type
-    rule xnor(w, x) = e(w)·x for real x.
+    int8 ±1 ``x``: against an int8 weight ``boolean_matmul`` gives the int32
+    counts; against a ``PackedBool`` weight ``x`` is packed along K and the fully
+    packed ``packed_xnor_matmul`` gives the counts, returned in fp32 as the
+    JAX package returns them (its GEMV casts x before the grid). Real ``x``:
+    a ``PackedBool`` weight routes thin-M (decode, short prefill)
+    contractions through the packed-XNOR GEMV and returns fp32, wider ones
+    unpack transiently to a ±1 view; an int8 weight takes the mixed-type
+    rule xnor(w, x) = e(w)·x.
     """
+    lead = x.shape[:-1]
     if isinstance(w, PackedBool):
-        lead = x.shape[:-1]
         m = 1
         for d in lead:
             m *= d
-        if m > PACKED_GEMV_MAX_M:
+        if x.dtype == torch.int8:
+            xp = pack_bits(x.reshape(-1, x.shape[-1]), axis=-1)
+            y = packed_xnor_matmul(xp, w.bits, k_valid=w.k).to(torch.float32)
+            y = y.reshape(*lead, y.shape[-1])
+        elif m > PACKED_GEMV_MAX_M:
             wv = unpack_bits(w.bits, w.k, axis=-2).to(x.dtype)
             y = matmul_f32(x, wv)
         else:
             y = packed_xnor_gemv(x.reshape(-1, x.shape[-1]).contiguous(),
                                  w.bits, k_valid=w.k)
             y = y.reshape(*lead, y.shape[-1])
-        if b is not None:
-            y = y + b.to(y.dtype)
-        return y
-    if x.dtype == torch.int8:
-        raise NotImplementedError("int8 activations take the boolean_matmul "
-                                  "kernel, which is not ported yet")
-    y = matmul_f32(x, w.to(x.dtype)).to(x.dtype)
+    elif x.dtype == torch.int8:
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        y = boolean_matmul(x2, w).reshape(*lead, w.shape[-1])
+    else:
+        y = matmul_f32(x, w.to(x.dtype)).to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

@@ -22,7 +22,8 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("packed_xnor_gemv", "paged_flash_decode", "boolean_weight_bwd",
-           "flash_attention", "paged_prefix_attention")
+           "flash_attention", "paged_prefix_attention", "boolean_matmul",
+           "packed_xnor_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -128,6 +129,14 @@ _SIGNATURES = {
     "paged_prefix_attention": {
         "paged_prefix_attention": [_P] * 9 + [_I] * 14 + [_F, _F, _P],
         "paged_prefix_attention_error_string": [_I],
+    },
+    "boolean_matmul": {
+        "boolean_matmul": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "boolean_matmul_error_string": [_I],
+    },
+    "packed_xnor_matmul": {
+        "packed_xnor_matmul": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "packed_xnor_matmul_error_string": [_I],
     },
 }
 

@@ -1,11 +1,30 @@
-"""Plain-torch oracles of the port's kernels: the serving GEMV stated on the
-unpacked weight, the fused weight backward and the materialising-softmax
-attention (the counterparts of the JAX package's ``kernels/ref.py``)."""
+"""Plain-torch oracles of the port's kernels: the ±1 GEMMs (int8 and packed)
+stated as exact integer products, the serving GEMV stated on the unpacked
+weight, the fused weight backward and the materialising-softmax attention
+(the counterparts of the JAX package's ``kernels/ref.py``)."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def boolean_matmul_ref(x: torch.Tensor, w: torch.Tensor, *,
+                       fuse_threshold: bool = False,
+                       tau: float = 0.0) -> torch.Tensor:
+    """int8 ±1 GEMM -> int32 counts (or the fused int8 ±1 threshold), as an
+    integer product on the CPU."""
+    y = torch.matmul(x.to(torch.int32), w.to(torch.int32))
+    if fuse_threshold:
+        return torch.where(y >= tau, 1, -1).to(torch.int8)
+    return y
+
+
+def packed_xnor_matmul_ref(x_pm1: torch.Tensor,
+                           w_pm1: torch.Tensor) -> torch.Tensor:
+    """Stated on the UNPACKED ±1 operands: the packed GEMM must agree after
+    ``pack_bits`` on both sides."""
+    return boolean_matmul_ref(x_pm1, w_pm1)
 
 
 def packed_xnor_gemv_ref(x: torch.Tensor, w_pm1: torch.Tensor) -> torch.Tensor:

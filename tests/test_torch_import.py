@@ -38,12 +38,17 @@ def test_import_loads_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(SUBMODULES) >= 20
-    # the training and prefix-cache slices' modules are among those imported
+    # the training, prefix-cache and vision slices' modules are among those
+    # imported
     assert {"repro_torch.core.optimizer", "repro_torch.kernels.boolean_bwd",
             "repro_torch.train.step", "repro_torch.train.loop",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
             "repro_torch.launch.train", "repro_torch.kernels.flash_attention",
-            "repro_torch.serve.prefix_cache"} <= set(SUBMODULES)
+            "repro_torch.serve.prefix_cache",
+            "repro_torch.kernels.boolean_matmul", "repro_torch.core.boolean_conv",
+            "repro_torch.configs.bold_vgg_small", "repro_torch.vision",
+            "repro_torch.vision.vgg", "repro_torch.vision.edsr",
+            "repro_torch.examples.finetune_boolean_cnn"} <= set(SUBMODULES)
 
 
 IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|repro)(?!\w)", re.M)

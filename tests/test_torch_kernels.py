@@ -19,10 +19,11 @@ from repro.kernels import pack_bits as jax_pack_bits
 from repro.kernels import unpack_bits as jax_unpack_bits
 from repro.kernels.paged_attention import paged_flash_decode as jax_paged_decode
 from repro.models import attention as JA
-from repro_torch.kernels import (KERNELS, boolean_weight_bwd,
+from repro_torch.kernels import (KERNELS, boolean_matmul, boolean_weight_bwd,
                                  flash_attention_fwd, pack_bits,
-                                 packed_xnor_gemv, paged_flash_decode,
-                                 paged_prefix_attention, ref, unpack_bits)
+                                 packed_xnor_gemv, packed_xnor_matmul,
+                                 paged_flash_decode, paged_prefix_attention,
+                                 ref, unpack_bits)
 
 
 def _pm1(rng, shape):
@@ -158,8 +159,11 @@ def test_cpu_tensors_never_count_launches():
     kt = torch.from_numpy(rng.standard_normal((10, 2, 16)).astype(np.float32))
     flash_attention_fwd(qa, qa[:2], qa[:2], n_rep=2)
     paged_prefix_attention(qa, kt, kt, kp, vp, bt[0], 5, 5, 10, n_rep=2)
+    xb = torch.from_numpy(_pm1(rng, (3, 64)))
+    boolean_matmul(xb, torch.from_numpy(_pm1(rng, (64, 8))), fuse_threshold=True)
+    packed_xnor_matmul(pack_bits(xb, axis=-1), w, k_valid=64)
     assert [k.launches for k in KERNELS] == [0] * len(KERNELS) \
-        and len(KERNELS) == 5
+        and len(KERNELS) == 7
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
