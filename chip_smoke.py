@@ -8,7 +8,8 @@ kernels are built for sm_90a). Phases, each fatal on failure:
 
 1. build   -- nvcc builds every kernel of the paths from src/repro_torch/csrc
               (seven sources, one nvcc each, all started together) into
-              build/;
+              build/; ptxas's registers and spills of each wgmma + TMA
+              kernel (csrc/hopper_gemm.cuh's ring_kernel) by instance;
 2. kernels -- each kernel against its plain PyTorch version on the card, at
               the shapes its path gives it at gemma2-2b widths (serving for
               the GEMV, paged decode over bf16 and int8 pools, the flash
@@ -16,13 +17,16 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               microbatch for the weight backward), with the stated
               tolerance (per element for the two prefill kernels, whose
               query rows are scaled so the softcap binds; the prefix kernel
-              also over a garbage-padded page list); the two ±1 GEMMs
+              also over a garbage-padded page list); the weight backward's
+              tensor-core route also bit-exact on small-integer operands at
+              each projection's shape, and its CUDA-core route at alpha > 0,
+              int8 x and a ragged bf16 shape; the two ±1 GEMMs
               (boolean_matmul in counts and fused-threshold mode,
               packed_xnor_matmul) bit-exact at the four ±1-input convs of
               VGG-SMALL at batch 100, one SMALL-EDSR block conv and a ragged
               shape; kernel, plain-version and library times (CUDA
               events, median of 20 launches, L2 flushed before each) beside
-              the bound;
+              the bound, and boolean_matmul's operand copy alone;
 3. serve   -- gemma2-2b at its published widths (26 layers, d_model 2304,
               vocab 256000, bf16), packed Boolean weights from the port's
               lm_init on a seeded generator, through ServeEngine.session:
@@ -43,7 +47,8 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               2 warm-up steps, then 5 timed steps with the launch counters
               zeroed just before; every Boolean projection's votes must have
               gone through boolean_weight_bwd (7 x 26 launches a
-              microbatch). One more step runs under torch.profiler;
+              microbatch), every launch on its tensor-core route. One more
+              step runs under torch.profiler;
 6. train check -- a small fp32 model (gemma2-2b smoke widths) trained 3
               steps on the card (kernels) and on the CPU (plain versions)
               from the same state each step: losses within tolerance, flip
@@ -408,14 +413,33 @@ WBWD_SHAPES = (("wq", 2304, 4096), ("wk", 2304, 1024), ("wv", 2304, 1024),
 
 
 def check_weight_bwd(torch, flush, gen):
+    """boolean_weight_bwd on both routes at one training microbatch's
+    shapes: bf16 x and z at alpha 0 (the tensor-core route, every launch of
+    phase 5) bit-exact on small-integer operands, whose fp32 sums are exact
+    in any order, so a layout error cannot hide under the tolerance; random
+    operands within the tolerance on both routes (alpha > 0, int8 x and a
+    bf16 shape with M, N not multiples of 8 take the CUDA-core route);
+    kernel, plain-version and torch.mm times."""
     from repro_torch.core import preactivation_alpha
-    from repro_torch.kernels import boolean_weight_bwd, boolean_weight_bwd_plain
+    from repro_torch.kernels import (boolean_weight_bwd, boolean_weight_bwd_plain,
+                                     weight_bwd_route)
 
     B = WBWD_TOKENS
+    for name, M, N in WBWD_SHAPES:
+        x = torch.randint(-2, 3, (B, M), generator=gen, device="cuda").to(torch.bfloat16)
+        z = torch.randint(-2, 3, (B, N), generator=gen, device="cuda").to(torch.bfloat16)
+        route = weight_bwd_route(x, z)
+        y, ref = boolean_weight_bwd(x, z), boolean_weight_bwd_plain(x, z)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(y, ref))
+        print(f"  weight bwd {name} integer-valued bf16 x, z in [-2, 2] B={B} "
+              f"M={M} N={N}: route {route}, bit-exact {same}")
+        assert route == "tensor_cores" and same, (name, route, same)
     ffn_alpha = preactivation_alpha(1)          # the FFN's fan_in-1 window
     cases = [(name, M, N, torch.bfloat16, alpha) for name, M, N in WBWD_SHAPES
              for alpha in (0.0, ffn_alpha)]
     cases.append(("wg", 2304, 9216, torch.int8, 0.0))
+    cases.append(("ragged", 2300, 1020, torch.bfloat16, 0.0))
     rows, worst = [], 0.0
     for name, M, N, x_dtype, alpha in cases:
         x = torch.randn((B, M), generator=gen, device="cuda")
@@ -424,30 +448,39 @@ def check_weight_bwd(torch, flush, gen):
         z = torch.randn((B, N), generator=gen, device="cuda").to(torch.bfloat16)
         d = (torch.randn((B, N), generator=gen, device="cuda").to(torch.bfloat16)
              if alpha else None)
+        route = weight_bwd_route(x, z, alpha)
+        want = ("tensor_cores" if x_dtype == torch.bfloat16 and alpha == 0.0
+                and name != "ragged" else "cuda_cores")
+        assert route == want, (name, route, want)
         y = boolean_weight_bwd(x, z, d, alpha=alpha)
         ref = boolean_weight_bwd_plain(x, z, d, alpha=alpha)
+        mm = (torch.mm(x.t(), z, out_dtype=torch.float32)
+              if alpha == 0.0 and x.dtype == z.dtype else None)
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
+        mm_err = None if mm is None else (mm - ref).abs().max().item()
         # fp32 sums of B exact products in another association order
         tol = 1e-5 * ref.abs().max().item() + 1e-4
         label = f"{name} {str(x_dtype)[6:]} x, alpha={alpha:.4f}"
-        print(f"  weight bwd {label} B={B} M={M} N={N}: max_abs_err={err:.3g}"
-              f" (tol {tol:.3g})")
+        print(f"  weight bwd {label} B={B} M={M} N={N}: route {route}, "
+              f"max_abs_err={err:.3g} (tol {tol:.3g}"
+              + ("" if mm_err is None else f"; torch.mm's {mm_err:.3g}") + ")")
         assert err <= tol, f"weight bwd {label}: {err} > {tol}"
         worst = max(worst, err)
         ms = time_ms(torch, lambda: boolean_weight_bwd(x, z, d, alpha=alpha), flush)
         plain = time_ms(torch, lambda: boolean_weight_bwd_plain(x, z, d, alpha=alpha),
                         flush)
         lib = (time_ms(torch, lambda: torch.mm(x.t(), z, out_dtype=torch.float32),
-                       flush) if alpha == 0.0 and x.dtype == z.dtype else None)
+                       flush) if mm is not None else None)
         b_ms, b_by = bound(x.numel() * x.element_size() + z.numel() * 2
                            + (d.numel() * 2 if alpha else 0) + M * N * 4,
                            2.0 * B * M * N, "bf16")
         rows.append({"proj": name, "x_dtype": str(x_dtype), "alpha": alpha,
-                     "B": B, "M": M, "N": N, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                     "bound_by": b_by})
-        print(f"    kernel {ms:.4f} ms  plain {plain:.4f} ms  mm(x.T, z) "
+                     "B": B, "M": M, "N": N, "route": route,
+                     "max_abs_err": err, "library_max_abs_err": mm_err,
+                     "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        print(f"    {route} kernel {ms:.4f} ms  plain {plain:.4f} ms  mm(x.T, z) "
               f"{'-' if lib is None else f'{lib:.4f}'} ms  bound {b_ms:.4f} ms "
               f"({b_by})")
     return rows, worst
@@ -471,9 +504,11 @@ def check_bool_gemm(torch, flush, gen):
     packed_xnor_matmul at the phase-8 shapes, each bit-exact against its
     plain version; torch._int_mm (cuBLASLt int8) on the unpacked operands,
     the faster of w row-major and column-major, as the library yardstick
-    where it takes the shape."""
-    from repro_torch.kernels import (boolean_matmul, boolean_matmul_plain,
-                                     pack_bits, packed_xnor_matmul,
+    where it takes the shape. boolean_matmul's time includes its operand
+    preparation (w transposed, K padded), which is also timed alone."""
+    from repro_torch.kernels import (boolean_matmul, boolean_matmul_operands,
+                                     boolean_matmul_plain, pack_bits,
+                                     packed_xnor_matmul,
                                      packed_xnor_matmul_plain)
 
     rows = []
@@ -501,6 +536,16 @@ def check_bool_gemm(torch, flush, gen):
             print(f"  torch._int_mm {name}: " + "  ".join(
                 f"{k} w {v:.4f} ms" for k, v in lib_layouts.items()))
         ops = 2.0 * M * K * N
+        xk, wt = boolean_matmul_operands(x, w)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(wt[:, :K], w.t()) and not wt[:, K:].any()
+                    and torch.equal(xk[:, :K], x) and not xk[:, K:].any())
+        operands_ms = time_ms(torch, lambda: boolean_matmul_operands(x, w), flush)
+        print(f"  boolean_matmul operands {name} (w transposed by the library's "
+              f"transpose kernel, K padded to {xk.shape[1]}): bit-exact {same}, "
+              f"{operands_ms:.4f} ms")
+        assert same, f"boolean_matmul operands {name}: differ from w.t()"
+        del xk, wt
         cases = (
             ("boolean_matmul counts", lambda: boolean_matmul(x, w),
              lambda: boolean_matmul_plain(x, w), M * K + K * N + 4 * M * N, lib),
@@ -528,6 +573,8 @@ def check_bool_gemm(torch, flush, gen):
                 row["library_layouts_ms"] = lib_layouts
             if kernel == "packed_xnor_matmul":
                 row["popc_floor_ms"] = M * N * Kw / POPC_PER_S * 1e3
+            else:
+                row["operands_ms"] = operands_ms
             rows.append(row)
             print(f"    kernel {ms:.4f} ms  plain {plain:.4f} ms  _int_mm "
                   f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms  bound "
@@ -972,8 +1019,11 @@ def train(torch, seed: int):
     warm_ms = [one_step() for _ in range(WARMUP_STEPS)]
     for k in KERNELS:
         k.launches = 0
+    boolean_weight_bwd.tc_launches = boolean_weight_bwd.cc_launches = 0
     step_ms = [one_step() for _ in range(TIMED_STEPS)]
     launches = {k.__name__: k.launches for k in KERNELS}
+    routes = {"tensor_cores": boolean_weight_bwd.tc_launches,
+              "cuda_cores": boolean_weight_bwd.cc_launches}
     per_mb = 7 * cfg.n_layers
     want = {"packed_xnor_gemv": 0, "paged_flash_decode": 0,
             "boolean_weight_bwd": TIMED_STEPS * TRAIN_MICRO * per_mb,
@@ -984,6 +1034,9 @@ def train(torch, seed: int):
           f"{want} ({per_mb} weight-backward launches a microbatch)")
     assert launches == want, (launches, want)
     assert boolean_weight_bwd.launches > 0
+    print(f"  weight-backward launches by route {routes}")
+    assert routes == {"tensor_cores": want["boolean_weight_bwd"],
+                      "cuda_cores": 0}, routes
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_ms = one_step()
@@ -1006,6 +1059,7 @@ def train(torch, seed: int):
         "warmup_step_ms": warm_ms, "step_ms": step_ms,
         "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3),
         "max_memory_allocated_bytes": peak, "launches": launches,
+        "weight_bwd_routes": routes,
         "profiled_step": {"wall_ms": prof_ms, "device_ms": busy,
                           "device_events": n_events,
                           "idle_share": (1 - busy / prof_ms) if busy else None,
@@ -1583,6 +1637,34 @@ def vision(torch, seed: int):
     return out
 
 
+def ring_kernels(build):
+    """ptxas's registers and spills for each instance of the wgmma + TMA
+    skeleton (csrc/hopper_gemm.cuh's ring_kernel), by policy <BN, STAGES,
+    BLOCKS[, FUSE]>, with the dynamic shared memory its ring takes, which
+    ptxas does not see: STAGES x (a 16 KB box set of the A operand + BN
+    rows of 128 bytes of the B operand), 1 KB of alignment slack and the
+    barriers."""
+    import re
+    out = {}
+    for name in ("boolean_weight_bwd", "boolean_matmul"):
+        label = None
+        for line in build.build_log(name).splitlines():
+            m = re.search(r"Compiling entry function '(\S*ring_kernel\S*)'", line)
+            if m:
+                k = re.search(r"(weight_bwd_tc|boolean_matmul_tc)I((?:L[a-z]+\d+E)+)",
+                              m.group(1))
+                args = [int(a) for a in re.findall(r"L[a-z]+(\d+)E", k.group(2))]
+                label = f"{k.group(1)}<{','.join(map(str, args))}>"
+                bn, stages = args[:2]
+                out[label] = {"smem_bytes": 1024 + stages * (16384 + 128 * bn + 16)}
+            elif "Compiling entry function" in line:
+                label = None
+            elif label and ("registers" in line or "spill" in line):
+                out[label]["ptxas"] = (out[label].get("ptxas", "") + " "
+                                       + line.split("info    :")[-1].strip()).strip()
+    return out
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -1616,6 +1698,9 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    ring = ring_kernels(build)
+    for label, info in ring.items():
+        print(f"  wgmma kernel {label}: {info}")
 
     print("2. kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1652,7 +1737,9 @@ def main() -> int:
 
     decode_m8 = [r for r in gemv_rows if r["M"] == 8]
     layer_votes = [r for r in wbwd_rows if r["alpha"] == 0.0
-                   and r["x_dtype"] == "torch.bfloat16"]
+                   and r["x_dtype"] == "torch.bfloat16"
+                   and r["proj"] in {name for name, _, _ in WBWD_SHAPES}]
+    assert len(layer_votes) == len(WBWD_SHAPES)
     local = next(r for r in dec_rows if r["layer"] == "local"
                  and r["pool"] == "bf16")
     local8 = next(r for r in dec_rows if r["layer"] == "local"
@@ -1717,6 +1804,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/boolean_weight_bwd.cu",
          "replaces": "src/repro/kernels/boolean_bwd.py:52",
          "launches": train_launches["boolean_weight_bwd"],
+         "tc_launches": train_metrics["weight_bwd_routes"]["tensor_cores"],
          "max_abs_err": wbwd_err,
          "ms": sum(r["ms"] for r in layer_votes),
          "plain_ms": sum(r["plain_ms"] for r in layer_votes),
@@ -1726,7 +1814,8 @@ def main() -> int:
          "library_ms": sum(r["library_ms"] for r in layer_votes),
          "shape": f"sum over one layer's wq, wk, wv, wo, wg, wu, wd votes at "
                   f"B={WBWD_TOKENS} tokens (one microbatch), bf16 x and z, "
-                  "alpha=0"},
+                  "alpha=0 (the tensor-core route; tc_launches: its launches "
+                  "in phase 5)"},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:87",
@@ -1758,6 +1847,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/boolean_matmul.cu",
          "replaces": "src/repro/kernels/boolean_matmul.py:59",
          **gemm_row("boolean_matmul counts", "boolean_matmul"),
+         "operands_ms": sum(r["operands_ms"] for r in fused),
          "fused_ms": sum(r["ms"] for r in fused),
          "fused_plain_ms": sum(r["plain_ms"] for r in fused),
          "fused_bound_ms": sum(r["bound_ms"] for r in fused),
@@ -1765,7 +1855,8 @@ def main() -> int:
                   "batch 100 as GEMMs (M x K x N: 25600x1152x256, "
                   "25600x2304x256, 6400x2304x512, 6400x4608x512), int32 counts "
                   "(fused_*: the threshold at tau 0 fused, int8 out); "
-                  "library_ms: torch._int_mm, the faster of w row-major and "
+                  "ms includes operands_ms, the wrapper's transposed copy of "
+                  "w; library_ms: torch._int_mm, the faster of w row-major and "
                   "column-major; launches over phase 8"},
         {"name": "packed_xnor_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/packed_xnor_matmul.cu",
@@ -1781,7 +1872,8 @@ def main() -> int:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"device": device_line, "seed": args.seed,
-                               "build_s": secs, "gemv": gemv_rows,
+                               "build_s": secs, "wgmma_kernels": ring,
+                               "gemv": gemv_rows,
                                "paged_decode": dec_rows, "weight_bwd": wbwd_rows,
                                "flash_prefill": flash_rows,
                                "paged_prefix": pfx_rows,

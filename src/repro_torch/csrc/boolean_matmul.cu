@@ -4,8 +4,9 @@
 //   s[i,j] = sum_k x[i,k] * w[k,j]            (int32 counts), or
 //   y[i,j] = s[i,j] >= tau ? +1 : -1          (int8, s never reaches HBM)
 //
-// x: (M, K) int8, w: (K, N) int8, both row-major; entries are +-1, or 0 where
-// im2col pads (a 0 adds nothing).
+// x: (M, K) int8 row-major; the weight comes transposed, wt = w^T: (N, K)
+// int8 row-major; entries are +-1, or 0 where im2col pads or K was padded to
+// a multiple of 16 (a 0 adds nothing).
 //
 // Replaces the TPU kernel src/repro/kernels/boolean_matmul.py::boolean_matmul
 // (body _bool_matmul_kernel), whose grid walks K innermost and carries an
@@ -14,240 +15,235 @@
 // What bounds it on the H100. At the vision path's shapes (VGG-SMALL at
 // batch 100: M = 6,400..25,600 pixels, K = 1,152..4,608, N = 256..512) it
 // does 2*M*K*N integer operations on M*K + K*N bytes in and 4*M*N (counts)
-// or M*N (threshold) bytes out: hundreds of operations per byte, so it is
-// bound by operations, at the int8 tensor-core rate (1,979 TOPS dense).
-// This first kernel uses the tensor cores through the warp-level
-// mma.sync.m16n8k32 s8.s8.s32 (int32 sums, exact), not wgmma, and stages
-// its tiles through registers, not TMA: those are later work.
+// or M*N (threshold) bytes out. At the int8 tensor-core rate (1,979 TOPS
+// dense) the operations take less time than moving x and the counts at
+// 3.35 TB/s, so the bytes bound it (chip_smoke.py's bound: 0.066 ms for
+// the four VGG GEMMs' counts, 0.053 ms with the threshold, against 0.046
+// ms of operations): the kernel has to keep the tensor cores fed from a
+// TMA ring and write its output in whole sectors.
 //
-// Design:
-//  * a block of 256 threads (8 warps, 2 x 4) owns a 128 x 128 output tile
-//    and walks all of K itself in tiles of 64, so every output is one
-//    warp's sum over k = 0..K-1: no atomics, no second pass, and the result
-//    repeats exactly from run to run. A warp owns 64 x 32 outputs: 4 x 4
-//    mma tiles of 16 x 8, 64 int32 accumulators a thread;
-//  * x tiles stay row-major in shared memory (rows of 64 bytes, padded to
-//    80 so that the A-fragment reads hit 32 distinct banks); w tiles are
-//    stored as words of 4 consecutive k of one column, [k/4][n], the B
-//    fragment's own layout: each thread reads a 4 x 4 byte block of w (4
-//    rows of 4 columns, coalesced along N), transposes it with byte_perm
-//    and stores 4 such words at once;
-//  * the next tile is read into registers while the current one is summed,
-//    and shared memory is double-buffered, so one barrier a tile suffices;
-//  * ragged K is zero-filled in shared memory and never read past K; rows
-//    past M read as 0 and are not stored, nor are columns past N. 16-byte
-//    and 4-byte loads need K % 16 == 0, N % 4 == 0 and aligned bases; other
-//    shapes take byte loads (same tiles, same sums);
-//  * the epilogue writes int32 counts, or compares each sum with tau
-//    (exact: |s| <= K < 2^24) and writes int8 +-1.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design (the skeleton and its pipeline are hopper_gemm.cuh's ring_kernel):
+//  * wgmma.m64nNk32.s32.s8.s8: int32 sums, exact. 8-bit wgmma reads both
+//    operands K-major only, which x is; w (K, N) is not, so the wrapper
+//    hands over wt = w^T (one copy of the weight a call, a few MB at most)
+//    and pads K to a multiple of 16 for TMA's 16-byte row stride;
+//  * a block owns a 128 x BN output tile, BN = 64, 128 or 256 (the
+//    narrowest that covers N: 256 for VGG-SMALL, 64 for SMALL-EDSR), and
+//    walks K in tiles of 128 bytes: TMA brings a 128 x 128 box of x and a
+//    BN x 128 box of wt, 128-byte swizzled, into a ring of 4 stages (3 at
+//    BN = 128); each consumer warpgroup issues 4 wgmma k-steps (32 bytes
+//    each) a stage on its 64 rows. Narrow tiles run two blocks an SM, so one
+//    block's epilogue overlaps the other's main loop;
+//  * TMA zero-fills rows past M and N and k past K, so ragged shapes need no
+//    other code; the epilogue masks its stores;
+//  * the epilogue writes the int32 counts from the accumulator fragment,
+//    each thread's pairs of neighbouring columns as one 8-byte store (four
+//    threads fill a row's 32-byte sector); or compares each sum with tau
+//    (exact: |s| <= K < 2^24) and writes int8 +-1, the four threads of a row
+//    swapping bytes with shuffles so that each stores 8 whole columns and
+//    the sectors are again written whole (2-byte or byte stores where
+//    N % 8 != 0);
+//  * the wrapper's transposed copy of w is this library's transpose kernel
+//    (32 x 32 tiles through shared memory), K's zero padding included.
+#include "hopper_gemm.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BM = 128;                 // output rows per block
-constexpr int BN = 128;                 // output columns per block
-constexpr int BK = 64;                  // k per tile
-constexpr int AS = BK + 16;             // bytes per x row in shared memory
-constexpr int BS = BN + 8;              // words per k-quad row of w
+constexpr int BK = 128;                  // k bytes a stage: one 128B-swizzle row
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1)
-{
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+template <int BN_, int STAGES_, int BLOCKS_, bool FUSE>
+struct boolean_matmul_tc {
+    static constexpr int BN = BN_;
+    static constexpr int STAGES = STAGES_;
+    static constexpr int BLOCKS = BLOCKS_;
+    static constexpr uint32_t A_BYTES = hopper::BM * BK;
+    static constexpr uint32_t B_BYTES = BN * BK;
+    static constexpr uint32_t A_WG = 64 * BK;
+    struct Args {
+        void* y;
+        int M, N, K;
+        float tau;
+    };
+    using Acc = int[BN / 2];
 
-template <bool VEC, bool FUSE>
-__global__ void __launch_bounds__(THREADS)
-boolean_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                      void* __restrict__ y, int M, int K, int N, float tau)
-{
-    __shared__ __align__(16) uint8_t xs[2][BM][AS];
-    __shared__ __align__(16) uint32_t ws[2][BK / 4][BS];
+    __device__ static int k_tiles(const Args& a) { return (a.K + BK - 1) / BK; }
 
-    const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int g = lane >> 2, t = lane & 3;          // mma group, thread in group
-    const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+    __device__ static void load(uint8_t* a, uint8_t* b, const CUtensorMap* ta,
+                                const CUtensorMap* tb, uint64_t* bar, int kt,
+                                int m0, int n0)
+    {
+        hopper::tma_load_2d(a, ta, bar, kt * BK, m0);
+        hopper::tma_load_2d(b, tb, bar, kt * BK, n0);
+    }
 
-    // staging map. x: 512 chunks of 16 bytes, chunk c = row c / 4, bytes
-    // (c % 4) * 16. w: 512 blocks of 4 k x 4 n, block b = k-quad
-    // (b / 8) % 16, column quad (b % 8) + 8 * (b / 128): 8 neighbouring
-    // lanes read 32 contiguous bytes of one row of w
-    uint4 xr[2];
-    uint32_t wr[2][4];
-    auto load = [&](int k0) {
+    __device__ static void mma(Acc& d, uint32_t a, uint32_t b)
+    {
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            const int c = tid + THREADS * r;
-            const int m = m0 + c / 4, k = k0 + (c % 4) * 16;
-            if (VEC) {
-                xr[r] = (m < M && k < K)
-                    ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)m * K + k))
-                    : make_uint4(0u, 0u, 0u, 0u);
-            } else {
-                uint32_t v[4] = {0u, 0u, 0u, 0u};
-                if (m < M) {
-                    const int8_t* row = x + (size_t)m * K;
-#pragma unroll
-                    for (int e = 0; e < 16; ++e)
-                        if (k + e < K)
-                            v[e >> 2] |= (uint32_t)(uint8_t)row[k + e] << (8 * (e & 3));
-                }
-                xr[r] = make_uint4(v[0], v[1], v[2], v[3]);
-            }
+        for (int ks = 0; ks < BK / 32; ++ks)
+            hopper::wgmma_s8(d, hopper::desc_sw128(a + 32 * ks, 16, 1024),
+                             hopper::desc_sw128(b + 32 * ks, 16, 1024));
+    }
+
+    __device__ static void store(const Acc& d, const Args& args, int row0,
+                                 int n0, int t)
+    {
+        const int r0 = row0 + 16 * (t / 32) + (t % 32) / 4;
+        if (FUSE && args.N % 8 == 0) {
+            store_rows8(d, args, r0, n0, t);
+            return;
         }
+        const bool pairs = (args.N % 2) == 0;      // 2-element stores aligned
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            const int b = tid + THREADS * r;
-            const int k = k0 + ((b >> 3) & 15) * 4;
-            const int n = n0 + ((b & 7) + 8 * (b >> 7)) * 4;
-            if (VEC) {
-                uint32_t q[4];
+        for (int j = 0; j < BN / 8; ++j) {
+            const int n = n0 + 8 * j + 2 * (t % 4);
+            if (n >= args.N)
+                continue;
 #pragma unroll
-                for (int i = 0; i < 4; ++i)
-                    q[i] = (k < K && n < N)
-                        ? __ldg(reinterpret_cast<const uint32_t*>(w + (size_t)(k + i) * N + n))
-                        : 0u;
-                // 4 x 4 byte transpose: word j = column n + j, bytes k..k+3
-                const uint32_t t0 = __byte_perm(q[0], q[1], 0x5140);
-                const uint32_t t1 = __byte_perm(q[0], q[1], 0x7362);
-                const uint32_t t2 = __byte_perm(q[2], q[3], 0x5140);
-                const uint32_t t3 = __byte_perm(q[2], q[3], 0x7362);
-                wr[r][0] = __byte_perm(t0, t2, 0x5410);
-                wr[r][1] = __byte_perm(t0, t2, 0x7632);
-                wr[r][2] = __byte_perm(t1, t3, 0x5410);
-                wr[r][3] = __byte_perm(t1, t3, 0x7632);
-            } else {
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    uint32_t v = 0u;
-                    if (n + j < N) {
-#pragma unroll
-                        for (int i = 0; i < 4; ++i)
-                            if (k + i < K)
-                                v |= (uint32_t)(uint8_t)w[(size_t)(k + i) * N + n + j] << (8 * i);
+            for (int h = 0; h < 2; ++h) {
+                const int m = r0 + 8 * h;
+                if (m >= args.M)
+                    continue;
+                const int s0 = d[4 * j + 2 * h], s1 = d[4 * j + 2 * h + 1];
+                const size_t o = (size_t)m * args.N + n;
+                if (FUSE) {
+                    int8_t* y = static_cast<int8_t*>(args.y);
+                    const int8_t v0 = ((float)s0 >= args.tau) ? 1 : -1;
+                    const int8_t v1 = ((float)s1 >= args.tau) ? 1 : -1;
+                    if (pairs) {
+                        *reinterpret_cast<char2*>(y + o) = make_char2(v0, v1);
+                    } else {
+                        y[o] = v0;
+                        if (n + 1 < args.N) y[o + 1] = v1;
                     }
-                    wr[r][j] = v;
+                } else {
+                    int32_t* y = static_cast<int32_t*>(args.y);
+                    if (pairs) {
+                        *reinterpret_cast<int2*>(y + o) = make_int2(s0, s1);
+                    } else {
+                        y[o] = s0;
+                        if (n + 1 < args.N) y[o + 1] = s1;
+                    }
                 }
             }
-        }
-    };
-    auto store = [&](int buf) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            const int c = tid + THREADS * r;
-            *reinterpret_cast<uint4*>(&xs[buf][c / 4][(c % 4) * 16]) = xr[r];
-            const int b = tid + THREADS * r;
-            *reinterpret_cast<uint4*>(&ws[buf][(b >> 3) & 15][((b & 7) + 8 * (b >> 7)) * 4]) =
-                make_uint4(wr[r][0], wr[r][1], wr[r][2], wr[r][3]);
-        }
-    };
-
-    int acc[4][4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-    load(0);
-    store(0);
-    __syncthreads();
-    int buf = 0;
-    for (int k0 = 0; k0 < K; k0 += BK) {
-        const bool more = k0 + BK < K;
-        if (more) load(k0 + BK);           // in flight while this tile is summed
-#pragma unroll
-        for (int ks = 0; ks < BK / 32; ++ks) {
-            uint32_t a[4][4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int r = wm + i * 16 + g;
-                const int c = ks * 32 + t * 4;
-                a[i][0] = *reinterpret_cast<const uint32_t*>(&xs[buf][r][c]);
-                a[i][1] = *reinterpret_cast<const uint32_t*>(&xs[buf][r + 8][c]);
-                a[i][2] = *reinterpret_cast<const uint32_t*>(&xs[buf][r][c + 16]);
-                a[i][3] = *reinterpret_cast<const uint32_t*>(&xs[buf][r + 8][c + 16]);
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int n = wn + j * 8 + g;
-                const uint32_t b0 = ws[buf][ks * 8 + t][n];
-                const uint32_t b1 = ws[buf][ks * 8 + 4 + t][n];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) mma_s8(acc[i][j], a[i], b0, b1);
-            }
-        }
-        if (more) {
-            store(buf ^ 1);                // the other buffer: nobody reads it now
-            __syncthreads();
-            buf ^= 1;
         }
     }
 
+    // The threshold's int8 +-1 with N % 8 == 0: a thread holds 2 bytes of
+    // each 8-column chunk of its row; the 4 threads of a row swap them so
+    // that each holds 8 whole columns, and 4 threads write a 32-byte sector
+    // (whole sectors, as the int32 counts are written).
+    __device__ static void store_rows8(const Acc& d, const Args& args, int r0,
+                                       int n0, int t)
+    {
+        const int q = t % 4, quad = (t % 32) & ~3;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+        for (int jg = 0; jg < BN / 32; ++jg) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int m = m0 + wm + i * 16 + g + 8 * h;
-            if (m >= M) continue;
+            for (int h = 0; h < 2; ++h) {
+                uint32_t v[4];                     // chunk 4 jg + c, 2 bytes
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int n = n0 + wn + j * 8 + t * 2 + e;
-                    if (n >= N) continue;
-                    const int s = acc[i][j][2 * h + e];
-                    if (FUSE)
-                        static_cast<int8_t*>(y)[(size_t)m * N + n] =
-                            ((float)s >= tau) ? (int8_t)1 : (int8_t)-1;
-                    else
-                        static_cast<int32_t*>(y)[(size_t)m * N + n] = s;
+                for (int c = 0; c < 4; ++c) {
+                    const int j = 4 * jg + c;
+                    v[c] = ((float)d[4 * j + 2 * h] >= args.tau ? 0x01u : 0xFFu)
+                        | ((float)d[4 * j + 2 * h + 1] >= args.tau ? 0x0100u : 0xFF00u);
                 }
+                uint32_t lo = 0, hi = 0;
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    // this round thread q reads thread p = q + r of its row,
+                    // which sends the bytes of the chunk its reader gathers
+                    const int p = (q + r) & 3, c = (q - r) & 3;
+                    const uint32_t send = c == 0 ? v[0] : c == 1 ? v[1] : c == 2 ? v[2] : v[3];
+                    const uint32_t got = __shfl_sync(0xffffffffu, send, quad | p);
+                    if (p < 2) lo |= got << (16 * p);
+                    else hi |= got << (16 * (p - 2));
+                }
+                const int m = r0 + 8 * h, n = n0 + 8 * (4 * jg + q);
+                if (m < args.M && n < args.N)
+                    *reinterpret_cast<uint2*>(static_cast<int8_t*>(args.y)
+                                              + (size_t)m * args.N + n) = make_uint2(lo, hi);
             }
         }
+    }
+};
+
+// wt[n, k] = w[k, n] for k < K, 0 for K <= k < Kp: the weight as 8-bit wgmma
+// reads it (K-major), K padded for TMA. 32 x 32 tiles through shared memory,
+// so both the reads of w and the writes of wt are row-contiguous.
+__global__ void __launch_bounds__(256)
+transpose_pad_kernel(const int8_t* __restrict__ w, int8_t* __restrict__ wt,
+                     int K, int N, int Kp)
+{
+    __shared__ int8_t tile[32][33];
+    const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
+#pragma unroll
+    for (int r = threadIdx.y; r < 32; r += 8) {
+        const int k = k0 + r, n = n0 + threadIdx.x;
+        tile[r][threadIdx.x] = (k < K && n < N) ? w[(size_t)k * N + n] : (int8_t)0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = threadIdx.y; r < 32; r += 8) {
+        const int n = n0 + r, k = k0 + threadIdx.x;
+        if (n < N && k < Kp)
+            wt[(size_t)n * Kp + k] = tile[threadIdx.x][r];
     }
 }
 
-template <bool VEC>
-void launch(const int8_t* x, const int8_t* w, void* y, int M, int K, int N,
-            int fuse, float tau, cudaStream_t s)
+template <int BN, int STAGES, int BLOCKS>
+cudaError_t launch_cfg(const CUtensorMap& ta, const CUtensorMap& tb, void* y,
+                       int M, int K, int N, int fuse, float tau, cudaStream_t s)
 {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    if (fuse)
-        boolean_matmul_kernel<VEC, true><<<grid, THREADS, 0, s>>>(x, w, y, M, K, N, tau);
-    else
-        boolean_matmul_kernel<VEC, false><<<grid, THREADS, 0, s>>>(x, w, y, M, K, N, tau);
+    if (fuse) {
+        using P = boolean_matmul_tc<BN, STAGES, BLOCKS, true>;
+        return hopper::launch<P>(ta, tb, typename P::Args{y, M, N, K, tau}, M, N, s);
+    }
+    using P = boolean_matmul_tc<BN, STAGES, BLOCKS, false>;
+    return hopper::launch<P>(ta, tb, typename P::Args{y, M, N, K, tau}, M, N, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: (M, K) int8; w: (K, N) int8; y: (M, N) int32 counts, or int8 +-1
-// (s >= tau) when fuse != 0. All row-major and contiguous. Returns
-// cudaGetLastError() after the launch.
-int boolean_matmul(const int8_t* x, const int8_t* w, void* y, int M, int K,
+// x: (M, K) int8; wt: (N, K) int8, the weight transposed; y: (M, N) int32
+// counts, or int8 +-1 (s >= tau) when fuse != 0. All row-major and
+// contiguous; K a multiple of 16 and x, wt 16-byte aligned (TMA). Returns
+// cudaGetLastError() after the launch, or the error that kept it from one.
+int boolean_matmul(const int8_t* x, const int8_t* wt, void* y, int M, int K,
                    int N, int fuse, float tau, void* stream)
 {
-    if (M <= 0 || K <= 0 || N <= 0 || (M + BM - 1) / BM > 65535)
+    if (M <= 0 || K <= 0 || N <= 0 || K % 16 != 0
+        || (M + hopper::BM - 1) / hopper::BM > 65535)
         return (int)cudaErrorInvalidValue;
+    // the narrowest tile that covers N; the two narrow ones run two blocks
+    // an SM, so one block's epilogue overlaps the other's main loop
+    const int bn = N <= 64 ? 64 : N <= 128 ? 128 : 256;
+    CUtensorMap ta, tb;
+    cudaError_t e = hopper::make_map(&ta, x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                                     M, K, hopper::BM);
+    if (e == cudaSuccess)
+        e = hopper::make_map(&tb, wt, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, bn);
+    if (e != cudaSuccess)
+        return (int)e;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    const bool vec = (K % 16 == 0) && (N % 4 == 0)
-        && (reinterpret_cast<uintptr_t>(x) % 16 == 0)
-        && (reinterpret_cast<uintptr_t>(w) % 4 == 0);
-    if (vec)
-        launch<true>(x, w, y, M, K, N, fuse, tau, s);
-    else
-        launch<false>(x, w, y, M, K, N, fuse, tau, s);
+    if (bn == 256)
+        return (int)launch_cfg<256, 4, 1>(ta, tb, y, M, K, N, fuse, tau, s);
+    if (bn == 128)
+        return (int)launch_cfg<128, 3, 2>(ta, tb, y, M, K, N, fuse, tau, s);
+    return (int)launch_cfg<64, 4, 2>(ta, tb, y, M, K, N, fuse, tau, s);
+}
+
+// wt (N, Kp) = w^T, zero past K: w (K, N) int8 row-major, Kp >= K. Returns
+// cudaGetLastError() after the launch.
+int boolean_matmul_transpose(const int8_t* w, int8_t* wt, int K, int N, int Kp,
+                             void* stream)
+{
+    if (K <= 0 || N <= 0 || Kp < K || (N + 31) / 32 > 65535)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((Kp + 31) / 32, (N + 31) / 32);
+    transpose_pad_kernel<<<grid, dim3(32, 8), 0,
+                           reinterpret_cast<cudaStream_t>(stream)>>>(w, wt, K, N, Kp);
     return (int)cudaGetLastError();
 }
 

@@ -13,12 +13,39 @@
 // What bounds it on the H100. At the training path's shapes (B = 1024
 // tokens, M and N in the thousands) it does 2*B*M*N operations on
 // B*(M+N) + M*N inputs and outputs: hundreds of operations per byte, so it
-// is bound by operations. This first kernel sums on the CUDA cores in fp32
-// (67 TFLOP/s peak), not on the tensor cores (989 TFLOP/s bf16, which would
-// give exact products of the +-1 and bf16 operands): wgmma and TMA staging
-// are later work.
+// is bound by operations, at the bf16 tensor-core rate (989 TFLOP/s); the
+// fp32 output is the larger part of its bytes (one gemma2-2b layer's seven
+// votes write 349 MB, 0.104 ms at 3.35 TB/s, against 0.181 ms of
+// operations), so its stores have to stream too.
 //
-// Design:
+// Two routes, one library; the wrapper picks one from dtype, alpha and
+// alignment before launching (kernels/boolean_bwd.py::weight_bwd_route):
+//
+// Tensor cores (boolean_weight_bwd_tc): x and z bf16, alpha == 0, M and N
+// multiples of 8, 16-byte-aligned bases -- every launch of the training
+// path. A bf16 x bf16 product is exact in fp32, so wgmma gives the same
+// products as the CUDA cores, summed in fp32 in another order.
+//  * G = X^T Z contracts the leading axis of both row-major operands: as
+//    wgmma operands A = X^T and B = Z are both MN-major (the transpose bits
+//    of wgmma.m64n256k16.f32.bf16.bf16), so nothing is transposed in memory;
+//  * a block owns a 128 x 256 output tile and walks B in tiles of 64
+//    tokens: TMA brings 64-token x 64-column boxes (128-byte rows, 128B
+//    swizzle) of x (2) and z (4) into a ring of 4 stages of 48 KB
+//    (hopper_gemm.cuh's ring_kernel, one block an SM); each consumer
+//    warpgroup issues 4 wgmma m64n256k16 steps a stage on its 64 rows,
+//    128 fp32 accumulators a thread: the widest tile wgmma offers, so the
+//    fewest operand bytes are brought in per operation;
+//  * each output is one warpgroup's sum over B in a fixed order: no split-K,
+//    no atomics, repeatable from run to run;
+//  * TMA zero-fills tokens past B and columns past M and N; the epilogue
+//    stores each thread's pairs of neighbouring fp32 columns as 8-byte
+//    stores (four threads cover a 32-byte sector of a row), masked at the
+//    edges.
+//
+// CUDA cores (boolean_weight_bwd): every other case -- fp32 or int8 x, fp32
+// z, alpha > 0 (the tanh' mask is formed as z is staged), and bf16 shapes
+// whose rows TMA cannot describe. None of these is launched by the training
+// path; the card-vs-CPU checks run fp32 through it.
 //  * a block of 256 threads owns a 128 x 128 output tile and walks all of B
 //    itself in slabs of 8 rows, so every output element is one thread's
 //    sequential fp32 sum over k = 0..B-1: no atomics, no second pass, and
@@ -37,9 +64,9 @@
 //    read from shared memory as float4 without bank conflicts;
 //  * bounds checks take the place of the reference's zero padding: rows past
 //    B stage as 0 in both operands, and columns past M or N are not written.
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <stdint.h>
+
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -167,6 +194,68 @@ void launch_z(const void* x, int z_type, const void* z, const void* d, float* y,
         launch<TX, float>(x, z, d, y, B, M, N, alpha, s);
 }
 
+
+constexpr int TOKENS = 64;              // B rows a stage: 64 x 128-byte rows a box
+constexpr uint32_t BOX = TOKENS * 128;  // one 64-token x 64-column bf16 box
+
+template <int BN_, int STAGES_, int BLOCKS_>
+struct weight_bwd_tc {
+    static constexpr int BN = BN_;
+    static constexpr int STAGES = STAGES_;
+    static constexpr int BLOCKS = BLOCKS_;
+    static constexpr uint32_t A_BYTES = 2 * BOX;          // 128 columns of x
+    static constexpr uint32_t B_BYTES = (BN / 64) * BOX;  // BN columns of z
+    static constexpr uint32_t A_WG = BOX;
+    struct Args {
+        float* y;
+        int B, M, N;
+    };
+    using Acc = float[BN / 2];
+
+    __device__ static int k_tiles(const Args& a) { return (a.B + TOKENS - 1) / TOKENS; }
+
+    __device__ static void load(uint8_t* a, uint8_t* b, const CUtensorMap* ta,
+                                const CUtensorMap* tb, uint64_t* bar, int kt,
+                                int m0, int n0)
+    {
+        const int k0 = kt * TOKENS;
+        hopper::tma_load_2d(a, ta, bar, m0, k0);
+        hopper::tma_load_2d(a + BOX, ta, bar, m0 + 64, k0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+            hopper::tma_load_2d(b + j * BOX, tb, bar, n0 + 64 * j, k0);
+    }
+
+    // MN-major operands: a k16 step is 16 rows of 128 bytes; A spans one
+    // 64-column block, B spans BN / 64 of them, BOX bytes apart (LBO)
+    __device__ static void mma(Acc& d, uint32_t a, uint32_t b)
+    {
+#pragma unroll
+        for (int ks = 0; ks < TOKENS / 16; ++ks)
+            hopper::wgmma_bf16<1, 1>(d, hopper::desc_sw128(a + 2048 * ks, BOX, 1024),
+                                     hopper::desc_sw128(b + 2048 * ks, BOX, 1024));
+    }
+
+    __device__ static void store(const Acc& d, const Args& args, int row0,
+                                 int n0, int t)
+    {
+        const int r0 = row0 + 16 * (t / 32) + (t % 32) / 4;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+            const int n = n0 + 8 * j + 2 * (t % 4);
+            if (n >= args.N)                       // N % 8 == 0: n + 1 < N
+                continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int m = r0 + 8 * h;
+                if (m < args.M)
+                    *reinterpret_cast<float2*>(args.y + (size_t)m * args.N + n) =
+                        make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+            }
+        }
+    }
+};
+
 }  // namespace
 
 extern "C" {
@@ -190,6 +279,29 @@ int boolean_weight_bwd(const void* x, int x_type, const void* z, int z_type,
     else
         launch_z<float>(x, z_type, z, d, y, B, M, N, alpha, s);
     return (int)cudaGetLastError();
+}
+
+// The tensor-core route: x: (B, M) bf16; z: (B, N) bf16; y: (M, N) fp32;
+// alpha = 0. Row-major and contiguous, B >= 1, M and N multiples of 8, x and
+// z 16-byte aligned (TMA). Returns cudaGetLastError() after the launch, or
+// the error that kept it from one.
+int boolean_weight_bwd_tc(const void* x, const void* z, float* y, int B, int M,
+                          int N, void* stream)
+{
+    if (B <= 0 || M <= 0 || N <= 0 || M % 8 != 0 || N % 8 != 0
+        || (M + hopper::BM - 1) / hopper::BM > 65535)
+        return (int)cudaErrorInvalidValue;
+    CUtensorMap ta, tb;
+    cudaError_t e = hopper::make_map(&ta, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                     B, M, TOKENS);
+    if (e == cudaSuccess)
+        e = hopper::make_map(&tb, z, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, N,
+                             TOKENS);
+    if (e != cudaSuccess)
+        return (int)e;
+    using P = weight_bwd_tc<256, 4, 1>;
+    return (int)hopper::launch<P>(ta, tb, P::Args{y, B, M, N}, M, N,
+                                  reinterpret_cast<cudaStream_t>(stream));
 }
 
 const char* boolean_weight_bwd_error_string(int code)

@@ -9,7 +9,8 @@ boolean_matmul   -- the int8 ±1 GEMM (int32 counts or the fused threshold)
                     (csrc/boolean_matmul.cu)
 boolean_bwd      -- the Boolean-variation weight backward (vote counts) of
                     every Boolean projection in training
-                    (csrc/boolean_weight_bwd.cu)
+                    (csrc/boolean_weight_bwd.cu: a tensor-core route and a
+                    CUDA-core one, picked by ``weight_bwd_route``)
 paged_attention  -- serve-decode flash attention that walks the block table
                     and reads K/V pool pages (bf16/fp32, or int8 + scales) in
                     place (csrc/paged_flash_decode.cu), and the prefix-cache
@@ -18,12 +19,18 @@ paged_attention  -- serve-decode flash attention that walks the block table
 flash_attention  -- causal flash attention of every cold prefill
                     (csrc/flash_attention.cu)
 
+boolean_matmul and the weight backward's tensor-core route share
+csrc/hopper_gemm.cuh: TMA tensor maps, mbarrier rings, wgmma and one
+warp-specialised kernel skeleton.
+
 A wrapper runs its plain version on CPU tensors and its CUDA kernel on CUDA
 tensors (or raises); ``<wrapper>.launches`` counts kernel launches.
 """
 from . import ref
-from .boolean_bwd import boolean_weight_bwd, boolean_weight_bwd_plain
-from .boolean_matmul import boolean_matmul, boolean_matmul_plain
+from .boolean_bwd import (boolean_weight_bwd, boolean_weight_bwd_plain,
+                          weight_bwd_route)
+from .boolean_matmul import (boolean_matmul, boolean_matmul_operands,
+                             boolean_matmul_plain)
 from .flash_attention import flash_attention_fwd, flash_attention_plain
 from .packed_xnor import (pack_bits, packed_xnor_gemv, packed_xnor_gemv_plain,
                           packed_xnor_matmul, packed_xnor_matmul_plain,

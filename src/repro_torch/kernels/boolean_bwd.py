@@ -8,9 +8,11 @@ z and d are (B, N) (bf16 or fp32); the vote counts are summed in fp32.
 
 ``boolean_weight_bwd`` runs ``boolean_weight_bwd_plain`` (the fp32 step-by-
 step version of ``ref.boolean_weight_bwd_ref``) on CPU tensors and launches
-the hand-written kernel in ``csrc/boolean_weight_bwd.cu`` on CUDA tensors,
-or raises. It replaces the JAX package's Pallas kernel
-``kernels/boolean_bwd.py::boolean_weight_bwd``.
+one of the two hand-written kernels in ``csrc/boolean_weight_bwd.cu`` on
+CUDA tensors, or raises: ``weight_bwd_route`` picks the tensor-core kernel
+(wgmma, bf16 x and z at α = 0, every launch of the training path) or the
+CUDA-core one (everything else). It replaces the JAX package's Pallas
+kernel ``kernels/boolean_bwd.py::boolean_weight_bwd``.
 """
 from __future__ import annotations
 
@@ -34,14 +36,30 @@ def boolean_weight_bwd_plain(x: torch.Tensor, z: torch.Tensor, d=None, *,
     return torch.matmul(x.to(torch.float32).t(), zf)
 
 
+def weight_bwd_route(x: torch.Tensor, z: torch.Tensor,
+                     alpha: float = 0.0) -> str:
+    """The kernel a CUDA launch takes: ``"tensor_cores"`` for bf16 x and z
+    at α = 0 with B ≥ 1, M and N multiples of 8 and 16-byte-aligned data
+    (TMA's row stride and base), else ``"cuda_cores"``. A function of
+    dtypes, α, shapes and addresses alone."""
+    B, M = x.shape
+    N = z.shape[1]
+    if (x.dtype == torch.bfloat16 and z.dtype == torch.bfloat16
+            and alpha <= 0.0 and B > 0 and M % 8 == 0 and N % 8 == 0
+            and x.data_ptr() % 16 == 0 and z.data_ptr() % 16 == 0):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def boolean_weight_bwd(x: torch.Tensor, z: torch.Tensor, d=None, *,
                        alpha: float = 0.0) -> torch.Tensor:
     """G_W = Σ_k x[k,:]ᵀ ⊗ (z[k,:]·tanh'(α·d[k,:])) -> (M, N) fp32.
 
     x: (B, M); z: (B, N) upstream signal; d: (B, N) pre-activation minus
     threshold, read only when ``alpha > 0``. CPU tensors take the plain
-    version; CUDA tensors launch the kernel. ``boolean_weight_bwd.launches``
-    counts kernel launches.
+    version; CUDA tensors launch the kernel ``weight_bwd_route`` names.
+    ``boolean_weight_bwd.launches`` counts kernel launches, ``.tc_launches``
+    and ``.cc_launches`` those of the tensor-core and CUDA-core kernels.
     """
     if x.dim() != 2 or z.dim() != 2 or x.shape[0] != z.shape[0]:
         raise ValueError(f"weight bwd wants x (B, M) and z (B, N), got x "
@@ -65,15 +83,27 @@ def boolean_weight_bwd(x: torch.Tensor, z: torch.Tensor, d=None, *,
     N = z.shape[1]
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     lib = build.library("boolean_weight_bwd")
+    tc = weight_bwd_route(x, z, alpha) == "tensor_cores"
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.boolean_weight_bwd(
-            x.data_ptr(), _X_TYPES[x.dtype], z.data_ptr(), _Z_TYPES[z.dtype],
-            d.data_ptr() if alpha > 0.0 else None, y.data_ptr(), B, M, N,
-            float(alpha) if alpha > 0.0 else 0.0, ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+        if tc:
+            rc = lib.boolean_weight_bwd_tc(x.data_ptr(), z.data_ptr(),
+                                           y.data_ptr(), B, M, N, stream)
+        else:
+            rc = lib.boolean_weight_bwd(
+                x.data_ptr(), _X_TYPES[x.dtype], z.data_ptr(),
+                _Z_TYPES[z.dtype], d.data_ptr() if alpha > 0.0 else None,
+                y.data_ptr(), B, M, N, float(alpha) if alpha > 0.0 else 0.0,
+                stream)
     build.check("boolean_weight_bwd", "boolean_weight_bwd", rc)
     boolean_weight_bwd.launches += 1
+    if tc:
+        boolean_weight_bwd.tc_launches += 1
+    else:
+        boolean_weight_bwd.cc_launches += 1
     return y
 
 
 boolean_weight_bwd.launches = 0
+boolean_weight_bwd.tc_launches = 0
+boolean_weight_bwd.cc_launches = 0

@@ -2,22 +2,25 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``<repo>/build/lib<name>-<hash>.so`` at first
-use; the hash is of the source text, so an edited source rebuilds and an
-unchanged one loads the library already built. ``build_all`` starts one
-``nvcc`` per source, all at once. Nothing here runs at import time: the CPU
-tests import every module of the port on a host without ``nvcc``.
+use; the hash is of the source text and of every header it includes with
+``#include "..."`` (``csrc/hopper_gemm.cuh``), so an edited source or
+header rebuilds and an unchanged one loads the library already built.
+``build_all`` starts one ``nvcc`` per source, all at once. Nothing here
+runs at import time: the CPU tests import every module of the port on a
+host without ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -27,6 +30,7 @@ SOURCES = ("packed_xnor_gemv", "paged_flash_decode", "boolean_weight_bwd",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -43,10 +47,21 @@ def _nvcc() -> str:
     return found
 
 
+def _sources(path: Path, seen: List[Path]) -> List[Path]:
+    """``path`` and, depth first, every local header it includes."""
+    if path not in seen:
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1()
+    for path in _sources(src, []):
+        h.update(path.read_bytes())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> Dict[str, float]:
@@ -119,6 +134,7 @@ _SIGNATURES = {
     },
     "boolean_weight_bwd": {
         "boolean_weight_bwd": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _F, _P],
+        "boolean_weight_bwd_tc": [_P, _P, _P, _I, _I, _I, _P],
         "boolean_weight_bwd_error_string": [_I],
     },
     "flash_attention": {
@@ -132,6 +148,7 @@ _SIGNATURES = {
     },
     "boolean_matmul": {
         "boolean_matmul": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "boolean_matmul_transpose": [_P, _P, _I, _I, _I, _P],
         "boolean_matmul_error_string": [_I],
     },
     "packed_xnor_matmul": {

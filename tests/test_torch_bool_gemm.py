@@ -20,9 +20,10 @@ from repro.core import boolean_dense_inference as jax_dense_inference
 from repro.kernels import ops as kops
 from repro.kernels import pack_bits as jax_pack_bits
 from repro_torch.core import boolean_dense_inference, pack_boolean_weight
-from repro_torch.kernels import (KERNELS, boolean_matmul, boolean_matmul_plain,
-                                 pack_bits, packed_xnor_matmul,
-                                 packed_xnor_matmul_plain, ref)
+from repro_torch.kernels import (KERNELS, boolean_matmul, boolean_matmul_operands,
+                                 boolean_matmul_plain, pack_bits,
+                                 packed_xnor_matmul, packed_xnor_matmul_plain,
+                                 ref)
 
 
 def _pm1(rng, shape):
@@ -87,6 +88,43 @@ def test_boolean_matmul_zero_entries_add_nothing():
     want = np.asarray(kops.boolean_matmul(jnp.asarray(x), jnp.asarray(w),
                                           block_m=16, block_n=16, block_k=16))
     np.testing.assert_array_equal(boolean_matmul(_t(x), _t(w)).numpy(), want)
+
+
+@pytest.mark.parametrize("m,k,n,tau", [
+    (37, 100, 70, 0.0), (130, 405, 70, 3.0), (200, 100, 129, -5.0),
+    (5, 16, 3, 0.0), (129, 1152, 64, 0.5)])
+def test_boolean_matmul_operands_then_plain_match_jax_kernel(m, k, n, tau):
+    """The kernel's operands (wᵀ, K zero-padded to a multiple of 16)
+    through the plain version equal the JAX kernel in interpret mode, bit
+    for bit, counts and the fused threshold, at ragged shapes."""
+    rng = np.random.default_rng(m * 13 + k * 3 + n)
+    x, w = _pm1(rng, (m, k)), _pm1(rng, (k, n))
+    xk, wt = boolean_matmul_operands(_t(x), _t(w))
+    kp = -(-k // 16) * 16
+    assert tuple(xk.shape) == (m, kp) and tuple(wt.shape) == (n, kp)
+    assert xk.is_contiguous() and wt.is_contiguous() and wt.dtype == torch.int8
+    assert not xk[:, k:].any() and not wt[:, k:].any()
+    np.testing.assert_array_equal(wt[:, :k].numpy(), w.T)
+    for fuse in (False, True):
+        want = np.asarray(kops.boolean_matmul(
+            jnp.asarray(x), jnp.asarray(w), fuse_threshold=fuse, tau=tau,
+            block_m=32, block_n=32, block_k=32))
+        got = boolean_matmul_plain(xk, wt.t(), fuse_threshold=fuse, tau=tau)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_boolean_matmul_operands_align_x():
+    """TMA reads x from a 16-byte-aligned base: an unaligned view is copied,
+    an aligned one with K a multiple of 16 is passed through."""
+    rng = np.random.default_rng(4)
+    flat = _t(_pm1(rng, (1 + 8 * 32,)))
+    w = _t(_pm1(rng, (32, 5)))
+    x_off = flat[1:].view(8, 32)
+    xk, _ = boolean_matmul_operands(x_off, w)
+    assert x_off.data_ptr() % 16 != 0 and xk.data_ptr() % 16 == 0
+    assert torch.equal(xk, x_off)
+    x_al = flat[:-1].view(8, 32)
+    assert boolean_matmul_operands(x_al, w)[0] is x_al
 
 
 @pytest.mark.parametrize("m,k,n", [(16, 32, 16), (64, 256, 64), (33, 70, 9),

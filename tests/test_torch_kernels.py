@@ -148,6 +148,7 @@ def test_window_masks_every_row_of_a_far_overrun_lane():
 def test_cpu_tensors_never_count_launches():
     for k in KERNELS:
         k.launches = 0
+    boolean_weight_bwd.tc_launches = boolean_weight_bwd.cc_launches = 0
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
     w = pack_bits(torch.from_numpy(_pm1(rng, (64, 8))), axis=0)
@@ -155,6 +156,8 @@ def test_cpu_tensors_never_count_launches():
     q, kp, vp, bt, pos = (torch.from_numpy(a) for a in _decode_inputs(2))
     paged_flash_decode(q, kp, vp, bt, pos)
     boolean_weight_bwd(x, torch.ones((3, 8)))
+    xb = torch.ones((16, 64), dtype=torch.bfloat16)     # the tensor-core route's
+    boolean_weight_bwd(xb, torch.ones((16, 8), dtype=torch.bfloat16))  # operands
     qa = torch.from_numpy(rng.standard_normal((4, 10, 16)).astype(np.float32))
     kt = torch.from_numpy(rng.standard_normal((10, 2, 16)).astype(np.float32))
     flash_attention_fwd(qa, qa[:2], qa[:2], n_rep=2)
@@ -164,6 +167,35 @@ def test_cpu_tensors_never_count_launches():
     packed_xnor_matmul(pack_bits(xb, axis=-1), w, k_valid=64)
     assert [k.launches for k in KERNELS] == [0] * len(KERNELS) \
         and len(KERNELS) == 7
+    assert boolean_weight_bwd.tc_launches == boolean_weight_bwd.cc_launches == 0
+
+
+@pytest.mark.parametrize("edit,rebuilds", [
+    ("nested.cuh", True),      # a header the source includes through another
+    ("ring.cuh", True),        # a header the source includes
+    ("k.cu", True),            # the source itself
+    ("other.cuh", False),      # a header nobody includes
+])
+def test_library_path_follows_the_included_headers(tmp_path, monkeypatch,
+                                                   edit, rebuilds):
+    """The library's name hashes the source and every local header it
+    includes, so an edited header rebuilds; nothing is compiled."""
+    from repro_torch.kernels import build
+
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "ring.cuh"\n'
+                                   'int f() { return 0; }\n')
+    (tmp_path / "ring.cuh").write_text('#pragma once\n#include "nested.cuh"\n')
+    (tmp_path / "nested.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    src, before = build._target("k")
+    (tmp_path / edit).write_text((tmp_path / edit).read_text() + "// v2\n")
+    _, after = build._target("k")
+    assert src == tmp_path / "k.cu" and after.parent == tmp_path / "build"
+    assert after.name.startswith("libk-") and after.suffix == ".so"
+    assert (after != before) == rebuilds
+    assert not (tmp_path / "build").exists()
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -20,7 +20,8 @@ from repro.kernels import ops as kops
 from repro_torch.core import boolean_activation, boolean_dense
 from repro_torch.core import optimizer as TO
 from repro_torch.kernels import (KERNELS, boolean_weight_bwd,
-                                 boolean_weight_bwd_plain, ref)
+                                 boolean_weight_bwd_plain, ref,
+                                 weight_bwd_route)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -100,6 +101,67 @@ def test_weight_bwd_cpu_counts_no_launch_and_refuses_bad_input():
         boolean_weight_bwd(x, z, z.to(torch.bfloat16), alpha=0.5)
     np.testing.assert_array_equal(
         boolean_weight_bwd_plain(x, z, z, alpha=0.0).numpy(), np.full((3, 5), 4.0))
+
+
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("x_dtype,z_dtype,alpha,bmn,offset,want", [
+    (_BF, _BF, 0.0, (64, 2304, 4096), 0, "tensor_cores"),
+    (_BF, _BF, 0.0, (1, 8, 16), 0, "tensor_cores"),
+    (_BF, _BF, 0.9069, (64, 2304, 4096), 0, "cuda_cores"),  # the tanh' mask
+    (_F32, _F32, 0.0, (64, 64, 128), 0, "cuda_cores"),      # fp32 operands
+    (torch.int8, _BF, 0.0, (64, 64, 128), 0, "cuda_cores"),  # int8 ±1 x
+    (_BF, _F32, 0.0, (64, 64, 128), 0, "cuda_cores"),
+    (_BF, _BF, 0.0, (64, 2300, 1024), 0, "cuda_cores"),     # M % 8 != 0
+    (_BF, _BF, 0.0, (64, 2304, 1020), 0, "cuda_cores"),     # N % 8 != 0
+    (_BF, _BF, 0.0, (64, 64, 128), 1, "cuda_cores"),        # x not 16-byte aligned
+    (_BF, _BF, 0.0, (0, 64, 128), 0, "cuda_cores"),         # no tokens
+])
+def test_weight_bwd_route_choice(x_dtype, z_dtype, alpha, bmn, offset, want):
+    """The route of a CUDA launch follows from dtypes, α, shapes and the
+    operands' alignment alone (TMA wants 16-byte bases and row strides)."""
+    B, M, N = bmn
+    x = torch.zeros(B * M + offset, dtype=x_dtype)[offset:].view(B, M)
+    z = torch.zeros((B, N), dtype=z_dtype)
+    assert (x.data_ptr() % 16 != 0) == (offset != 0)
+    assert weight_bwd_route(x, z, alpha) == want
+
+
+def test_every_training_projection_takes_the_tensor_core_route(monkeypatch):
+    """Each Boolean projection of gemma2-2b at its published widths, its
+    votes over one microbatch of 1,024 tokens as the training step hands
+    them over (the config's bf16, α = 0), takes the tensor-core route."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import boolean_linear
+    from repro_torch.models import attention as TA
+    from repro_torch.models import ffn as TF
+
+    shapes = []
+    monkeypatch.setattr(TA, "proj_init", lambda g, c, fan_in, fan_out, *a:
+                        shapes.append((fan_in, fan_out)))
+    monkeypatch.setattr(TF, "proj_init", lambda g, c, fan_in, fan_out, *a:
+                        shapes.append((fan_in, fan_out)))
+    cfg = get_config("gemma2-2b")
+    TA.attention_init(torch.Generator(), cfg)
+    TF.ffn_init(torch.Generator(), cfg)
+    assert cfg.dtype == torch.bfloat16 and len(shapes) == 7
+    for m, n in shapes:
+        x = torch.empty((1024, m), dtype=cfg.dtype)
+        z = torch.empty((1024, n), dtype=cfg.dtype)
+        assert weight_bwd_route(x, z, 0.0) == "tensor_cores", (m, n)
+    # and the backward hands the kernel bf16 operands at α = 0
+    calls = []
+
+    def spy(x, z, d=None, *, alpha=0.0):
+        calls.append((x.dtype, z.dtype, alpha, weight_bwd_route(x, z, alpha)))
+        return boolean_weight_bwd(x, z, d, alpha=alpha)
+
+    monkeypatch.setattr(boolean_linear, "boolean_weight_bwd", spy)
+    xt = torch.ones((2, 8, 32), dtype=torch.bfloat16, requires_grad=True)
+    wt = torch.ones((32, 16), dtype=torch.bfloat16, requires_grad=True)
+    boolean_dense(xt, wt).sum().backward()
+    assert calls == [(torch.bfloat16, torch.bfloat16, 0.0, "tensor_cores")]
 
 
 # ---------------------------------------------------------------------------
