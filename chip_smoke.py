@@ -8,11 +8,16 @@ kernels are built for sm_90a). Phases, each fatal on failure:
 
 1. build   -- nvcc builds every kernel of the paths from src/repro_torch/csrc
               (seven sources, one nvcc each, all started together) into
-              build/; ptxas's registers and spills of each wgmma + TMA
-              kernel (csrc/hopper_gemm.cuh's ring_kernel) by instance;
+              build/; ptxas's registers and spills, and the shared memory
+              of its ring, for each instance of the wgmma + TMA skeleton
+              (csrc/hopper_gemm.cuh's ring_kernel) and of the two packed
+              kernels' tensor-core templates;
 2. kernels -- each kernel against its plain PyTorch version on the card, at
               the shapes its path gives it at gemma2-2b widths (serving for
-              the GEMV, paged decode over bf16 and int8 pools, the flash
+              the GEMV: its tensor-core route at M = 8 decode lanes, 16 to
+              256 prefill rows and six ragged M, every lane tile it is
+              built for, bit-exact on integer-valued x, its CUDA-core route
+              for fp32 and unaligned bf16 x; paged decode over bf16 and int8 pools, the flash
               prefill and the paged prefix attention; one training
               microbatch for the weight backward), with the stated
               tolerance (per element for the two prefill kernels, whose
@@ -24,9 +29,13 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               (boolean_matmul in counts and fused-threshold mode,
               packed_xnor_matmul) bit-exact at the four ±1-input convs of
               VGG-SMALL at batch 100, one SMALL-EDSR block conv and a ragged
-              shape; kernel, plain-version and library times (CUDA
+              shape, packed_xnor_matmul also on random words (random pad
+              bits, K not a multiple of 32); kernel, plain-version and
+              library times (CUDA
               events, median of 20 launches, L2 flushed before each) beside
-              the bound, and boolean_matmul's operand copy alone;
+              the bound (packed_xnor_matmul's at the binary tensor cores'
+              rate, measured by the library's rate probe), and
+              boolean_matmul's operand copy alone;
 3. serve   -- gemma2-2b at its published widths (26 layers, d_model 2304,
               vocab 256000, bf16), packed Boolean weights from the port's
               lm_init on a seeded generator, through ServeEngine.session:
@@ -34,12 +43,13 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               submitted mid-flight and one cancelled. The launch counters
               are zeroed just before and read just after; every kernel must
               have run exactly as often as the path calls it (the flash
-              prefill once a layer of every prefill);
+              prefill once a layer of every prefill), every GEMV launch on
+              its tensor-core route;
 4. check   -- a small fp32 model (gemma2-2b smoke widths, head_dim 64)
               served on the card with the kernels and on the CPU with the
               plain versions: logits within tolerance, greedy tokens
               identical, also under prefix-cached traffic with and without
-              kv-quant;
+              kv-quant; every GEMV launch on its CUDA-core route (fp32 x);
 5. train   -- gemma2-2b at its published widths, bf16, remat on, trained
               through make_train_step + TrainLoop with hybrid_optimizer
               (the launcher's cosine schedules) on the SyntheticLM
@@ -52,8 +62,9 @@ kernels are built for sm_90a). Phases, each fatal on failure:
 6. train check -- a small fp32 model (gemma2-2b smoke widths) trained 3
               steps on the card (kernels) and on the CPU (plain versions)
               from the same state each step: losses within tolerance, flip
-              decisions identical except counted ties, and a checkpoint of
-              the card's params and optimizer state round-trips bit for bit;
+              decisions identical except counted ties, no GEMV launch on the
+              tensor-core route, and a checkpoint of the card's params and
+              optimizer state round-trips bit for bit;
 7. prefix  -- gemma2-2b at its published widths served through
               ServeEngine(packed=True, prefix_cache=True).session, once
               over a bf16 KV pool and once with kv_cache_quant (int8 pools
@@ -70,8 +81,9 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               logit margin exceeds 1.0 fails), and for the longest tail the
               first layer's committed K/V rows and attention output must
               match the cold prefill's at the same positions within bf16
-              roundings, element by element. TTFT by admission kind, the
-              decode step and peak memory are reported;
+              roundings, element by element; every GEMV launch on its
+              tensor-core route. TTFT by admission kind, the decode step and
+              peak memory are reported;
 8. vision  -- Boolean VGG-SMALL at published widths (stages 128/256/512,
               fc 1024, 32x32x3, 10 classes; weights from vgg_init on the
               seed) over 10 batches of 100 synthetic class-conditional
@@ -116,9 +128,11 @@ FLUSH_BYTES = 1 << 30            # > the 50 MB L2; zeroing it keeps the card
                                  # timed launch, so host time stays outside
 
 
-def bound(bytes_moved: float, flops: float, kind: str):
+def bound(bytes_moved: float, flops: float, kind: str, peak: float = None):
+    """(least ms, what bounds it): the bytes over the memory rate or the
+    operations over ``peak``, by default the published rate of ``kind``."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[kind]
+    t_ops = flops / (peak or PEAK_FLOPS[kind])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -141,6 +155,39 @@ def time_ms(torch, fn, flush, iters: int = 20) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in marks)
 
 
+def tensor_core_rates(torch):
+    """Integer operations a second of the binary (b1 AND-popc) and int8
+    tensor cores, from csrc/packed_xnor_matmul.cu's rate probe: NVIDIA
+    publishes no b1 rate for Hopper, so packed_xnor_matmul's bound is held
+    to this measured one; the int8 probe, against the published 1,979 TOPS,
+    shows how near the probe comes to a peak. Each the best of three
+    launches of 2,000 groups on two blocks an SM, timed by CUDA events."""
+    from repro_torch.kernels import build
+
+    lib = build.library("packed_xnor_matmul")
+    blocks, groups = 2 * 132, 2000
+    out = torch.empty(blocks, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for name, b1, bits in (("b1", 1, 256), ("int8", 0, 32)):
+        best = math.inf
+        for n in (20, groups, groups, groups):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            rc = lib.tc_rate_probe(b1, blocks, n, out.data_ptr(), stream)
+            b.record()
+            build.check("packed_xnor_matmul", "packed_xnor_matmul", rc)
+            torch.cuda.synchronize()
+            if n == groups:
+                best = min(best, a.elapsed_time(b))
+        ops = blocks * 2 * groups * 16 * 2.0 * 64 * 128 * bits
+        rates[name] = ops / (best * 1e-3)
+        print(f"  tensor-core rate probe {name}: {rates[name] / 1e12:.1f} TOPS "
+              f"({best:.4f} ms for {ops:.4g} operations)")
+    return rates
+
+
 def smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -151,39 +198,94 @@ def smi_line() -> str:
 # ---------------------------------------------------------------------------
 # 2. kernel checks
 # ---------------------------------------------------------------------------
-def check_gemv(torch, flush, gen):
-    from repro_torch.kernels import (pack_bits, packed_xnor_gemv,
-                                     packed_xnor_gemv_plain)
+# rows of x the GEMV is timed at: 8 decode lanes, and prefill buckets of 16
+# to 256 rows (PACKED_GEMV_MAX_M), one at each lane tile of the tensor-core
+# kernel; ragged rows inside each tile (and past 128, where tiles repeat) are
+# checked, not timed
+GEMV_M, GEMV_RAGGED_M = (8, 16, 32, 64, 128, 256), (5, 13, 29, 37, 100, 200)
 
-    rows, worst = [], 0.0
+
+def check_gemv(torch, flush, gen):
+    """packed_xnor_gemv at one layer's four projection shapes: the
+    tensor-core route (bf16 x) at each M of GEMV_M and GEMV_RAGGED_M, which
+    between them run every lane tile the kernel is built for, bit-exact on
+    integer-valued x (its fp32 sums are exact in any order, so a
+    fragment-layout error cannot hide under the tolerance) and within the
+    tolerance on random x; the CUDA-core route on fp32 x and on bf16 x at an
+    unaligned base; kernel, plain-version and torch.matmul (bf16 ±1 weight)
+    times beside the bound at each timed M, and the CUDA-core kernel's time
+    on the same bf16 x one element past an aligned base (cc_ms: the design
+    the tensor-core route replaced)."""
+    from repro_torch.kernels import (gemv_route, pack_bits, packed_xnor_gemv,
+                                     packed_xnor_gemv_plain)
+    from repro_torch.kernels.packed_xnor import gemv_tc_plan, gemv_tc_tiles
+
+    tiles = gemv_tc_tiles()
+    rows, worst, tiles_run = [], 0.0, set()
+
+    def check(label, x, wp, K, want_route):
+        route = gemv_route(x, wp)
+        y = packed_xnor_gemv(x, wp, k_valid=K)
+        ref = packed_xnor_gemv_plain(x, wp, k_valid=K)
+        torch.cuda.synchronize()
+        err = (y - ref).abs().max().item()
+        # fp32 sums of K bf16 terms in two association orders
+        tol = 1e-5 * ref.abs().max().item() + 1e-4
+        print(f"  gemv {label}: route {route}, max_abs_err={err:.3g} (tol "
+              f"{tol:.3g})")
+        assert route == want_route, (label, route)
+        assert err <= tol, f"gemv {label}: {err} > {tol}"
+        return err
+
     for name, K, N in GEMV_SHAPES:
         w = (torch.randint(0, 2, (K, N), generator=gen, device="cuda",
                            dtype=torch.int8) * 2 - 1).to(torch.int8)
         wp = pack_bits(w, axis=0)
         w_bf16 = w.to(torch.bfloat16)
-        for M in (8, 128):
+        for M in (*GEMV_M, *GEMV_RAGGED_M):
+            lanes = gemv_tc_plan(M, wp.shape[0], N, tiles)[0]
+            tiles_run.add(lanes)
+            xi = torch.randint(-3, 4, (M, K), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+            same = bool(torch.equal(packed_xnor_gemv(xi, wp, k_valid=K),
+                                    packed_xnor_gemv_plain(xi, wp, k_valid=K)))
+            print(f"  gemv {name:4s} M={M:3d} K={K} N={N} ({lanes}-row tiles): "
+                  f"integer-valued x bit-exact {same}")
+            assert same, f"gemv {name} M={M}: integer-valued x differs"
             x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-            y = packed_xnor_gemv(x, wp, k_valid=K)
-            ref = packed_xnor_gemv_plain(x, wp, k_valid=K)
-            torch.cuda.synchronize()
-            err = (y - ref).abs().max().item()
-            # fp32 sums of K bf16 terms in two association orders
-            tol = 1e-5 * ref.abs().max().item() + 1e-4
-            print(f"  gemv {name:4s} M={M:3d} K={K} N={N}: max_abs_err={err:.3g}"
-                  f" (tol {tol:.3g})")
-            assert err <= tol, f"gemv {name} M={M}: {err} > {tol}"
+            err = check(f"{name:4s} M={M:3d} K={K} N={N}", x, wp, K,
+                        "tensor_cores")
             worst = max(worst, err)
+            if M in GEMV_RAGGED_M:
+                continue
             ms = time_ms(torch, lambda: packed_xnor_gemv(x, wp, k_valid=K), flush)
             plain = time_ms(torch, lambda: packed_xnor_gemv_plain(x, wp, k_valid=K),
                             flush)
             lib = time_ms(torch, lambda: torch.matmul(x, w_bf16), flush)
+            xu = torch.empty((M * K + 1,), dtype=x.dtype, device=x.device)[1:]
+            xu = xu.view(M, K).copy_(x)
+            assert gemv_route(xu, wp) == "cuda_cores"
+            cc = time_ms(torch, lambda: packed_xnor_gemv(xu, wp, k_valid=K), flush)
             b_ms, b_by = bound(x.numel() * 2 + wp.numel() * 4 + M * N * 4,
                                2.0 * M * K * N, "bf16")
             rows.append({"proj": name, "M": M, "K": K, "N": N,
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                         "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+                         "route": "tensor_cores", "max_abs_err": err,
+                         "ms": ms, "plain_ms": plain, "library_ms": lib,
+                         "cc_ms": cc, "bound_ms": b_ms, "bound_by": b_by})
             print(f"    kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-                  f"matmul(bf16 ±1) {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+                  f"matmul(bf16 ±1) {lib:.4f} ms  CUDA-core kernel {cc:.4f} ms"
+                  f"  bound {b_ms:.4f} ms ({b_by})")
+        # the CUDA-core route: fp32 x (the small card-vs-CPU models) and bf16
+        # x one element past an aligned base
+        x32 = torch.randn((8, K), generator=gen, device="cuda")
+        worst = max(worst, check(f"{name:4s} M=  8 fp32 x", x32, wp, K,
+                                 "cuda_cores"))
+        buf = torch.randn((8 * K + 1,), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        worst = max(worst, check(f"{name:4s} M=  8 bf16 x at an unaligned base",
+                                 buf[1:].view(8, K), wp, K, "cuda_cores"))
+    assert tiles_run == set(tiles.blocks), ("gemv lane tiles not checked",
+                                            set(tiles.blocks) - tiles_run)
     return rows, worst
 
 
@@ -494,18 +596,21 @@ GEMM_SHAPES = (("vgg s1c0", 25600, 1152, 256), ("vgg s1c1", 25600, 2304, 256),
                ("vgg s2c0", 6400, 2304, 512), ("vgg s2c1", 6400, 4608, 512),
                ("edsr block", 65536, 576, 64), ("ragged", 1000, 100, 70))
 VGG_GEMMS = GEMM_SHAPES[:4]
-# H100 SXM: 132 SMs x 16 population counts a clock (compute capability 9.0,
-# NVIDIA's CUDA C++ Programming Guide) x 1.98 GHz boost clock
-POPC_PER_S = 132 * 16 * 1.98e9
+# packed_xnor_matmul on random words: its function counts the pad bits past
+# k_valid whatever they hold (M, K, N; K not a multiple of 32)
+RANDOM_PAD_SHAPE = (1000, 1000, 136)
 
 
-def check_bool_gemm(torch, flush, gen):
+def check_bool_gemm(torch, flush, gen, rates):
     """boolean_matmul (counts and the fused threshold at tau 0) and
     packed_xnor_matmul at the phase-8 shapes, each bit-exact against its
     plain version; torch._int_mm (cuBLASLt int8) on the unpacked operands,
     the faster of w row-major and column-major, as the library yardstick
     where it takes the shape. boolean_matmul's time includes its operand
-    preparation (w transposed, K padded), which is also timed alone."""
+    preparation (w transposed, K padded), which is also timed alone; the
+    bound of packed_xnor_matmul, which runs on the binary tensor cores,
+    takes their measured rate (``rates``). Then packed_xnor_matmul on
+    random words of both operands, bit-exact."""
     from repro_torch.kernels import (boolean_matmul, boolean_matmul_operands,
                                      boolean_matmul_plain, pack_bits,
                                      packed_xnor_matmul,
@@ -548,14 +653,16 @@ def check_bool_gemm(torch, flush, gen):
         del xk, wt
         cases = (
             ("boolean_matmul counts", lambda: boolean_matmul(x, w),
-             lambda: boolean_matmul_plain(x, w), M * K + K * N + 4 * M * N, lib),
+             lambda: boolean_matmul_plain(x, w), M * K + K * N + 4 * M * N, lib,
+             None),
             ("boolean_matmul fused", lambda: boolean_matmul(
                 x, w, fuse_threshold=True, tau=0.0), lambda: boolean_matmul_plain(
-                x, w, fuse_threshold=True, tau=0.0), M * K + K * N + M * N, None),
+                x, w, fuse_threshold=True, tau=0.0), M * K + K * N + M * N, None,
+             None),
             ("packed_xnor_matmul", lambda: packed_xnor_matmul(xp, wp, k_valid=K),
              lambda: packed_xnor_matmul_plain(xp, wp, k_valid=K),
-             4 * (M * Kw + Kw * N) + 4 * M * N, lib))
-        for kernel, fn, plain_fn, nbytes, lib_ms in cases:
+             4 * (M * Kw + Kw * N) + 4 * M * N, lib, rates["b1"]))
+        for kernel, fn, plain_fn, nbytes, lib_ms, peak in cases:
             y, ref = fn(), plain_fn()
             torch.cuda.synchronize()
             same = bool(torch.equal(y, ref))
@@ -565,23 +672,36 @@ def check_bool_gemm(torch, flush, gen):
             assert same, f"{kernel} {name}: differs from its plain version"
             ms = time_ms(torch, fn, flush)
             plain = time_ms(torch, plain_fn, flush)
-            b_ms, b_by = bound(nbytes, ops, "int8")
+            b_ms, b_by = bound(nbytes, ops, "int8", peak)
             row = {"kernel": kernel, "shape": name, "M": M, "K": K, "N": N,
                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
             if lib_ms is not None:
                 row["library_layouts_ms"] = lib_layouts
-            if kernel == "packed_xnor_matmul":
-                row["popc_floor_ms"] = M * N * Kw / POPC_PER_S * 1e3
-            else:
+            if kernel != "packed_xnor_matmul":
                 row["operands_ms"] = operands_ms
             rows.append(row)
             print(f"    kernel {ms:.4f} ms  plain {plain:.4f} ms  _int_mm "
                   f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms  bound "
-                  f"{b_ms:.4f} ms ({b_by})"
-                  + (f"  popcount floor {row['popc_floor_ms']:.4f} ms"
-                     if "popc_floor_ms" in row else ""))
+                  f"{b_ms:.4f} ms ({b_by})")
         del x, w, xp, wp
+    M, K, N = RANDOM_PAD_SHAPE
+    Kw = -(-K // 32)
+    xp = torch.randint(-2 ** 31, 2 ** 31, (M, Kw), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    wp = torch.randint(-2 ** 31, 2 ** 31, (Kw, N), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    y = packed_xnor_matmul(xp, wp, k_valid=K)
+    ref = packed_xnor_matmul_plain(xp, wp, k_valid=K)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(y, ref))
+    err = (y.to(torch.int64) - ref.to(torch.int64)).abs().max().item()
+    print(f"  packed_xnor_matmul random words M={M} k_valid={K} (Kw={Kw}, "
+          f"{32 * Kw - K} random pad bits a row) N={N}: bit-exact {same}")
+    assert same, "packed_xnor_matmul: random pad bits differ from the plain version"
+    rows.append({"kernel": "packed_xnor_matmul random pad bits",
+                 "shape": "random words", "M": M, "K": K, "N": N,
+                 "max_abs_err": err})
     return rows
 
 
@@ -643,7 +763,7 @@ def profile_segment(torch, engine, prompts, n_tok):
 
 def serve(torch, seed: int):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, packed_xnor_gemv
     from repro_torch.models import lm_init
     from repro_torch.serve import RequestStatus, SamplingParams, ServeEngine
 
@@ -667,6 +787,7 @@ def serve(torch, seed: int):
     torch.cuda.reset_peak_memory_stats()
     for k in KERNELS:
         k.launches = 0
+    packed_xnor_gemv.tc_launches = packed_xnor_gemv.cc_launches = 0
     sess = engine.session(lanes=8, page_size=16, segment=8)
     submitted, first_at, handles = {}, {}, []
 
@@ -695,6 +816,8 @@ def serve(torch, seed: int):
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t_serve
     launches = {k.__name__: k.launches for k in KERNELS}
+    gemv_routes = {"tensor_cores": packed_xnor_gemv.tc_launches,
+                   "cuda_cores": packed_xnor_gemv.cc_launches}
     peak = torch.cuda.max_memory_allocated()
 
     # the same run again, timed per segment, for the step and token rates
@@ -738,6 +861,9 @@ def serve(torch, seed: int):
     assert launches == want, (launches, want)
     for name in ("packed_xnor_gemv", "paged_flash_decode", "flash_attention_fwd"):
         assert launches[name] > 0, launches
+    print(f"  GEMV launches by route {gemv_routes}")
+    assert gemv_routes == {"tensor_cores": want["packed_xnor_gemv"],
+                           "cuda_cores": 0}, gemv_routes
     for h in handles:
         toks = h.tokens_so_far()
         assert all(0 <= t < cfg.vocab_size for t in toks), h.rid
@@ -756,7 +882,7 @@ def serve(torch, seed: int):
         "step_ms_median": statistics.median(seg_ms),
         "decode_tokens_per_s": decode_tokens / decode_s,
         "max_memory_allocated_bytes": peak,
-        "launches": launches,
+        "launches": launches, "gemv_routes": gemv_routes,
         "profiled_segment": profile,
     }
     print(f"  decode {metrics['decode_tokens_per_s']:.1f} tokens/s at 8 lanes, "
@@ -787,13 +913,14 @@ def prefix_traffic(torch, engine, prompts, repeats, n_tok, *, lanes, page,
     each request's admission kind, TTFT by kind (the session's own
     submit-to-first-token stamps), decode step times, session stats and
     launch counts; the pages must be conserved after the drain."""
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, packed_xnor_gemv
     from repro_torch.serve import SamplingParams
 
     cuda = engine.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     for k in KERNELS:
         k.launches = 0
+    packed_xnor_gemv.tc_launches = packed_xnor_gemv.cc_launches = 0
     sess = engine.session(lanes=lanes, page_size=page, segment=segment,
                           prefix_cache=True)
     handles, kinds, step_ms = [], {}, []
@@ -834,6 +961,8 @@ def prefix_traffic(torch, engine, prompts, repeats, n_tok, *, lanes, page,
     note_kinds()
     drain()
     launches = {k.__name__: k.launches for k in KERNELS}
+    gemv_routes = {"tensor_cores": packed_xnor_gemv.tc_launches,
+                   "cuda_cores": packed_xnor_gemv.cc_launches}
     alloc = sess.sched.alloc                     # page conservation
     assert alloc.refs[0] == 1 and all(alloc.refs[p] == 0 for p in alloc.free_pages)
     assert not sess.sched.active
@@ -856,6 +985,7 @@ def prefix_traffic(torch, engine, prompts, repeats, n_tok, *, lanes, page,
             "kinds": [kinds[h.rid] for h in handles], "ttft_ms": ttft,
             "admit_ms": admit,
             "step_ms": step_ms, "stats": stats, "launches": launches,
+            "gemv_routes": gemv_routes,
             "repeat_round_launches": repeat_round, "audit": audit}
 
 
@@ -874,6 +1004,7 @@ def expected_kinds(n, repeats, quant):
 def agree_with_cpu(torch, seed: int):
     import numpy as np
     from repro_torch.configs import get_smoke
+    from repro_torch.kernels import packed_xnor_gemv
     from repro_torch.models import lm_init, lm_prefill
     from repro_torch.serve import SamplingParams, ServeEngine
 
@@ -892,6 +1023,8 @@ def agree_with_cpu(torch, seed: int):
     assert err <= 1e-3, err      # fp32, sums reassociated across 4 layers
 
     outs = []
+    packed_xnor_gemv.launches = 0
+    packed_xnor_gemv.tc_launches = packed_xnor_gemv.cc_launches = 0
     for e in engines:
         with e.session(lanes=4, page_size=16, segment=4) as s:
             hs = [s.submit(p, SamplingParams(max_tokens=12)) for p in prompts[:4]]
@@ -905,6 +1038,12 @@ def agree_with_cpu(torch, seed: int):
     same = sum(a == b for a, b in zip(*outs))
     print(f"  smoke greedy streams identical card vs CPU: {same}/{len(prompts)}")
     assert outs[0] == outs[1], outs
+    routes = {"tensor_cores": packed_xnor_gemv.tc_launches,
+              "cuda_cores": packed_xnor_gemv.cc_launches}
+    print(f"  card session's GEMV launches by route {routes} (fp32 x)")
+    assert routes == {"tensor_cores": 0,
+                      "cuda_cores": packed_xnor_gemv.launches} \
+        and packed_xnor_gemv.launches > 0, routes
 
     # prefix-cached traffic, scaled down: a 32-token system prompt, 6 tails
     system = rng.integers(0, cfg.vocab_size, (32,)).astype(np.int32)
@@ -931,9 +1070,12 @@ def agree_with_cpu(torch, seed: int):
         assert res[0]["streams"] == res[1]["streams"], \
             (res[0]["streams"], res[1]["streams"])
         assert res[0]["stats"]["prefix"] == res[1]["stats"]["prefix"]
+        r = res[0]["gemv_routes"]
+        assert r["tensor_cores"] == 0 and r["cuda_cores"] \
+            == res[0]["launches"]["packed_xnor_gemv"] > 0, r
         pfx["kv_quant" if quant else "fp32_pool"] = n_same
     return {"smoke_logits_max_abs_err": err, "smoke_streams_identical": same,
-            "smoke_prefix_streams_identical": pfx}
+            "smoke_prefix_streams_identical": pfx, "smoke_gemv_routes": routes}
 
 
 # ---------------------------------------------------------------------------
@@ -1106,6 +1248,7 @@ def train_agree_with_cpu(torch, seed: int):
     from repro_torch.configs import get_smoke
     from repro_torch.core.optimizer import hybrid_optimizer
     from repro_torch.data import make_pipeline
+    from repro_torch.kernels import packed_xnor_gemv
     from repro_torch.models import lm_init
     from repro_torch.train import make_train_step
 
@@ -1116,6 +1259,7 @@ def train_agree_with_cpu(torch, seed: int):
     step = make_train_step(cfg, opt, 2)
     pipe = make_pipeline(cfg, 32, 4, seed=seed)
     loss_err, n_flips, n_ties = 0.0, 0, 0
+    packed_xnor_gemv.tc_launches = packed_xnor_gemv.cc_launches = 0
     for i in range(3):
         batch = {k: torch.from_numpy(v) for k, v in pipe.batch_at(i).items()}
         before = {k: v.clone() for k, v in _flatten(params).items()}
@@ -1147,6 +1291,10 @@ def train_agree_with_cpu(torch, seed: int):
           f"max_abs_err={loss_err:.3g}, {n_flips} flips on the CPU, {n_ties} "
           "differing decisions (all ties at the threshold)")
     assert n_flips > 0
+    routes = {"tensor_cores": packed_xnor_gemv.tc_launches,
+              "cuda_cores": packed_xnor_gemv.cc_launches}
+    print(f"  GEMV launches by route over the 3 card steps {routes}")
+    assert routes["tensor_cores"] == 0, routes
 
     tree = {"params": p_c, "opt": s_c}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1161,7 +1309,8 @@ def train_agree_with_cpu(torch, seed: int):
     print(f"  checkpoint of the card's params and optimizer state: "
           f"{len(flat_a)} leaves round-trip bit for bit")
     return {"train_smoke_loss_max_abs_err": loss_err,
-            "train_smoke_flips": n_flips, "train_smoke_ties": n_ties}
+            "train_smoke_flips": n_flips, "train_smoke_ties": n_ties,
+            "train_smoke_gemv_routes": routes}
 
 
 # ---------------------------------------------------------------------------
@@ -1354,8 +1503,11 @@ def serve_prefix(torch, engine, seed: int):
                 "boolean_matmul": 0, "packed_xnor_matmul": 0}
         print(f"  {label}: kinds {dict((k, want_kinds.count(k)) for k in ('cold', 'partial', 'exact'))}, "
               f"prefix stats {pstats}")
-        print(f"  {label}: launches {launches}, expected {want}")
+        print(f"  {label}: launches {launches}, expected {want}; GEMV by "
+              f"route {res['gemv_routes']}")
         assert launches == want, (launches, want)
+        assert res["gemv_routes"] == {"tensor_cores": want["packed_xnor_gemv"],
+                                      "cuda_cores": 0}, res["gemv_routes"]
         for name in ("paged_flash_decode", "flash_attention_fwd",
                      "paged_prefix_attention"):
             assert launches[name] > 0, launches
@@ -1638,27 +1790,45 @@ def vision(torch, seed: int):
 
 
 def ring_kernels(build):
-    """ptxas's registers and spills for each instance of the wgmma + TMA
-    skeleton (csrc/hopper_gemm.cuh's ring_kernel), by policy <BN, STAGES,
-    BLOCKS[, FUSE]>, with the dynamic shared memory its ring takes, which
-    ptxas does not see: STAGES x (a 16 KB box set of the A operand + BN
-    rows of 128 bytes of the B operand), 1 KB of alignment slack and the
+    """ptxas's registers and spills for each instance of the tensor-core
+    templates, with the dynamic shared memory its ring takes, which ptxas
+    does not see: the wgmma + TMA skeleton (csrc/hopper_gemm.cuh's
+    ring_kernel) by policy <BN, STAGES, BLOCKS[, FUSE]>, STAGES x (a 16 KB
+    box set of the A operand + BN rows of 128 bytes of the B operand); the
+    GEMV's kernel by lane tile, as the library reports its ring;
+    packed_xnor_matmul by tile width, two stages of
+    128 x 128 + BN x 128 bytes; each with 1 KB of alignment slack and the
     barriers."""
     import re
+    from repro_torch.kernels.packed_xnor import gemv_tc_tiles
+
+    template = re.compile(r"(weight_bwd_tc|boolean_matmul_tc|xnor_gemv_tc_kernel"
+                          r"|packed_xnor_matmul_tc)"
+                          r"I((?:L[a-z]+\d+E)+)")
     out = {}
-    for name in ("boolean_weight_bwd", "boolean_matmul"):
+    for name in ("boolean_weight_bwd", "boolean_matmul", "packed_xnor_gemv",
+                 "packed_xnor_matmul"):
         label = None
         for line in build.build_log(name).splitlines():
-            m = re.search(r"Compiling entry function '(\S*ring_kernel\S*)'", line)
-            if m:
-                k = re.search(r"(weight_bwd_tc|boolean_matmul_tc)I((?:L[a-z]+\d+E)+)",
-                              m.group(1))
+            if "Compiling entry function" in line:
+                k = template.search(line)
+                if k is None:
+                    label = None
+                    continue
                 args = [int(a) for a in re.findall(r"L[a-z]+(\d+)E", k.group(2))]
                 label = f"{k.group(1)}<{','.join(map(str, args))}>"
-                bn, stages = args[:2]
-                out[label] = {"smem_bytes": 1024 + stages * (16384 + 128 * bn + 16)}
-            elif "Compiling entry function" in line:
-                label = None
+                extra = {}
+                if k.group(1) == "xnor_gemv_tc_kernel":
+                    tiles = gemv_tc_tiles()
+                    smem = tiles.smem[args[0]]
+                    extra = {"stages": tiles.stages[args[0]],
+                             "blocks_per_sm": tiles.blocks[args[0]]}
+                elif k.group(1) == "packed_xnor_matmul_tc":
+                    smem = 1024 + 2 * 128 * (128 + args[0])
+                else:
+                    bn, st = args[:2]
+                    smem = 1024 + st * (16384 + 128 * bn + 16)
+                out[label] = {"smem_bytes": smem, **extra}
             elif label and ("registers" in line or "spill" in line):
                 out[label]["ptxas"] = (out[label].get("ptxas", "") + " "
                                        + line.split("info    :")[-1].strip()).strip()
@@ -1700,7 +1870,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     ring = ring_kernels(build)
     for label, info in ring.items():
-        print(f"  wgmma kernel {label}: {info}")
+        print(f"  tensor-core kernel {label}: {info}")
 
     print("2. kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1711,7 +1881,8 @@ def main() -> int:
     flash_rows, flash_err = check_flash(torch, flush, gen, get_config("gemma2-2b"))
     pfx_rows, pfx_err = check_prefix(torch, flush, gen, get_config("gemma2-2b"))
     wbwd_rows, wbwd_err = check_weight_bwd(torch, flush, gen)
-    gemm_rows = check_bool_gemm(torch, flush, gen)
+    tc_rates = tensor_core_rates(torch)
+    gemm_rows = check_bool_gemm(torch, flush, gen, tc_rates)
     del flush
 
     print("3. serve gemma2-2b (published widths) through the packed session")
@@ -1773,8 +1944,7 @@ def main() -> int:
 
     fused = [r for r in gemm_rows if r["kernel"] == "boolean_matmul fused"
              and r["shape"] in {g[0] for g in VGG_GEMMS}]
-    packed_rows = [r for r in gemm_rows if r["kernel"] == "packed_xnor_matmul"
-                   and r["shape"] in {g[0] for g in VGG_GEMMS}]
+    gemv_at = {M: [r for r in gemv_rows if r["M"] == M] for M in GEMV_M}
     kernels = [
         {"name": "packed_xnor_gemv", "route": "cuda",
          "source": "src/repro_torch/csrc/packed_xnor_gemv.cu",
@@ -1786,7 +1956,16 @@ def main() -> int:
          "bound_by": ("bytes" if sum(r["bound_by"] == "bytes" for r in decode_m8)
                       * 2 >= len(decode_m8) else "operations"),
          "library_ms": sum(r["library_ms"] for r in decode_m8),
-         "shape": "sum over one layer's wqkv, wo, wgu, wd at M=8 lanes, bf16 x"},
+         "tc_launches": metrics["gemv_routes"]["tensor_cores"],
+         **{f"m{M}_{k}": sum(r[k] for r in gemv_at[M])
+            for M in GEMV_M[1:] for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms", "cc_ms")},
+         "cc_ms": sum(r["cc_ms"] for r in decode_m8),
+         "shape": "sum over one layer's wqkv, wo, wgu, wd at M=8 lanes, bf16 x "
+                  "(m16_* .. m256_*: the same at 16 to 256 prefill rows); "
+                  "library_ms: torch.matmul on the bf16 ±1 weight; cc_ms: "
+                  "the CUDA-core kernel on the same x; tc_launches: phase 3's "
+                  "launches on the tensor-core route"},
         {"name": "paged_flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_flash_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:156",
@@ -1862,22 +2041,25 @@ def main() -> int:
          "source": "src/repro_torch/csrc/packed_xnor_matmul.cu",
          "replaces": "src/repro/kernels/packed_xnor.py:239",
          **gemm_row("packed_xnor_matmul", "packed_xnor_matmul"),
-         "popc_floor_ms": sum(r["popc_floor_ms"] for r in packed_rows),
-         "shape": "the same four GEMMs with both operands bit-packed along K; "
-                  "library_ms: torch._int_mm on the unpacked int8 operands "
-                  "(the faster w layout); "
-                  "popc_floor_ms: M*N*Kw population counts at 16 a clock an SM, "
-                  "1.98 GHz; launches over phase 8"},
+         "b1_ops_per_s": tc_rates["b1"], "int8_ops_per_s": tc_rates["int8"],
+         "shape": "the same four GEMMs with both operands bit-packed along K "
+                  "(max_abs_err also over the random-pad-bit case); "
+                  "bound_ms: operations at the binary tensor cores' rate "
+                  "measured by the rate probe (b1_ops_per_s; int8_ops_per_s "
+                  "the same probe on int8); library_ms: torch._int_mm on the "
+                  "unpacked int8 operands (the faster w layout); launches "
+                  "over phase 8"},
     ]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"device": device_line, "seed": args.seed,
-                               "build_s": secs, "wgmma_kernels": ring,
+                               "build_s": secs, "tensor_core_kernels": ring,
                                "gemv": gemv_rows,
                                "paged_decode": dec_rows, "weight_bwd": wbwd_rows,
                                "flash_prefill": flash_rows,
                                "paged_prefix": pfx_rows,
                                "bool_gemm": gemm_rows,
+                               "tensor_core_ops_per_s": tc_rates,
                                "serve": metrics, "train": train_metrics,
                                "prefix_serve": prefix_metrics,
                                "vision": vision_metrics,

@@ -80,26 +80,33 @@ inline EncodeTiled encode_tiled()
 
 // A 2-D map of a row-major (rows, cols) matrix of elem-byte elements, read in
 // boxes of box_rows rows x 128 bytes, 128-byte swizzled (the layout of a
-// wgmma operand with a 128B-swizzle descriptor); TMA zero-fills what lies
-// past the matrix. TMA needs a 16-byte-aligned base and a row stride that is
-// a multiple of 16 bytes: the wrappers check both, and so does this.
+// wgmma operand with a 128B-swizzle descriptor); or, with swizzle false, in
+// unswizzled boxes of box_rows rows x box_cols elements (read back by plain
+// shared-memory loads). TMA zero-fills what lies past the matrix. TMA needs
+// a 16-byte-aligned base and a row stride that is a multiple of 16 bytes:
+// the wrappers check both, and so does this.
 inline cudaError_t make_map(CUtensorMap* map, const void* base,
                             CUtensorMapDataType type, int elem, uint64_t rows,
-                            uint64_t cols, uint32_t box_rows)
+                            uint64_t cols, uint32_t box_rows, bool swizzle = true,
+                            uint32_t box_cols = 0)
 {
     const EncodeTiled fn = encode_tiled();
     if (fn == nullptr)
         return cudaErrorNotSupported;
+    if (swizzle || box_cols == 0)
+        box_cols = 128u / elem;
     if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || (cols * elem) % 16 != 0
-        || rows == 0 || cols == 0 || box_rows == 0 || box_rows > 256)
+        || rows == 0 || cols == 0 || box_rows == 0 || box_rows > 256
+        || box_cols > 256 || (box_cols * elem) % 16 != 0)
         return cudaErrorInvalidValue;
     const cuuint64_t dims[2] = {cols, rows};
     const cuuint64_t strides[1] = {cols * elem};
-    const cuuint32_t box[2] = {128u / elem, box_rows};
+    const cuuint32_t box[2] = {box_cols, box_rows};
     const cuuint32_t unit[2] = {1, 1};
     const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides,
                           box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B,
+                          swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_NONE,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -111,6 +118,15 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base,
 __device__ __forceinline__ uint32_t smem_addr(const void* p)
 {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte-aligned byte of dynamic shared memory (the 128B
+// swizzle repeats every 1024 bytes), as an offset from the array, so the
+// compiler keeps the shared address space and emits shared-memory accesses.
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* smem)
+{
+    const uint32_t a = smem_addr(smem);
+    return smem + (((a + 1023u) & ~1023u) - a);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count)

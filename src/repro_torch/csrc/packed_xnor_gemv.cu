@@ -6,30 +6,65 @@
 // bit 1 = +1 (T), bit 0 = -1 (F). Activations are real (bf16 or fp32) and the
 // sum is taken in fp32, as in the reference.
 //
-// What bounds it on the H100. At decode M (the lane count) the floor is the
-// packed weight words plus x and y over 3.35 TB/s (~284 MB of words per
-// gemma2-2b decode step, 32x less than bf16); at prefill M (<= 256 rows) it
-// is the M*K*N products at the bf16 tensor-core rate. This first kernel does
-// the additions on the CUDA cores (fp32 FMA with a +-1 factor) and reaches
-// neither floor; the tensor-core form (unpack to bf16 +-1 fragments,
-// mma/wgmma) and deeper load pipelining are later work.
+// What bounds it on the H100. At decode M (8 lanes) the floor is the packed
+// weight words plus x and y over 3.35 TB/s (10.9 MB of words a gemma2-2b
+// layer, 0.0036 ms, 16x less than the bf16 weight); at prefill M (<= 256
+// rows, PACKED_GEMV_MAX_M) it is the M*K*N products at the bf16
+// tensor-core rate (989 TFLOP/s). Two routes, one library; the wrapper picks
+// one before launching from dtype, shapes and addresses
+// (kernels/packed_xnor.py::gemv_route):
 //
-// Design:
+// Tensor cores (xnor_gemv_tc): bf16 x, K a multiple of 8 and N of 4,
+// 16-byte-aligned bases -- every launch of the bf16 serving path. It
+// computes y^T = e(W)^T x^T: the weight columns are the MMA's 64-row side,
+// the lanes or prompt rows its N side. A bf16 x (+-1) product is
+// exact in fp32, so it sums the same products as the CUDA cores, in
+// another order.
+//  * e(W)^T is K-major as the words lie (a word is 32 consecutive k of one
+//    column), so the A operand comes from registers: each thread reads the
+//    word of each of its two fragment rows and turns the bits of its
+//    fragment into bf16 +-1 pairs (0xBF80 is -1; one multiply moves two
+//    bits to the two sign bits, one logic operation flips them in): nothing
+//    is expanded into shared memory, so a word costs 4 bytes of
+//    shared-memory traffic, not 64;
+//  * a block owns 128 weight columns and a tile of LANES rows of x (8, 16,
+//    32, 64 or 128, the narrowest that covers M, tiled over grid.y above
+//    128), and walks its share of K in stages of 4 words (128 k): a
+//    producer warp keeps a ring of 4-8 stages full by TMA (x in two 64-k
+//    boxes, 128B-swizzled; the words in one unswizzled 4 x 128 box),
+//    mbarrier expect-tx per stage, the consumers arrive on the stage's
+//    "empty" barrier once they are done with it;
+//  * two consumer warpgroups of 64 columns run wgmma.m64nNk16 with N =
+//    LANES, x as the K-major B operand straight from the ring; each
+//    stage's group is waited for before the next stage's fragments are
+//    built, as they live in registers the wgmma reads;
+//  * TMA zero-fills x past M and past K, so pad bits and the words past Kw
+//    multiply 0 (the reference zero-pads x the same way); the epilogue
+//    masks rows past M and columns past N;
+//  * decode is byte- and latency-bound and N = 2304 is only 18 blocks of
+//    128 columns, so K is split over grid.z until the blocks fill one wave
+//    (3 an SM at 8 lanes, 2 up to 64, 1 at 128); the host makes each split
+//    a multiple of 4 words, so no stage crosses into the next split. Each
+//    split writes its own fp32 partial (M, N) slab and a second kernel sums
+//    the slabs in split order, so results repeat exactly (no atomics).
+//
+// CUDA cores (xnor_gemv): fp32 x (the bf16 tensor cores would round it: a
+// different function), and bf16 x whose rows TMA cannot describe. The small
+// fp32 card-vs-CPU models run through it.
 //  * a block owns BN = 256 output columns (2 per thread, read as one 8-byte
 //    word pair so a warp reads 256 contiguous bytes of a packed row) and
 //    BM = 8 activation rows; M above 8 tiles over grid.z;
-//  * K is split over grid.y so that narrow N (2304 = 9 column tiles) still
-//    fills 132 SMs. Each split writes its own fp32 partial (M, N) slab and a
-//    second kernel sums the slabs in split order, so results repeat exactly
-//    from run to run (no atomics);
+//  * K is split over grid.y until ~264 blocks fill the card, with the same
+//    deterministic second pass;
 //  * the block stages its x tile [BM, <=1024 k] in shared memory as fp32;
 //    rows past M and k past k_valid are staged as 0, because a pad weight
-//    bit is F = -1, not 0 (the reference zero-pads x the same way);
+//    bit is F = -1, not 0;
+//  * each thread adds +-x with fp32 FMAs over its 8 x 2 outputs;
 //  * words are read through uint32_t, so bit 31 of the int32 storage is an
 //    ordinary bit.
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <stdint.h>
+
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -127,6 +162,253 @@ __global__ void xnor_gemv_reduce(const float* __restrict__ part, float* __restri
     y[i] = s;
 }
 
+
+// ---------------------------------------------------------------------------
+// tensor-core route
+// ---------------------------------------------------------------------------
+constexpr int TC_KS = 4;                 // words a stage (128 k)
+constexpr int TC_COLS = 128;             // weight columns a block
+constexpr int TC_THREADS = 288;          // two consumer warpgroups + a producer warp
+
+// d (64 x N, fp32) += A (64 x 16, bf16, from registers) * B (16 x N, bf16,
+// K-major in shared memory by descriptor), N = 8, 16, 32, 64, 128. A
+// fragment of thread t (warp w = t / 32 of the warpgroup, g = (t % 32) / 4,
+// q = t % 4): a[0] = A[16w + g][2q, 2q+1], a[1] = A[16w + g + 8][2q, 2q+1],
+// a[2] and a[3] the same rows at k 2q+8, 2q+9; d as hopper_gemm.cuh's
+// accumulators.
+__device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t (&a)[4],
+                                         uint64_t db)
+{
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t db)
+{
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t db)
+{
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db)
+{
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db)
+{
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// bits 0 and 1 of u as a bf16 pair (low half from bit 0): +1 where set, -1
+// where clear
+__device__ __forceinline__ uint32_t pm1_pair(uint32_t u)
+{
+    return 0xBF80BF80u ^ (((u & 3u) * 0x40008000u) & 0x80008000u);
+}
+
+// The A fragment of k16 step h (0: bits 0..15, 1: bits 16..31) of the words
+// u0, u1 of a thread's two fragment rows, each already shifted right by 2q.
+__device__ __forceinline__ void fragment(uint32_t (&a)[4], uint32_t u0,
+                                         uint32_t u1, int h)
+{
+    a[0] = pm1_pair(u0 >> (16 * h));
+    a[1] = pm1_pair(u1 >> (16 * h));
+    a[2] = pm1_pair(u0 >> (16 * h + 8));
+    a[3] = pm1_pair(u1 >> (16 * h + 8));
+}
+
+// One stage: x as two 64-k boxes of LANES rows (128B-swizzled, the layout
+// of a K-major wgmma operand), then the words as one 4 x 128 box.
+template <int LANES>
+struct Ring {
+    static constexpr int X_BOX = LANES * 128;
+    static constexpr int STAGE = 2 * X_BOX + TC_KS * TC_COLS * 4;
+    static constexpr int STAGES = LANES <= 16 ? 8 : LANES == 32 ? 6 : 4;
+    static constexpr int BLOCKS = LANES == 8 ? 3 : LANES <= 64 ? 2 : 1;
+    static constexpr size_t SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+};
+
+// A block owns TC_COLS weight columns and LANES rows of x: thread 256 keeps
+// the ring full for the kt_n stages of the block's K split; each of two
+// consumer warpgroups owns 64 weight columns, builds the stage's A
+// fragments in registers from the words, issues 8 wgmma k16 steps on the
+// stage's x boxes and waits for them (the fragments' registers are the next
+// stage's) before releasing the stage.
+template <int LANES>
+__global__ void __launch_bounds__(TC_THREADS, Ring<LANES>::BLOCKS)
+xnor_gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
+                    const __grid_constant__ CUtensorMap tw,
+                    float* __restrict__ out, int M, int N, int Kw, int kws)
+{
+    using R = Ring<LANES>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* ring = hopper::align_1024(smem_raw);
+    uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::STAGES * R::STAGE);
+    uint64_t* empty = full + R::STAGES;
+    const int n0 = blockIdx.x * TC_COLS, m0 = blockIdx.y * LANES;
+    const int split = blockIdx.z, kw0 = split * kws;
+    const int kt_n = (min(kws, Kw - kw0) + TC_KS - 1) / TC_KS;
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int s = 0; s < R::STAGES; ++s) {
+            hopper::mbar_init(&full[s], 1);      // the producer's arrive + bytes
+            hopper::mbar_init(&empty[s], 2);     // one arrive a warpgroup
+        }
+        hopper::fence_barrier_init();
+    }
+    __syncthreads();
+    if (threadIdx.x >= 256) {
+        if (threadIdx.x == 256) {
+            for (int kt = 0; kt < kt_n; ++kt) {
+                const int s = kt % R::STAGES;
+                if (kt >= R::STAGES)
+                    hopper::mbar_wait(&empty[s], ((kt / R::STAGES) & 1) ^ 1);
+                hopper::mbar_arrive_expect_tx(&full[s], R::STAGE);
+                uint8_t* st = ring + s * R::STAGE;
+                const int kw = kw0 + kt * TC_KS;
+                hopper::tma_load_2d(st, &tx, &full[s], 32 * kw, m0);
+                hopper::tma_load_2d(st + R::X_BOX, &tx, &full[s], 32 * kw + 64, m0);
+                hopper::tma_load_2d(st + 2 * R::X_BOX, &tw, &full[s], n0, kw);
+            }
+        }
+        return;
+    }
+
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int row = 64 * wg + 16 * (t / 32) + (t % 32) / 4;  // fragment row 0
+    const int q2 = 2 * (t % 4);
+    float acc[LANES / 2];
+#pragma unroll
+    for (int i = 0; i < LANES / 2; ++i) acc[i] = 0.f;
+
+    for (int kt = 0; kt < kt_n; ++kt) {
+        const int s = kt % R::STAGES;
+        hopper::mbar_wait(&full[s], (kt / R::STAGES) & 1);
+        const uint8_t* st = ring + s * R::STAGE;
+        const uint32_t* ws = reinterpret_cast<const uint32_t*>(st + 2 * R::X_BOX);
+        uint32_t a[2 * TC_KS][4];
+#pragma unroll
+        for (int j = 0; j < TC_KS; ++j) {
+            const uint32_t u0 = ws[j * TC_COLS + row] >> q2;
+            const uint32_t u1 = ws[j * TC_COLS + row + 8] >> q2;
+            fragment(a[2 * j], u0, u1, 0);
+            fragment(a[2 * j + 1], u0, u1, 1);
+        }
+        const uint32_t xb = hopper::smem_addr(st);
+        hopper::fence_acc(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 2 * TC_KS; ++ks)
+            wgmma_rs(acc, a[ks], hopper::desc_sw128(
+                xb + (ks / 4) * R::X_BOX + 32 * (ks % 4), 16, 1024));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_acc(acc);
+        if (t == 0)
+            hopper::mbar_arrive(&empty[s]);
+    }
+
+    // acc[4j + 2h + e] = D[row + 8h][8j + q2 + e]: weight column n0 + row +
+    // 8h, lane m0 + 8j + q2 + e
+    float* o = out + (size_t)split * M * N;
+#pragma unroll
+    for (int j = 0; j < LANES / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int m = m0 + 8 * j + q2 + e;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int n = n0 + row + 8 * h;
+                if (m < M && n < N)
+                    o[(size_t)m * N + n] = acc[4 * j + 2 * h + e];
+            }
+        }
+}
+
+template <int LANES>
+cudaError_t launch_tc(const void* x, const int32_t* w, float* out, int M,
+                      int K, int Kw, int N, int ksplit, int kws, cudaStream_t s)
+{
+    using R = Ring<LANES>;
+    static_assert((R::SMEM + 1024) * R::BLOCKS <= 233472,
+                  "the ring does not fit in shared memory");
+    const auto kernel = xnor_gemv_tc_kernel<LANES>;
+    CUtensorMap tx, tw;
+    cudaError_t e = hopper::make_map(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                     M, K, LANES);
+    if (e == cudaSuccess)
+        e = hopper::make_map(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT32, 4, Kw, N,
+                             TC_KS, false, TC_COLS);
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)R::SMEM);
+    if (e != cudaSuccess)
+        return e;
+    const dim3 grid((N + TC_COLS - 1) / TC_COLS, (M + LANES - 1) / LANES, ksplit);
+    kernel<<<grid, TC_THREADS, R::SMEM, s>>>(tx, tw, out, M, N, Kw, kws);
+    return cudaGetLastError();
+}
+
+template <int LANES>
+void tile(int* t)
+{
+    using R = Ring<LANES>;
+    t[0] = LANES;
+    t[1] = R::BLOCKS;
+    t[2] = R::STAGES;
+    t[3] = (int)R::SMEM;
+}
+
 }  // namespace
 
 extern "C" {
@@ -155,6 +437,59 @@ int xnor_gemv(const void* x, int x_bf16, const int32_t* w, float* y, float* part
         xnor_gemv_reduce<<<(unsigned)((mn + t - 1) / t), t, 0, s>>>(part, y, mn, ksplit);
     }
     return (int)cudaGetLastError();
+}
+
+// The tensor-core route: x (M, K) bf16, K a multiple of 8, 16-byte-aligned;
+// w: (Kw, N) packed words, N a multiple of 4, 16-byte-aligned; lanes (8, 16,
+// 32, 64 or 128) rows of x a block; kws words per split, a
+// multiple of 4 unless ksplit == 1, ksplit * kws >= Kw > (ksplit - 1) * kws;
+// y and part as above. Returns cudaGetLastError() after the launches, or the
+// error that kept them from running.
+int xnor_gemv_tc(const void* x, const int32_t* w, float* y, float* part,
+                 int M, int K, int Kw, int N, int lanes, int ksplit, int kws,
+                 void* stream)
+{
+    if (M <= 0 || K <= 0 || N <= 0 || ksplit < 1 || kws < 1
+        || (ksplit > 1 && kws % TC_KS != 0) || (long long)ksplit * kws < Kw
+        || (long long)(ksplit - 1) * kws >= Kw || 32LL * Kw < K
+        || (M + lanes - 1) / lanes > 65535 || ksplit > 65535)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+    float* out = ksplit > 1 ? part : y;
+    cudaError_t e;
+    switch (lanes) {
+    case 8: e = launch_tc<8>(x, w, out, M, K, Kw, N, ksplit, kws, s); break;
+    case 16: e = launch_tc<16>(x, w, out, M, K, Kw, N, ksplit, kws, s); break;
+    case 32: e = launch_tc<32>(x, w, out, M, K, Kw, N, ksplit, kws, s); break;
+    case 64: e = launch_tc<64>(x, w, out, M, K, Kw, N, ksplit, kws, s); break;
+    case 128: e = launch_tc<128>(x, w, out, M, K, Kw, N, ksplit, kws, s); break;
+    default: return (int)cudaErrorInvalidValue;
+    }
+    if (e != cudaSuccess)
+        return (int)e;
+    if (ksplit > 1) {
+        const long long mn = (long long)M * N;
+        const int t = 256;
+        xnor_gemv_reduce<<<(unsigned)((mn + t - 1) / t), t, 0, s>>>(part, y, mn, ksplit);
+    }
+    return (int)cudaGetLastError();
+}
+
+// The tensor-core kernels' tiles, which the host's K split and reports
+// read: out[0] words a stage, out[1] weight columns a block, then for each
+// lane tile its rows of x, blocks an SM, ring stages and dynamic shared
+// bytes (out holds 2 + 4 * 5 ints). Returns the number of lane tiles.
+int xnor_gemv_tc_tiles(int* out)
+{
+    out[0] = TC_KS;
+    out[1] = TC_COLS;
+    int* t = out + 2;
+    tile<8>(t);
+    tile<16>(t + 4);
+    tile<32>(t + 8);
+    tile<64>(t + 12);
+    tile<128>(t + 16);
+    return 5;
 }
 
 const char* xnor_gemv_error_string(int code)

@@ -1,9 +1,11 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 packed_xnor      -- bit-packed Boolean tensors, the thin-M serving GEMV
-                    (csrc/packed_xnor_gemv.cu) and the fully packed
-                    XNOR-popcount GEMM of the packed ±1-input convolutions
-                    (csrc/packed_xnor_matmul.cu)
+                    (csrc/packed_xnor_gemv.cu: a tensor-core route and a
+                    CUDA-core one, picked by ``gemv_route``) and the fully
+                    packed XNOR-popcount GEMM of the packed ±1-input
+                    convolutions (csrc/packed_xnor_matmul.cu, the words on
+                    the binary tensor cores)
 boolean_matmul   -- the int8 ±1 GEMM (int32 counts or the fused threshold)
                     of the int8 ±1-input convolutions
                     (csrc/boolean_matmul.cu)
@@ -21,7 +23,8 @@ flash_attention  -- causal flash attention of every cold prefill
 
 boolean_matmul and the weight backward's tensor-core route share
 csrc/hopper_gemm.cuh: TMA tensor maps, mbarrier rings, wgmma and one
-warp-specialised kernel skeleton.
+warp-specialised kernel skeleton; the two packed kernels use its maps,
+barriers and wgmma instructions.
 
 A wrapper runs its plain version on CPU tensors and its CUDA kernel on CUDA
 tensors (or raises); ``<wrapper>.launches`` counts kernel launches.
@@ -32,9 +35,9 @@ from .boolean_bwd import (boolean_weight_bwd, boolean_weight_bwd_plain,
 from .boolean_matmul import (boolean_matmul, boolean_matmul_operands,
                              boolean_matmul_plain)
 from .flash_attention import flash_attention_fwd, flash_attention_plain
-from .packed_xnor import (pack_bits, packed_xnor_gemv, packed_xnor_gemv_plain,
-                          packed_xnor_matmul, packed_xnor_matmul_plain,
-                          unpack_bits)
+from .packed_xnor import (gemv_route, pack_bits, packed_xnor_gemv,
+                          packed_xnor_gemv_plain, packed_xnor_matmul,
+                          packed_xnor_matmul_plain, unpack_bits)
 from .paged_attention import (paged_flash_decode, paged_flash_decode_plain,
                               paged_prefix_attention,
                               paged_prefix_attention_plain)

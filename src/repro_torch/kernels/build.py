@@ -124,6 +124,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "packed_xnor_gemv": {
         "xnor_gemv": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "xnor_gemv_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "xnor_gemv_tc_tiles": [_P],
         "xnor_gemv_error_string": [_I],
     },
     "paged_flash_decode": {
@@ -153,6 +155,7 @@ _SIGNATURES = {
     },
     "packed_xnor_matmul": {
         "packed_xnor_matmul": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "tc_rate_probe": [_I, _I, _I, _P, _P],
         "packed_xnor_matmul_error_string": [_I],
     },
 }

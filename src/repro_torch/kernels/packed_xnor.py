@@ -10,20 +10,28 @@ reference's uint32 words.
 ``packed_xnor_gemv`` computes y[M,N] = sum_k x[M,k] * e(w[k,N]) in fp32. On
 CPU tensors it runs ``packed_xnor_gemv_plain`` (unpack + fp32 matmul, the
 oracle of the JAX package's ``ref.packed_xnor_gemv_ref``); on CUDA tensors
-it launches the hand-written kernel in ``csrc/packed_xnor_gemv.cu`` or
-raises.
+it launches one of the two hand-written routes in
+``csrc/packed_xnor_gemv.cu`` or raises: ``gemv_route`` picks the
+tensor-core route (bf16 x at aligned shapes, every launch of the bf16
+serving path: ``wgmma`` over lane tiles of 8 to 128 rows of x, as
+``gemv_tc_plan`` tiles them) or the CUDA-core kernel (fp32 x, unaligned
+shapes).
 
 ``packed_xnor_matmul`` computes s[M,N] = k_valid − 2·popcount(x XOR w) over
 the words of x (M, Kw), packed along axis 1, and w (Kw, N), packed along
 axis 0: the ±1 product Σ_k e(x[M,k])·e(w[k,N]) when the pad bits past
 k_valid are F on both sides. CPU tensors take ``packed_xnor_matmul_plain``;
-CUDA tensors launch ``csrc/packed_xnor_matmul.cu`` or raise. It replaces
+CUDA tensors launch ``csrc/packed_xnor_matmul.cu`` (the words as they lie
+on the binary tensor cores: ``wgmma`` b1 AND-popc and the operands'
+popcounts) or raise; it takes every shape. It replaces
 the JAX package's Pallas kernel ``kernels/packed_xnor.py::
 packed_xnor_matmul``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -37,11 +45,13 @@ def pack_bits(x_pm1: torch.Tensor, axis: int = -1) -> torch.Tensor:
     Kp = -(-K // 32) * 32
     if Kp != K:
         x = torch.nn.functional.pad(x, (0, Kp - K), value=-1)
-    bits = x > 0
-    words = torch.zeros(*x.shape[:-1], Kp // 32, dtype=torch.int32,
-                        device=x.device)
-    for b in range(32):
-        words |= bits[..., b::32].to(torch.int32) << b
+    bits = (x > 0).to(torch.int32).reshape(*x.shape[:-1], Kp // 32, 32)
+    # bit b weighs 2^b and bit 31 -2^31 (1 << 31 in int32): the sum is the
+    # int32 whose two's-complement bits are the reference's uint32 word, and
+    # it never overflows. Made on x's device: a tensor built from a host
+    # list would be a copy from pageable memory, which waits for the stream.
+    shifts = torch.arange(32, dtype=torch.int32, device=x.device)
+    words = (bits * (torch.ones_like(shifts) << shifts)).sum(-1, dtype=torch.int32)
     return torch.movedim(words, -1, axis).contiguous()
 
 
@@ -62,18 +72,67 @@ def packed_xnor_gemv_plain(x: torch.Tensor, w_packed: torch.Tensor, *,
     return torch.matmul(x.to(torch.float32), w)
 
 
-# Fill the card: aim for this many blocks (2 per SM of an H100).
-_TARGET_BLOCKS = 264
+# Fill the card: aim for this many blocks (2 per SM of an H100's 132).
+_SMS = 132
+_TARGET_BLOCKS = 2 * _SMS
 _BN, _BM, _KWS_MAX, _KWS_MIN = 256, 8, 32, 4
 
 
 def gemv_split(M: int, Kw: int, N: int):
-    """(ksplit, words per split) for the CUDA kernel's K split."""
+    """(ksplit, words per split) for the CUDA-core kernel's K split."""
     base = (-(-N // _BN)) * (-(-M // _BM))
     ksplit = max(-(-_TARGET_BLOCKS // base), -(-Kw // _KWS_MAX))
     ksplit = min(ksplit, -(-Kw // _KWS_MIN))
     kws = -(-Kw // ksplit)
     return -(-Kw // kws), kws
+
+
+class GemvTiles(NamedTuple):
+    """The tensor-core kernels' tiles: words a stage, weight columns a
+    block, and by lane tile (rows of x a block, ascending) the blocks an
+    SM, the ring's stages and its dynamic shared bytes."""
+    ks: int
+    cols: int
+    blocks: Dict[int, int]
+    stages: Dict[int, int]
+    smem: Dict[int, int]
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_tc_tiles() -> GemvTiles:
+    """The tile table as ``csrc/packed_xnor_gemv.cu`` builds it (its one
+    source), read from the library."""
+    out = (ctypes.c_int * 22)()
+    n = build.library("packed_xnor_gemv").xnor_gemv_tc_tiles(out)
+    rows = [tuple(out[2 + 4 * i:6 + 4 * i]) for i in range(n)]
+    return GemvTiles(out[0], out[1], *({r[0]: r[c] for r in rows}
+                                       for c in (1, 2, 3)))
+
+
+def gemv_tc_plan(M: int, Kw: int, N: int, tiles: GemvTiles):
+    """(lanes, ksplit, words per split) for the tensor-core kernel: the
+    narrowest lane tile of ``tiles`` that covers M (the widest above it,
+    tiled); K split until the blocks fill one wave at the tile's blocks an
+    SM; every split but the last a whole number of stages."""
+    lanes = next((b for b in tiles.blocks if b >= M), max(tiles.blocks))
+    n_tiles = (-(-N // tiles.cols)) * (-(-M // lanes))
+    ksplit = max(1, _SMS * tiles.blocks[lanes] // n_tiles)
+    ksplit = min(ksplit, -(-Kw // tiles.ks))
+    kws = -(-(-(-Kw // ksplit)) // tiles.ks) * tiles.ks
+    return lanes, -(-Kw // kws), kws
+
+
+def gemv_route(x: torch.Tensor, w_packed: torch.Tensor) -> str:
+    """The kernel a CUDA launch takes: ``"tensor_cores"`` for bf16 x with K
+    a multiple of 8 and N of 4 and 16-byte-aligned bases (TMA's row
+    strides and bases), else ``"cuda_cores"`` (fp32 x, which the bf16
+    tensor cores would round, and unaligned bf16). A function of dtypes,
+    shapes and addresses alone."""
+    K, N = x.shape[1], w_packed.shape[1]
+    if (x.dtype == torch.bfloat16 and K % 8 == 0 and N % 4 == 0
+            and x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def packed_xnor_gemv(x: torch.Tensor, w_packed: torch.Tensor, *,
@@ -82,8 +141,10 @@ def packed_xnor_gemv(x: torch.Tensor, w_packed: torch.Tensor, *,
 
     x: (M, K) real activations, K == k_valid; w_packed: (Kw, N) int32 words
     (``pack_bits`` layout, K packed along axis 0). Returns (M, N) fp32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    ``packed_xnor_gemv.launches`` counts kernel launches.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    ``gemv_route`` names. ``packed_xnor_gemv.launches`` counts kernel
+    launches, ``.tc_launches`` and ``.cc_launches`` those of the
+    tensor-core and CUDA-core kernels.
     """
     if x.dim() != 2 or w_packed.dim() != 2:
         raise ValueError(f"packed gemv wants 2-D operands, got x {tuple(x.shape)}"
@@ -104,22 +165,38 @@ def packed_xnor_gemv(x: torch.Tensor, w_packed: torch.Tensor, *,
         raise TypeError(f"packed gemv takes bf16 or fp32 activations, got {x.dtype}")
     if not (x.is_contiguous() and w_packed.is_contiguous()):
         raise ValueError("packed gemv operands must be contiguous")
-    ksplit, kws = gemv_split(M, Kw, N)
+    tc = gemv_route(x, w_packed) == "tensor_cores"
+    if tc:
+        lanes, ksplit, kws = gemv_tc_plan(M, Kw, N, gemv_tc_tiles())
+    else:
+        ksplit, kws = gemv_split(M, Kw, N)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     part = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
             if ksplit > 1 else y)
     lib = build.library("packed_xnor_gemv")
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.xnor_gemv(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                           w_packed.data_ptr(), y.data_ptr(), part.data_ptr(),
-                           M, K, Kw, N, ksplit, kws, ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+        if tc:
+            rc = lib.xnor_gemv_tc(x.data_ptr(), w_packed.data_ptr(), y.data_ptr(),
+                                  part.data_ptr(), M, K, Kw, N, lanes, ksplit,
+                                  kws, stream)
+        else:
+            rc = lib.xnor_gemv(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                               w_packed.data_ptr(), y.data_ptr(),
+                               part.data_ptr(), M, K, Kw, N, ksplit, kws,
+                               stream)
     build.check("packed_xnor_gemv", "xnor_gemv", rc)
     packed_xnor_gemv.launches += 1
+    if tc:
+        packed_xnor_gemv.tc_launches += 1
+    else:
+        packed_xnor_gemv.cc_launches += 1
     return y
 
 
 packed_xnor_gemv.launches = 0
+packed_xnor_gemv.tc_launches = 0
+packed_xnor_gemv.cc_launches = 0
 
 
 def packed_xnor_matmul_plain(x_packed: torch.Tensor, w_packed: torch.Tensor, *,

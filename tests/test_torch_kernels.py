@@ -20,10 +20,11 @@ from repro.kernels import unpack_bits as jax_unpack_bits
 from repro.kernels.paged_attention import paged_flash_decode as jax_paged_decode
 from repro.models import attention as JA
 from repro_torch.kernels import (KERNELS, boolean_matmul, boolean_weight_bwd,
-                                 flash_attention_fwd, pack_bits,
+                                 flash_attention_fwd, gemv_route, pack_bits,
                                  packed_xnor_gemv, packed_xnor_matmul,
                                  paged_flash_decode, paged_prefix_attention,
                                  ref, unpack_bits)
+from repro_torch.kernels.packed_xnor import GemvTiles, gemv_tc_plan
 
 
 def _pm1(rng, shape):
@@ -35,6 +36,7 @@ def _pm1(rng, shape):
     ((3, 300, 5), -2),      # stacked groups, ragged K
     ((4, 64), -1),          # K a multiple of 32, packed along the last axis
     ((2, 33, 6), 1),
+    ((2, 5, 6, 70), -1),    # NHWC activations packed along C (the packed conv)
 ])
 def test_pack_unpack_bit_exact(shape, axis):
     """Words are bitwise equal to the reference's uint32 words (pad bits
@@ -149,10 +151,12 @@ def test_cpu_tensors_never_count_launches():
     for k in KERNELS:
         k.launches = 0
     boolean_weight_bwd.tc_launches = boolean_weight_bwd.cc_launches = 0
+    packed_xnor_gemv.tc_launches = packed_xnor_gemv.cc_launches = 0
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
     w = pack_bits(torch.from_numpy(_pm1(rng, (64, 8))), axis=0)
     packed_xnor_gemv(x, w, k_valid=64)
+    packed_xnor_gemv(x.to(torch.bfloat16), w, k_valid=64)  # the tensor-core
     q, kp, vp, bt, pos = (torch.from_numpy(a) for a in _decode_inputs(2))
     paged_flash_decode(q, kp, vp, bt, pos)
     boolean_weight_bwd(x, torch.ones((3, 8)))
@@ -168,6 +172,7 @@ def test_cpu_tensors_never_count_launches():
     assert [k.launches for k in KERNELS] == [0] * len(KERNELS) \
         and len(KERNELS) == 7
     assert boolean_weight_bwd.tc_launches == boolean_weight_bwd.cc_launches == 0
+    assert packed_xnor_gemv.tc_launches == packed_xnor_gemv.cc_launches == 0
 
 
 @pytest.mark.parametrize("edit,rebuilds", [
@@ -206,8 +211,86 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         packed_xnor_gemv(x, w, k_valid=39)
     with pytest.raises(TypeError):
         packed_xnor_gemv(x, w.to(torch.int64), k_valid=40)
+    with pytest.raises(ValueError):      # one row of x, not a matrix
+        packed_xnor_gemv(x[0], w, k_valid=40)
+    with pytest.raises(ValueError):      # more valid bits than the words hold
+        packed_xnor_matmul(pack_bits(torch.from_numpy(_pm1(rng, (2, 40)))), w,
+                           k_valid=65)
     q, kp, vp, bt, pos = (torch.from_numpy(a) for a in _decode_inputs(4))
     with pytest.raises(TypeError):
         paged_flash_decode(q, kp, vp, bt.long(), pos)
     with pytest.raises(ValueError):      # int8 pools need their scales
         paged_flash_decode(q, kp.to(torch.int8), vp.to(torch.int8), bt, pos)
+
+
+_BF = torch.bfloat16
+# gemma2-2b's packed projections (K, N): wqkv, wo, wgu, wd
+_PROJ = ((2304, 6144), (4096, 2304), (2304, 18432), (9216, 2304))
+
+
+@pytest.mark.parametrize("dtype,M,K,N,offset,want", [
+    *[(_BF, m, k, n, 0, "tensor_cores") for k, n in _PROJ for m in (8, 256)],
+    (_BF, 37, 2304, 2304, 0, "tensor_cores"),         # ragged rows
+    (torch.float32, 8, 2304, 6144, 0, "cuda_cores"),  # the tensor cores round fp32
+    (_BF, 8, 100, 6144, 0, "cuda_cores"),             # K % 8 != 0
+    (_BF, 8, 2304, 70, 0, "cuda_cores"),              # N % 4 != 0
+    (_BF, 8, 2304, 6144, 1, "cuda_cores"),            # x not 16-byte aligned
+])
+def test_gemv_route_choice(dtype, M, K, N, offset, want):
+    """The route of a CUDA launch follows from x's dtype, the shapes and the
+    operands' alignment alone (TMA wants 16-byte bases and row strides)."""
+    x = torch.zeros(M * K + offset, dtype=dtype)[offset:].view(M, K)
+    w = torch.zeros((-(-K // 32), N), dtype=torch.int32)
+    assert (x.data_ptr() % 16 != 0) == (offset != 0)
+    assert gemv_route(x, w) == want
+
+
+# a tile table of the shape csrc/packed_xnor_gemv.cu reports (4-word
+# stages, 128 weight columns a block; lane tile: blocks an SM, stages, bytes)
+_TILES = GemvTiles(4, 128, {8: 3, 16: 2, 32: 2, 64: 2, 128: 1},
+                   {8: 8, 16: 8, 32: 6, 64: 4, 128: 4},
+                   {8: 33920, 16: 50304, 32: 62560, 64: 74816, 128: 140352})
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 37, 128, 256])
+@pytest.mark.parametrize("K,N", [*_PROJ, (100, 40)])
+def test_gemv_tc_plan_covers_k_in_whole_stages(M, K, N):
+    """The tensor-core kernel's lane tile covers M (or 128-row tiles of it),
+    its K splits cover the words exactly once (every split but the last a
+    whole number of 4-word stages, none empty), and a split launch fits in
+    one wave of blocks."""
+    Kw = -(-K // 32)
+    lanes, ksplit, kws = gemv_tc_plan(M, Kw, N, _TILES)
+    assert lanes in (8, 16, 32, 64, 128) and (lanes >= M or lanes == 128)
+    assert lanes == 8 or lanes // 2 < M
+    assert ksplit >= 1 and (ksplit - 1) * kws < Kw <= ksplit * kws
+    assert ksplit == 1 or kws % 4 == 0
+    blocks = -(-N // 128) * -(-M // lanes) * ksplit
+    assert blocks <= 132 * _TILES.blocks[lanes] or ksplit == 1  # one wave at most
+
+
+def test_every_serving_projection_takes_the_tensor_core_route(monkeypatch):
+    """The packed bf16 serving path hands the GEMV bf16 x at gemma2-2b's
+    projection shapes, which take the tensor-core route at every M it uses
+    (8 lanes of decode, prefill buckets up to 256 rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import boolean_linear as TBL
+
+    cfg = get_config("gemma2-2b")
+    assert cfg.dtype == _BF
+    for K, N in _PROJ:
+        for M in (8, 16, 32, 64, 128, 256):
+            x = torch.empty((M, K), dtype=cfg.dtype)
+            w = torch.empty((-(-K // 32), N), dtype=torch.int32)
+            assert gemv_route(x, w) == "tensor_cores", (M, K, N)
+    calls = []
+
+    def spy(x, w, *, k_valid):
+        calls.append((x.dtype, gemv_route(x, w)))
+        return packed_xnor_gemv(x, w, k_valid=k_valid)
+
+    monkeypatch.setattr(TBL, "packed_xnor_gemv", spy)
+    rng = np.random.default_rng(5)
+    wp = TBL.pack_boolean_weight(torch.from_numpy(_pm1(rng, (64, 16))))
+    TBL.boolean_dense_inference(torch.ones((2, 3, 64), dtype=_BF), wp)
+    assert calls == [(_BF, "tensor_cores")]
