@@ -16,10 +16,35 @@
 //
 // What bounds it on the H100: the work, 4 * hd flops per live (query, key)
 // pair -- a 256-row tail over a 512-row prefix is 16 heads x 256 x ~640
-// keys x 1 KFLOP = 2.7 GFLOP at hd 256 -- against ~5 MB of bytes. Like the
-// prefill kernel it runs on the CUDA cores in fp32.
+// keys x 1 KFLOP = 2.7 GFLOP at hd 256, 2.8 us at the bf16 tensor-core
+// rate -- against ~5 MB of bytes.
 //
-// Design:
+// Two routes, one library; the wrapper picks one from dtype, head dim and
+// page size before launching (kernels/paged_attention.py::prefix_route):
+//
+// Tensor cores (paged_prefix_attention_tc): bf16 q and tail, bf16 or int8
+// pools, pages of a power of two >= 8 rows -- every launch of the bf16
+// serving path. attention_tc.cuh's body, with p rounded to bf16 as the
+// reference does, so wgmma multiplies exactly the reference's operands. The
+// key window is a run of prefix tiles, then a run of tail tiles, 64 rows
+// each:
+//  * prefix tiles hold the ceil(prefix_len / page) live pages in order;
+//    entries of page_ids past them (garbage page 0 in a bucketed call)
+//    never are read. The rows of a last tile past the live pages repeat the
+//    last live page (finite, and masked: they sit at or past prefix_len);
+//  * bf16 pools: one TMA box a page (or 64 rows of a longer page) and 64
+//    columns, through a 3-D map over (pool rows, KV, hd), the 16-row page
+//    of KV head g read in place at stride KV * hd;
+//  * int8 pools: the producer warpgroup reads each row's codes (16-byte
+//    loads, four in flight a thread) and its fp32 scale and writes
+//    bf16(code * scale) into the swizzled tile -- gather_prefix_kv's
+//    values, so the wgmma operands are the reference's -- then fences the
+//    writes for wgmma and arrives;
+//  * tail tiles: TMA through a 3-D map over (S, KV, hd), rows past S
+//    zero-filled.
+//
+// CUDA cores (paged_prefix_attention): fp32 -- the small card-vs-CPU
+// models -- and pages TMA cannot box.
 //  * the TPU kernel stages the whole [prefix ; tail] window in VMEM. At hd
 //    256 a 512-row prefix plus a 256-row tail is 384 KB of K alone, above
 //    the 227 KB of shared memory a block can have. So K and V stream through
@@ -43,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -303,6 +330,310 @@ int launch_hd(int HD, const Args& a, cudaStream_t s)
     }
 }
 
+// ---------------------------------------------------------------------------
+// tensor-core route
+// ---------------------------------------------------------------------------
+struct TcArgs {
+    const int8_t *kp8, *vp8;              // int8 pools (QUANT)
+    const float *kscale, *vscale;
+    const int32_t* page_ids;
+    float* out;
+    float *part_o, *part_ml;              // the shares' rows, when nsplit > 1
+    int nsplit, T, S, KV, n_rep, page, npp, offset, prefix_len, length, window;
+    float softcap, scale;
+};
+
+// The producer warpgroup's int8 prefix tile: rows [k0, k0 + 64) of the
+// window's prefix (np live rows), K and V, written as bf16(code * scale)
+// into the stage's 128-byte-swizzled boxes; rows past np as zeros. p is the
+// thread in the warpgroup; pid_l: lane c of each warp holds the page of
+// rows k0 + c * pr.
+template <int HD>
+__device__ __forceinline__ void convert_tile(uint8_t* stage, const TcArgs& a, int g,
+                                             int k0, int np, int pr, int pid_l, int p)
+{
+    using R = attn::Ring<HD>;
+    constexpr int C16 = HD / 16;           // 16-code chunks a row
+    constexpr int ITEMS = 2 * attn::BK * C16;
+    // loads in flight a thread (four spill at head dim 64 in the producer's
+    // 56 registers)
+    constexpr int U = HD == 64 ? 2 : 4;
+    static_assert(ITEMS % (128 * U) == 0, "items must split evenly");
+    for (int b = 0; b < ITEMS; b += 128 * U) {
+        uint4 raw[U];
+        float sc[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int idx = b + 128 * u + p;
+            const int which = idx / (attn::BK * C16), rem = idx % (attn::BK * C16);
+            const int r = rem / C16, c = rem % C16, row = k0 + r;
+            const int pid = __shfl_sync(0xffffffffu, pid_l, r / pr);
+            raw[u] = make_uint4(0, 0, 0, 0);
+            sc[u] = 0.f;
+            if (row < np) {
+                const size_t cell = ((size_t)pid * a.page + row % a.page) * a.KV + g;
+                const int8_t* pool = which ? a.vp8 : a.kp8;
+                raw[u] = __ldg(reinterpret_cast<const uint4*>(pool + cell * HD + 16 * c));
+                sc[u] = __ldg((which ? a.vscale : a.kscale) + cell);
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int idx = b + 128 * u + p;
+            const int which = idx / (attn::BK * C16), rem = idx % (attn::BK * C16);
+            const int r = rem / C16, c = rem % C16;
+            const int8_t* e = reinterpret_cast<const int8_t*>(&raw[u]);
+            uint32_t w[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+                w[i] = attn::bf16_pair((float)e[2 * i] * sc[u], (float)e[2 * i + 1] * sc[u]);
+            // codes 16c .. 16c+15: box c / 4, 16-byte groups 2 (c % 4) and
+            // the next, swizzled by the row
+            uint8_t* row_p = stage + which * R::TILE + (c / 4) * attn::BOX + r * 128;
+            const int grp = 2 * (c % 4);
+            *reinterpret_cast<uint4*>(row_p + ((grp ^ (r & 7)) << 4)) =
+                make_uint4(w[0], w[1], w[2], w[3]);
+            *reinterpret_cast<uint4*>(row_p + (((grp + 1) ^ (r & 7)) << 4)) =
+                make_uint4(w[4], w[5], w[6], w[7]);
+        }
+    }
+}
+
+// A block: slab rows [i0, i0 + 128) of KV head g's query slab (n_rep * T
+// rows); prefix tiles kt < n_pt, then tail tiles; the producer warpgroup
+// loads Q, then every tile live for the block's positions.
+template <int HD, bool QUANT>
+__global__ void __launch_bounds__(attn::THREADS, 1)
+prefix_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tkt,
+          const __grid_constant__ CUtensorMap tvt, const __grid_constant__ CUtensorMap tkp,
+          const __grid_constant__ CUtensorMap tvp, const TcArgs a)
+{
+    using R = attn::Ring<HD>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* sq = hopper::align_1024(smem_raw);
+    uint8_t* ring = sq + 2 * R::Q_WG;
+    uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::STAGES * R::STAGE);
+    uint64_t* empty = full + R::STAGES;
+    uint64_t* qbar = empty + R::STAGES;
+    const int g = blockIdx.y, rows = a.n_rep * a.T, i0 = blockIdx.x * attn::BQ;
+    const int n_live = min(a.npp, (a.prefix_len + a.page - 1) / a.page);
+    const int np = n_live * a.page;
+    const int n_pt = (np + attn::BK - 1) / attn::BK;
+    const int nk = n_pt + (a.S + attn::BK - 1) / attn::BK;
+    int qlo, qhi;                              // the block's positions
+    attn::span(i0, min(i0 + attn::BQ, rows) - 1, a.T, qlo, qhi);
+    auto tile = [&](int kt) {
+        if (kt < n_pt)
+            return attn::Tile{kt * attn::BK, a.prefix_len - kt * attn::BK};
+        const int j0 = (kt - n_pt) * attn::BK;
+        return attn::Tile{a.offset + j0, a.length - j0};
+    };
+
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int s = 0; s < R::STAGES; ++s) {
+            hopper::mbar_init(&full[s], 1);
+            hopper::mbar_init(&empty[s], 2);
+        }
+        hopper::mbar_init(qbar, 1);
+        hopper::fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 256) {
+        // thread 0 of the warpgroup issues the TMA; the whole warpgroup
+        // converts int8 pages (and keeps in step with it, named barrier 1)
+        attn::producer_regs();
+        const int p = threadIdx.x - 256, lane = p % 32;
+        if (!QUANT && p != 0)
+            return;
+        const int pr = min(a.page, attn::BK);  // rows a page box
+        if (p == 0) {
+            hopper::mbar_arrive_expect_tx(qbar, 2 * R::Q_WG);
+#pragma unroll
+            for (int w = 0; w < 2; ++w)
+#pragma unroll
+                for (int c = 0; c < HD / 64; ++c)
+                    hopper::tma_load_2d(sq + w * R::Q_WG + c * attn::BOX, &tq, qbar,
+                                        64 * c, g * rows + i0 + 64 * w);
+        }
+        int it = 0;
+        attn::for_tiles(nk, tile, qlo + a.offset, qhi + a.offset, true, a.window,
+                        blockIdx.z, a.nsplit, [&](int kt) {
+            const int s = it % R::STAGES;
+            if (it >= R::STAGES)
+                hopper::mbar_wait(&empty[s], ((it / R::STAGES) & 1) ^ 1);
+            uint8_t* st = ring + s * R::STAGE;
+            const int k0 = kt * attn::BK;
+            if (kt >= n_pt) {                  // tail rows, TMA
+                if (p == 0) {
+                    hopper::mbar_arrive_expect_tx(&full[s], R::STAGE);
+                    const int j0 = (kt - n_pt) * attn::BK;
+#pragma unroll
+                    for (int c = 0; c < HD / 64; ++c) {
+                        hopper::tma_load_3d(st + c * attn::BOX, &tkt, &full[s], 64 * c, g, j0);
+                        hopper::tma_load_3d(st + R::TILE + c * attn::BOX, &tvt, &full[s],
+                                            64 * c, g, j0);
+                    }
+                }
+            } else if constexpr (!QUANT) {     // bf16 pool pages, TMA
+                if (p == 0) {
+                    hopper::mbar_arrive_expect_tx(&full[s], R::STAGE);
+                    for (int ch = 0; ch < attn::BK / pr; ++ch) {
+                        const int row = k0 + ch * pr;
+                        const int pid = a.page_ids[row < np ? row / a.page : n_live - 1];
+                        const int prow = pid * a.page + (row < np ? row % a.page : 0);
+#pragma unroll
+                        for (int c = 0; c < HD / 64; ++c) {
+                            const uint32_t off = c * attn::BOX + ch * pr * 128;
+                            hopper::tma_load_3d(st + off, &tkp, &full[s], 64 * c, g, prow);
+                            hopper::tma_load_3d(st + R::TILE + off, &tvp, &full[s], 64 * c,
+                                                g, prow);
+                        }
+                    }
+                }
+            } else {                           // int8 pool pages, converted
+                const int pid_l = lane < attn::BK / pr && k0 + lane * pr < np
+                    ? a.page_ids[(k0 + lane * pr) / a.page] : 0;
+                convert_tile<HD>(st, a, g, k0, np, pr, pid_l, p);
+                hopper::fence_proxy_async();
+                asm volatile("bar.sync 1, 128;\n" ::: "memory");
+                if (p == 0)
+                    hopper::mbar_arrive(&full[s]);
+            }
+            if constexpr (QUANT)
+                asm volatile("bar.sync 1, 128;\n" ::: "memory");
+            ++it;
+        });
+        return;
+    }
+
+    attn::consumer_regs();
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128, q = t % 4;
+    const int w0 = i0 + 64 * wg;               // the warpgroup's first slab row
+    int wlo, whi;
+    attn::span(w0, min(w0 + 64, rows) - 1, a.T, wlo, whi);
+    attn::Rows<HD> acc;
+    acc.init();
+    // out rows, or with shares this share's rows of part_o and part_ml
+    const size_t HT = (size_t)a.KV * rows;
+    float* o_base = a.nsplit > 1 ? a.part_o + blockIdx.z * HT * HD : a.out;
+    float *dst[2], *ml[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int i = w0 + 16 * (t / 32) + (t % 32) / 4 + 8 * h;
+        const size_t r = (size_t)g * rows + i;
+        acc.qpos[h] = a.offset + i % a.T;
+        dst[h] = i < rows ? o_base + r * HD : nullptr;
+        ml[h] = a.nsplit > 1 ? a.part_ml + (blockIdx.z * HT + r) * 2 : nullptr;
+    }
+    const uint32_t q_addr = hopper::smem_addr(sq + wg * R::Q_WG);
+    const float sc = a.softcap > 0.f ? a.scale / a.softcap : a.scale;
+    hopper::mbar_wait(qbar, 0);
+    int it = 0;
+    attn::for_tiles(nk, tile, qlo + a.offset, qhi + a.offset, true, a.window,
+                    blockIdx.z, a.nsplit, [&](int kt) {
+        const int s = it % R::STAGES;
+        hopper::mbar_wait(&full[s], (it / R::STAGES) & 1);
+        const uint32_t k_addr = hopper::smem_addr(ring + s * R::STAGE);
+        acc.step(q_addr, k_addr, k_addr + R::TILE, tile(kt), wlo + a.offset,
+                 whi + a.offset, q, true, a.window, sc, a.softcap);
+        if (t == 0)
+            hopper::mbar_arrive(&empty[s]);
+        ++it;
+    });
+    if (a.nsplit > 1)
+        acc.store_partial(dst, ml, q);
+    else
+        acc.store(dst, q);
+}
+
+// out row r = sum_z w_z acc_z / max(sum_z w_z l_z, 1e-30), w_z = exp(m_z -
+// M), M the largest m_z: the shares' rows merged in share order. A share
+// whose every key was masked for the row (m_z = -1e30) weighs exactly 0.
+template <int HD>
+__global__ void __launch_bounds__(64)
+prefix_combine(const float* __restrict__ part_o, const float* __restrict__ part_ml,
+               float* __restrict__ out, int rows, int nsplit)
+{
+    constexpr int E = HD / 64;                 // elements a thread
+    const size_t r = blockIdx.x;
+    float M = attn::NEG;
+    for (int z = 0; z < nsplit; ++z)
+        M = fmaxf(M, part_ml[(z * (size_t)rows + r) * 2]);
+    float L = 0.f, acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = 0.f;
+    for (int z = 0; z < nsplit; ++z) {
+        const float* ml = part_ml + (z * (size_t)rows + r) * 2;
+        const float w = expf(ml[0] - M);
+        L += w * ml[1];
+        const float* o = part_o + (z * (size_t)rows + r) * HD + threadIdx.x * E;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] += w * o[e];
+    }
+    L = fmaxf(L, 1e-30f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) out[r * HD + threadIdx.x * E + e] = acc[e] / L;
+}
+
+template <int HD, bool QUANT>
+cudaError_t launch_tc(const void* q, const void* k_tail, const void* v_tail,
+                      const void* k_pool, const void* v_pool, int n_pages, const TcArgs& a,
+                      cudaStream_t s)
+{
+    using R = attn::Ring<HD>;
+    const auto kernel = prefix_tc<HD, QUANT>;
+    const int H = a.KV * a.n_rep;
+    CUtensorMap tq, tkt, tvt, tkp, tvp;
+    cudaError_t e = hopper::make_map(&tq, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                     (uint64_t)H * a.T, HD, 64);
+    if (e == cudaSuccess)
+        e = hopper::make_map_3d(&tkt, k_tail, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.S,
+                                a.KV, HD, attn::BK);
+    if (e == cudaSuccess)
+        e = hopper::make_map_3d(&tvt, v_tail, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.S,
+                                a.KV, HD, attn::BK);
+    tkp = tkt;                                 // unused by the int8 kernel
+    tvp = tvt;
+    if (e == cudaSuccess && !QUANT)
+        e = hopper::make_map_3d(&tkp, k_pool, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                (uint64_t)n_pages * a.page, a.KV, HD,
+                                (uint32_t)min(a.page, attn::BK));
+    if (e == cudaSuccess && !QUANT)
+        e = hopper::make_map_3d(&tvp, v_pool, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                (uint64_t)n_pages * a.page, a.KV, HD,
+                                (uint32_t)min(a.page, attn::BK));
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)R::SMEM);
+    if (e != cudaSuccess)
+        return e;
+    const dim3 grid((a.n_rep * a.T + attn::BQ - 1) / attn::BQ, a.KV, a.nsplit);
+    kernel<<<grid, attn::THREADS, R::SMEM, s>>>(tq, tkt, tvt, tkp, tvp, a);
+    if (a.nsplit > 1) {
+        e = cudaGetLastError();
+        if (e != cudaSuccess)
+            return e;
+        prefix_combine<HD><<<H * a.T, 64, 0, s>>>(a.part_o, a.part_ml, a.out, H * a.T,
+                                                   a.nsplit);
+    }
+    return cudaGetLastError();
+}
+
+template <bool QUANT>
+cudaError_t launch_tc_hd(int HD, const void* q, const void* kt, const void* vt,
+                         const void* kp, const void* vp, int n_pages, const TcArgs& a,
+                         cudaStream_t s)
+{
+    switch (HD) {
+        case 64: return launch_tc<64, QUANT>(q, kt, vt, kp, vp, n_pages, a, s);
+        case 128: return launch_tc<128, QUANT>(q, kt, vt, kp, vp, n_pages, a, s);
+        case 256: return launch_tc<256, QUANT>(q, kt, vt, kp, vp, n_pages, a, s);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -331,6 +662,43 @@ int paged_prefix_attention(const void* q, const void* k_tail, const void* v_tail
                          : launch_hd<__nv_bfloat16, __nv_bfloat16>(HD, a, s);
     return pool_int8 ? launch_hd<int8_t, float>(HD, a, s)
                      : launch_hd<float, float>(HD, a, s);
+}
+
+// The tensor-core route: q (H, T, HD), k_tail, v_tail (S, KV, HD) bf16;
+// pools (n_pages, page, KV, HD) bf16, or int8 with fp32 scales (n_pages,
+// page, KV) when pool_int8; page a power of two >= 8; the key window split
+// into nsplit shares, each written to part_o (nsplit, H * T, HD) and
+// part_ml (nsplit, H * T, 2) fp32 and merged by a second kernel (unused
+// when nsplit = 1); other arguments as above. All contiguous and 16-byte
+// aligned. Returns cudaGetLastError() after the launches, or the error that
+// kept them from running.
+int paged_prefix_attention_tc(const void* q, const void* k_tail, const void* v_tail,
+                              const void* k_pool, const void* v_pool,
+                              const float* k_scale, const float* v_scale,
+                              const int32_t* page_ids, float* out, float* part_o,
+                              float* part_ml, int pool_int8, int n_pages, int nsplit,
+                              int H, int T, int S, int KV, int HD, int n_rep, int page,
+                              int npp, int offset, int prefix_len, int length, int window,
+                              float softcap, float scale, void* stream)
+{
+    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+    if (T < 1 || S < 1 || KV < 1 || KV > 65535 || n_rep < 1 || H != KV * n_rep
+        || page < 8 || (page & (page - 1)) != 0 || n_pages < 1 || nsplit < 1
+        || nsplit > 65535 || (nsplit > 1 && (part_o == nullptr || part_ml == nullptr))
+        || (long long)n_pages * page >= (1LL << 31) || (long long)H * T >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    const TcArgs a{static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool),
+                   k_scale, v_scale, page_ids, out, part_o, part_ml, nsplit, T, S, KV,
+                   n_rep, page, npp, offset, prefix_len, length, window, softcap, scale};
+    return (int)(pool_int8
+        ? launch_tc_hd<true>(HD, q, k_tail, v_tail, k_pool, v_pool, n_pages, a, s)
+        : launch_tc_hd<false>(HD, q, k_tail, v_tail, k_pool, v_pool, n_pages, a, s));
+}
+
+// The tensor-core route's tiles (attn::export_tiles; out holds 11 ints).
+int paged_prefix_attention_tc_tiles(int* out)
+{
+    return attn::export_tiles(out);
 }
 
 const char* paged_prefix_attention_error_string(int code)

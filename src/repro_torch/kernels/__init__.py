@@ -17,14 +17,18 @@ paged_attention  -- serve-decode flash attention that walks the block table
                     and reads K/V pool pages (bf16/fp32, or int8 + scales) in
                     place (csrc/paged_flash_decode.cu), and the prefix-cache
                     tail prefill over in-place prefix pages
-                    (csrc/paged_prefix_attention.cu)
+                    (csrc/paged_prefix_attention.cu: a tensor-core route and
+                    a CUDA-core one, picked by ``prefix_route``)
 flash_attention  -- causal flash attention of every cold prefill
-                    (csrc/flash_attention.cu)
+                    (csrc/flash_attention.cu: a tensor-core route and a
+                    CUDA-core one, picked by ``flash_route``)
 
 boolean_matmul and the weight backward's tensor-core route share
 csrc/hopper_gemm.cuh: TMA tensor maps, mbarrier rings, wgmma and one
 warp-specialised kernel skeleton; the two packed kernels use its maps,
-barriers and wgmma instructions.
+barriers and wgmma instructions; the two prefill-attention kernels'
+tensor-core routes share one consumer body on them
+(csrc/attention_tc.cuh).
 
 A wrapper runs its plain version on CPU tensors and its CUDA kernel on CUDA
 tensors (or raises); ``<wrapper>.launches`` counts kernel launches.
@@ -34,13 +38,14 @@ from .boolean_bwd import (boolean_weight_bwd, boolean_weight_bwd_plain,
                           weight_bwd_route)
 from .boolean_matmul import (boolean_matmul, boolean_matmul_operands,
                              boolean_matmul_plain)
-from .flash_attention import flash_attention_fwd, flash_attention_plain
+from .flash_attention import (flash_attention_fwd, flash_attention_plain,
+                              flash_route)
 from .packed_xnor import (gemv_route, pack_bits, packed_xnor_gemv,
                           packed_xnor_gemv_plain, packed_xnor_matmul,
                           packed_xnor_matmul_plain, unpack_bits)
 from .paged_attention import (paged_flash_decode, paged_flash_decode_plain,
                               paged_prefix_attention,
-                              paged_prefix_attention_plain)
+                              paged_prefix_attention_plain, prefix_route)
 
 #: every kernel wrapper of the port, for launch-count bookkeeping
 KERNELS = (packed_xnor_gemv, paged_flash_decode, boolean_weight_bwd,

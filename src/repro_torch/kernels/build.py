@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``<repo>/build/lib<name>-<hash>.so`` at first
 use; the hash is of the source text and of every header it includes with
-``#include "..."`` (``csrc/hopper_gemm.cuh``), so an edited source or
-header rebuilds and an unchanged one loads the library already built.
+``#include "..."`` (``csrc/hopper_gemm.cuh``, ``csrc/attention_tc.cuh``),
+so an edited source or header rebuilds and an unchanged one loads the
+library already built.
 ``build_all`` starts one ``nvcc`` per source, all at once. Nothing here
 runs at import time: the CPU tests import every module of the port on a
 host without ``nvcc``.
@@ -142,10 +143,15 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                                 _F, _P],
+        "flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                               _P],
+        "flash_attention_tc_tiles": [_P],
         "flash_attention_error_string": [_I],
     },
     "paged_prefix_attention": {
         "paged_prefix_attention": [_P] * 9 + [_I] * 14 + [_F, _F, _P],
+        "paged_prefix_attention_tc": [_P] * 11 + [_I] * 15 + [_F, _F, _P],
+        "paged_prefix_attention_tc_tiles": [_P],
         "paged_prefix_attention_error_string": [_I],
     },
     "boolean_matmul": {

@@ -13,12 +13,16 @@ The counterparts of the JAX package's ``kernels/paged_attention.py``:
     queries over [the cached prefix's pool pages ; the tail's own K/V].
     CPU tensors run ``paged_prefix_attention_plain`` (the JAX package's
     parity oracle: ``gather_prefix_rows`` + ``flash_attention_abs``); CUDA
-    tensors launch ``csrc/paged_prefix_attention.cu`` or raise.
+    tensors launch the route of ``csrc/paged_prefix_attention.cu`` that
+    ``prefix_route`` names (``wgmma`` for bf16 q over bf16 or int8 pools
+    with pages TMA can box, the CUDA-core kernel for the rest), or raise.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -26,6 +30,7 @@ from . import build
 
 # Fill the card: aim for this many (lane, KV head, split) blocks.
 _TARGET_BLOCKS = 264
+#: head dims every kernel here (both routes of the prefix kernel) is built for
 _HEAD_DIMS = (64, 128, 256)
 _GROUP_SIZES = (1, 2, 4, 8)
 
@@ -255,6 +260,104 @@ def paged_prefix_attention_plain(q, k_tail, v_tail, k_pool, v_pool, page_ids,
     return out[0].transpose(0, 1)
 
 
+def prefix_route(q: torch.Tensor, k_pool: torch.Tensor) -> str:
+    """The kernel a CUDA launch takes: ``"tensor_cores"`` for bf16 q (and
+    tail) at a head dim the routes are built for, over pools whose page is
+    a power of two of at least 8 rows (one TMA box a page, each box on a
+    whole 1,024-byte swizzle period), else ``"cuda_cores"`` (fp32, or other
+    pages). A function of dtype, head dim and page size alone; both routes
+    take only contiguous, 16-byte-aligned operands, which the wrapper
+    checks before it asks."""
+    page = k_pool.shape[1]
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in _HEAD_DIMS
+            and page >= 8 and page & (page - 1) == 0):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+class AttentionTiles(NamedTuple):
+    """The attention kernels' tensor-core tiles: query rows a block, key
+    rows a tile, and by head dim the ring's stages and its dynamic shared
+    bytes."""
+    bq: int
+    bk: int
+    stages: Dict[int, int]
+    smem: Dict[int, int]
+
+
+@functools.lru_cache(maxsize=None)
+def attention_tc_tiles(name: str = "paged_prefix_attention") -> AttentionTiles:
+    """The tiles as ``csrc/attention_tc.cuh`` builds them (its one source),
+    read from library ``name`` (``flash_attention`` or
+    ``paged_prefix_attention``, which both build it)."""
+    out = (ctypes.c_int * 11)()
+    n = getattr(build.library(name), f"{name}_tc_tiles")(out)
+    rows = [tuple(out[2 + 3 * i:5 + 3 * i]) for i in range(n)]
+    return AttentionTiles(out[0], out[1], {r[0]: r[1] for r in rows},
+                          {r[0]: r[2] for r in rows})
+
+
+def prefix_split(H: int, T: int, KV: int, n_tiles: int, bq: int,
+                 sms: int) -> int:
+    """Shares of the key window for the tensor-core route: its blocks --
+    (n_rep * T) / ``bq`` query tiles of each KV head -- times the shares
+    fill one wave of the card's ``sms`` SMs at one block an SM, each share
+    at least two of the ``n_tiles`` key tiles."""
+    blocks = -(-(H // KV) * T // bq) * KV
+    return max(1, min(sms // blocks, n_tiles // 2))
+
+
+def _prefix_launch(route: str, q, k_tail, v_tail, k_pool, v_pool, page_ids,
+                   offset: int, prefix_len: int, length: int, k_scale,
+                   v_scale, *, n_rep: int, window: int, softcap_val: float,
+                   nsplit: Optional[int] = None) -> torch.Tensor:
+    """Launch the kernel of ``route`` on checked CUDA operands; counts
+    nothing. The wrapper calls it with ``prefix_route``'s answer, and the
+    tensor-core route takes its shares from ``prefix_split``. ``nsplit``
+    is a measurement hook that the serving path never passes: a
+    measurement may time the tensor-core route with another number of
+    shares, or the CUDA-core kernel on bf16."""
+    H, T, hd = q.shape
+    S, KV = k_tail.shape[:2]
+    n_pages, page = k_pool.shape[:2]
+    quant = k_pool.dtype == torch.int8
+    out = torch.empty((H, T, hd), dtype=torch.float32, device=q.device)
+    lib = build.library("paged_prefix_attention")
+    with torch.cuda.device(q.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+        ptrs = (q.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
+                k_pool.data_ptr(), v_pool.data_ptr(),
+                k_scale.data_ptr() if quant else None,
+                v_scale.data_ptr() if quant else None, page_ids.data_ptr(),
+                out.data_ptr())
+        rest = (H, T, S, KV, hd, n_rep, page, page_ids.shape[0], offset,
+                prefix_len, length, int(window), float(softcap_val),
+                1.0 / math.sqrt(hd), stream)
+        if route == "tensor_cores":
+            if nsplit is None:
+                tiles = attention_tc_tiles()
+                n_live = min(page_ids.shape[0], -(-prefix_len // page))
+                n_tiles = -(-n_live * page // tiles.bk) + -(-S // tiles.bk)
+                nsplit = prefix_split(H, T, KV, n_tiles, tiles.bq, torch.cuda
+                                      .get_device_properties(q.device)
+                                      .multi_processor_count)
+            part_o = part_ml = None
+            if nsplit > 1:
+                part_o = torch.empty((nsplit, H * T, hd), dtype=torch.float32,
+                                     device=q.device)
+                part_ml = torch.empty((nsplit, H * T, 2), dtype=torch.float32,
+                                      device=q.device)
+            rc = lib.paged_prefix_attention_tc(
+                *ptrs, None if part_o is None else part_o.data_ptr(),
+                None if part_ml is None else part_ml.data_ptr(), int(quant),
+                n_pages, nsplit, *rest)
+        else:
+            rc = lib.paged_prefix_attention(
+                *ptrs, int(q.dtype == torch.bfloat16), int(quant), *rest)
+    build.check("paged_prefix_attention", "paged_prefix_attention", rc)
+    return out
+
+
 def paged_prefix_attention(q, k_tail, v_tail, k_pool, v_pool, page_ids,
                            offset: int, prefix_len: int, length: int,
                            k_scale=None, v_scale=None, *, n_rep: int,
@@ -270,9 +373,11 @@ def paged_prefix_attention(q, k_tail, v_tail, k_pool, v_pool, page_ids,
     the garbage page 0, never read); offset: absolute position of tail row
     0; prefix_len / length: live prefix rows / true tail rows; ``chunk``:
     the key rows of one online-softmax step of the plain version (the
-    model's ``attn_chunk``; the kernel streams 32-row tiles). Returns
-    (H, T, hd) fp32. ``paged_prefix_attention.launches`` counts kernel
-    launches.
+    model's ``attn_chunk``; the kernels stream 64- or 32-row tiles).
+    Returns (H, T, hd) fp32. CUDA tensors launch the kernel
+    ``prefix_route`` names. ``paged_prefix_attention.launches`` counts
+    kernel launches, ``.tc_launches`` and ``.cc_launches`` those of the
+    tensor-core and CUDA-core kernels.
     """
     if q.dim() != 3 or k_tail.dim() != 3 or k_pool.dim() != 4 \
             or k_tail.shape != v_tail.shape or k_pool.shape != v_pool.shape:
@@ -316,22 +421,18 @@ def paged_prefix_attention(q, k_tail, v_tail, k_pool, v_pool, page_ids,
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError("paged prefix operands must be contiguous and "
                          "16-byte aligned")
-    out = torch.empty((H, T, hd), dtype=torch.float32, device=q.device)
-    lib = build.library("paged_prefix_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_prefix_attention(
-            q.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
-            k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr() if quant else None,
-            v_scale.data_ptr() if quant else None, page_ids.data_ptr(),
-            out.data_ptr(), int(q.dtype == torch.bfloat16), int(quant), H, T,
-            S, KV, hd, n_rep, page, page_ids.shape[0], offset, prefix_len,
-            length, int(window), float(softcap_val), 1.0 / math.sqrt(hd),
-            ctypes.c_void_p(stream))
-    build.check("paged_prefix_attention", "paged_prefix_attention", rc)
+    route = prefix_route(q, k_pool)
+    out = _prefix_launch(route, q, k_tail, v_tail, k_pool, v_pool, page_ids,
+                         offset, prefix_len, length, k_scale, v_scale,
+                         n_rep=n_rep, window=window, softcap_val=softcap_val)
     paged_prefix_attention.launches += 1
+    if route == "tensor_cores":
+        paged_prefix_attention.tc_launches += 1
+    else:
+        paged_prefix_attention.cc_launches += 1
     return out
 
 
 paged_prefix_attention.launches = 0
+paged_prefix_attention.tc_launches = 0
+paged_prefix_attention.cc_launches = 0

@@ -25,8 +25,9 @@ from repro.serve import paged_pool_init as jax_pool_init
 from repro_torch import bridge
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import (flash_attention_fwd, flash_attention_plain,
-                                 paged_flash_decode, paged_prefix_attention,
-                                 ref)
+                                 flash_route, paged_flash_decode,
+                                 paged_prefix_attention, prefix_route, ref)
+from repro_torch.kernels.paged_attention import prefix_split
 from repro_torch.models import attention as TA
 from repro_torch.models import lm_prefill
 from repro_torch.serve import commit_prefill, paged_pool_init
@@ -88,6 +89,54 @@ def test_flash_plain_matches_model_flash_with_gqa():
                                 softcap=50.0, n_rep=H // KV)
     got = got.reshape(B, H, S, hd).transpose(1, 2).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("s,window", [(100, 40), (128, 0)])
+def test_flash_plain_bf16_matches_model_flash(s, window):
+    """The function of the tensor-core route (bf16 k and v) against the
+    JAX model's chunked ``flash_attention``, the reference's cold prefill,
+    with GQA (4 q over 2 KV heads), gemma2's softcap and a window. q holds
+    bf16 values in fp32, so both sides take the dot in fp32 and return fp32
+    (hd 64: the scale is a power of two, before or after the dot alike);
+    both round p to bf16 before P V, each against its own running max
+    (64-key chunks there, 32-key blocks here), so a p_j may be one bf16
+    rounding apart (2^-8 of it): atol 2^-8 * max|v| bounds sum |dp| |v| /
+    l."""
+    B, H, KV, hd = 1, 4, 2, 64
+    rng = np.random.default_rng(s + window)
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+    q = bf(8 * rng.standard_normal((B, s, H, hd)))    # the softcap binds
+    k = bf(rng.standard_normal((B, s, KV, hd)))
+    v = bf(rng.standard_normal((B, s, KV, hd)))
+    want = np.asarray(JA.flash_attention(
+        jnp.asarray(q), JA._repeat_kv(jnp.asarray(k, jnp.bfloat16), H // KV),
+        JA._repeat_kv(jnp.asarray(v, jnp.bfloat16), H // KV), causal=True,
+        window=window, softcap_val=50.0, chunk=64))
+
+    def rows(x):
+        return _t(x).transpose(1, 2).reshape(-1, s, hd).contiguous()
+
+    got = flash_attention_plain(rows(q), rows(k).to(torch.bfloat16),
+                                rows(v).to(torch.bfloat16), window=window,
+                                softcap=50.0, n_rep=H // KV)
+    assert got.dtype == torch.float32
+    got = got.reshape(B, H, s, hd).transpose(1, 2).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2.0 ** -8 * np.abs(v).max())
+
+
+def test_flash_plain_rounds_p_only_for_bf16():
+    """p is cast to v's dtype before the value product: a no-op for fp32
+    (the TPU kernel's fp32 p), bf16 rounding for bf16 v."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_t(rng.standard_normal((2, 40, 32)).astype(np.float32))
+               for _ in range(3))
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    fp = flash_attention_plain(q, kb.float(), vb.float(), softcap=30.0)
+    mixed = flash_attention_plain(q, kb, vb, softcap=30.0)
+    assert not torch.equal(fp, mixed)
+    np.testing.assert_allclose(mixed.numpy(), fp.numpy(), rtol=0,
+                               atol=2.0 ** -8 * float(vb.abs().max()))
 
 
 # ---------------------------------------------------------------------------
@@ -293,11 +342,56 @@ def test_tail_prefill_logits_and_rows_match_jax(smoke, quant):
 
 
 # ---------------------------------------------------------------------------
-# wrappers: counters and refusals
+# wrappers: routes, counters and refusals
 # ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "tensor_cores"), (torch.bfloat16, 128, "tensor_cores"),
+    (torch.bfloat16, 256, "tensor_cores"), (torch.float32, 64, "cuda_cores"),
+    (torch.float32, 256, "cuda_cores")])
+def test_flash_route(dtype, hd, want):
+    """bf16 takes the tensor cores at every head dim the wrapper accepts;
+    fp32 (which they would round) the CUDA-core kernel."""
+    assert flash_route(torch.zeros((4, 8, hd), dtype=dtype)) == want
+
+
+@pytest.mark.parametrize("dtype,pool,hd,page,want", [
+    (torch.bfloat16, torch.bfloat16, 256, 16, "tensor_cores"),
+    (torch.bfloat16, torch.int8, 256, 16, "tensor_cores"),
+    (torch.bfloat16, torch.bfloat16, 64, 8, "tensor_cores"),
+    (torch.bfloat16, torch.int8, 128, 256, "tensor_cores"),
+    (torch.bfloat16, torch.bfloat16, 256, 4, "cuda_cores"),    # below a swizzle period
+    (torch.bfloat16, torch.int8, 256, 24, "cuda_cores"),       # not a power of two
+    (torch.float32, torch.float32, 256, 16, "cuda_cores"),
+    (torch.float32, torch.int8, 64, 16, "cuda_cores")])
+def test_prefix_route(dtype, pool, hd, page, want):
+    """bf16 q over bf16 or int8 pools whose pages TMA boxes whole (a power
+    of two of at least 8 rows) takes the tensor cores; the rest the
+    CUDA-core kernel."""
+    q = torch.zeros((4, 8, hd), dtype=dtype)
+    assert prefix_route(q, torch.zeros((3, page, 2, hd), dtype=pool)) == want
+
+
+@pytest.mark.parametrize("H,T,KV,n_tiles,want", [
+    (16, 256, 4, 12, 4),      # phase 7: 32 blocks -> 128
+    (16, 128, 4, 10, 5),      # 16 blocks, at least two tiles a share
+    (16, 32, 4, 9, 4),
+    (16, 1024, 4, 24, 1),     # 128 blocks already fill the card
+    (8, 16, 8, 1, 1)])        # one tile: no share
+def test_prefix_split(H, T, KV, n_tiles, want):
+    """Shares of the key window at the H100's 132 SMs and 128-row query
+    tiles: one wave of 132 blocks at most, two key tiles a share at
+    least."""
+    got = prefix_split(H, T, KV, n_tiles, 128, 132)
+    blocks = -(-(H // KV) * T // 128) * KV
+    assert got == want
+    assert got == 1 or (got * blocks <= 132 and 2 * got <= n_tiles)
+
+
 def test_cpu_tensors_never_count_launches():
     for k in (flash_attention_fwd, paged_prefix_attention, paged_flash_decode):
         k.launches = 0
+    for k in (flash_attention_fwd, paged_prefix_attention):
+        k.tc_launches = k.cc_launches = 0
     q, kt, vt, kp, vp, ks, vs, page_ids, n_rep = _prefix_inputs(True, "float32")
     paged_prefix_attention(_t(q), _t(kt), _t(vt), _t(kp), _t(vp),
                            _t(page_ids), 7, 7, 5, _t(ks), _t(vs), n_rep=n_rep)
@@ -308,6 +402,8 @@ def test_cpu_tensors_never_count_launches():
                        _t(vsd))
     assert (flash_attention_fwd.launches, paged_prefix_attention.launches,
             paged_flash_decode.launches) == (0, 0, 0)
+    assert all(k.tc_launches == k.cc_launches == 0
+               for k in (flash_attention_fwd, paged_prefix_attention))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -318,6 +414,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         flash_attention_fwd(x, x, x, n_rep=2)
     with pytest.raises(TypeError):
         flash_attention_fwd(x, x.to(torch.bfloat16), x)
+    with pytest.raises(TypeError):                      # neither route's dtype
+        flash_attention_fwd(*(x.to(torch.float16),) * 3)
     q, kt, vt, kp, vp, ks, vs, page_ids, n_rep = _prefix_inputs(True, "float32")
     args = (_t(q), _t(kt), _t(vt), _t(kp), _t(vp))
     with pytest.raises(ValueError, match="scale"):     # int8 without scales
