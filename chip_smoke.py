@@ -18,7 +18,12 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               the GEMV: its tensor-core route at M = 8 decode lanes, 16 to
               256 prefill rows and six ragged M, every lane tile it is
               built for, bit-exact on integer-valued x, its CUDA-core route
-              for fp32 and unaligned bf16 x; paged decode over bf16 and int8 pools, the flash
+              for fp32 and unaligned bf16 x; paged decode's tensor-core
+              route over bf16 and int8 pools, global and windowed, at hd
+              64 to 256, R 1 to 8 and pages of 8 to 32 rows, with exact
+              cases (q = 0, integer V: the mean of the valid rows, within
+              1e-6) and two launches bit-identical, its CUDA-core kernel
+              timed on the same inputs; the flash
               prefill and the paged prefix attention; one training
               microbatch for the weight backward), with the stated
               tolerance (per element for the two prefill kernels, whose
@@ -52,14 +57,14 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               submitted mid-flight and one cancelled. The launch counters
               are zeroed just before and read just after; every kernel must
               have run exactly as often as the path calls it (the flash
-              prefill once a layer of every prefill), every GEMV and flash
-              prefill launch on its tensor-core route;
+              prefill once a layer of every prefill), every GEMV, flash
+              prefill and paged decode launch on its tensor-core route;
 4. check   -- a small fp32 model (gemma2-2b smoke widths, head_dim 64)
               served on the card with the kernels and on the CPU with the
               plain versions: logits within tolerance, greedy tokens
               identical, also under prefix-cached traffic with and without
-              kv-quant; every GEMV, flash prefill and prefix attention
-              launch on its CUDA-core route (fp32);
+              kv-quant; every GEMV, flash prefill, prefix attention and
+              paged decode launch on its CUDA-core route (fp32);
 5. train   -- gemma2-2b at its published widths, bf16, remat on, trained
               through make_train_step + TrainLoop with hybrid_optimizer
               (the launcher's cosine schedules) on the SyntheticLM
@@ -91,8 +96,9 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               layer, teacher-forced (each block of the tail fed the cold
               run's input to that block), must match the cold prefill's
               committed K/V rows and attention output at the same positions
-              within bf16 roundings, element by element; every GEMV, flash prefill and
-              prefix attention launch on its tensor-core route. TTFT by
+              within bf16 roundings, element by element; every GEMV, flash
+              prefill, prefix attention and paged decode launch on its
+              tensor-core route, over both pools. TTFT by
               admission kind, the decode step and peak memory are reported;
 8. vision  -- Boolean VGG-SMALL at published widths (stages 128/256/512,
               fc 1024, 32x32x3, 10 classes; weights from vgg_init on the
@@ -320,66 +326,237 @@ def check_gemv(torch, flush, gen):
     return rows, worst
 
 
-def check_paged_decode(torch, flush, gen, cfg):
-    from repro_torch.kernels import paged_flash_decode, paged_flash_decode_plain
+# the decode kernel's other instances, each over both pools at window 100
+# and in the exact case: (label, head dim, group size R, page)
+DECODE_SHAPES = (("hd 64", 64, 4, 16), ("hd 128", 128, 4, 16),
+                 ("R 1", 256, 1, 16), ("R 2", 256, 2, 16), ("R 8", 256, 8, 16),
+                 ("page 8", 256, 4, 8), ("page 32", 256, 4, 32))
+# lane positions: pos 0, mid-page, page ends, the table's last row (1,023 at
+# 1,024 rows a lane), one lane past its table (its writes go to the garbage
+# page; all rows valid), or, for the exact case, far past it (under a
+# 100-row window no row is valid: the lane averages every live row)
+DECODE_POS = (0, 17, 100, 255, 511, 700, 1023, 1100)
+DECODE_POS_FAR = (0, 17, 100, 255, 511, 700, 1023, 1500)
 
-    L, page, C = 8, 16, 1024 // 16
-    KV, hd = cfg.kv_heads_padded(), cfg.head_dim_
-    R = cfg.heads_padded() // KV
+
+def decode_inputs(torch, gen, KV, R, hd, page, pos, exact=False, L=8,
+                  max_len=1024):
+    """Phase 2's decode operands: q (L, KV, R, hd) bf16, a permuted block
+    table over L * C + 1 pages (lane 0 a short request, the rest of its
+    table the garbage page 0), and a bf16 and an int8 pool pair (codes with
+    per-(row, head) scales, |v| < ~5 like the bf16 pool). ``exact``: q = 0
+    and integer V rows in [-2, 2] (int8 codes at scale 1.0), so every valid
+    row weighs exactly 1 and each output is the exact mean of its rows."""
+    C = max_len // page
     n_pages = L * C + 1
-    q = torch.randn((L, KV, R, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    kp = torch.randn((n_pages, page, KV, hd), generator=gen,
-                     device="cuda").to(torch.bfloat16)
-    vp = torch.randn((n_pages, page, KV, hd), generator=gen,
-                     device="cuda").to(torch.bfloat16)
+    shape = (n_pages, page, KV, hd)
+    if exact:
+        q = torch.zeros((L, KV, R, hd), dtype=torch.bfloat16, device="cuda")
+    else:
+        q = torch.randn((L, KV, R, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    kp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    if exact:
+        vp = torch.randint(-2, 3, shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+    else:
+        vp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
     bt = perm[:L * C].reshape(L, C).to(torch.int32).contiguous()
-    # ragged: pos 0, mid-page, page ends, the table's last row, and one lane
-    # past its table (its writes go to the garbage page; all rows valid)
-    pos = torch.tensor([0, 17, 100, 255, 511, 700, 1023, 1100],
-                       dtype=torch.int32, device="cuda")
     bt[0, 1:] = 0                       # a short request: the rest garbage
-    live_rows = sum(min(C, (p + page) // page) * page for p in pos.tolist())
-    # int8 pools with per-(row, head) scales, |v| < ~5 like the bf16 pool
-    k8 = torch.randint(-127, 128, kp.shape, generator=gen, device="cuda",
+    k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda",
                        dtype=torch.int8)
-    v8 = torch.randint(-127, 128, kp.shape, generator=gen, device="cuda",
-                       dtype=torch.int8)
-    ks = torch.rand(kp.shape[:3], generator=gen, device="cuda") * 0.035 + 0.005
-    vs = torch.rand(kp.shape[:3], generator=gen, device="cuda") * 0.035 + 0.005
-    pools = {"bf16": (kp, vp, None, None), "int8": (k8, v8, ks, vs)}
-    rows, worst = [], 0.0
+    if exact:
+        v8 = vp.to(torch.int8)
+        ks = torch.ones(shape[:3], device="cuda")
+        vs = torch.ones(shape[:3], device="cuda")
+    else:
+        v8 = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        ks = torch.rand(shape[:3], generator=gen, device="cuda") * 0.035 + 0.005
+        vs = torch.rand(shape[:3], generator=gen, device="cuda") * 0.035 + 0.005
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    return q, bt, pos, {"bf16": (kp, vp, None, None), "int8": (k8, v8, ks, vs)}
+
+
+def decode_rows(pos, page, C, window):
+    """Key rows the outputs depend on: a lane's valid rows [lo, hi] of
+    decode_window, or all its live rows when none is valid (it averages
+    them, as the reference does)."""
+    from repro_torch.kernels.paged_attention import decode_window
+
+    rows = 0
+    for p in pos:
+        n_live, lo, hi = decode_window(p, page, C, window)
+        rows += hi - lo + 1 if lo <= hi else n_live * page
+    return rows
+
+
+def check_paged_decode(torch, flush, gen, cfg):
+    """paged_flash_decode against its plain version: at phase 3's shape
+    (8 lanes over gemma2-2b's 16 padded q heads on 4 KV heads, head dim 256,
+    16-row pages, 1,024 rows a lane, softcap 50) over bf16 and int8 pools,
+    global, gemma2's local window and a 100-row window, within 1e-4, on
+    both routes (the CUDA-core kernel through the measurement hook on the
+    same bf16 inputs, and through the wrapper on fp32 q, the route phases 4
+    and 6 take); the exact case (q = 0, integer V) within 1e-6, where a
+    wrong page, row, head, share or window edge moves a mean by whole units
+    of that; each other instance of DECODE_SHAPES the same at window 100;
+    two launches on the same inputs bit-identical; the route decode_route
+    names asserted and counted; at phase 3's shape also with the pages in 1
+    or 3 shares (64 or 22 tiles a block, the ring refilled many times). At
+    phase 3's shape, kernel, CUDA-core kernel (cc_ms: the design the
+    tensor-core route replaced, on the same inputs) and plain times beside
+    the bound over the rows decode_rows counts, and the wrapper's host time
+    a call (host_us: the Python and launch cost, no wait on the card)."""
+    from repro_torch.kernels import (decode_route, paged_flash_decode,
+                                     paged_flash_decode_plain)
+    from repro_torch.kernels.paged_attention import _decode_launch
+
+    KV, hd = cfg.kv_heads_padded(), cfg.head_dim_
+    R = cfg.heads_padded() // KV
+    softcap = cfg.attn_logit_softcap
+    rows, worst, exact = [], {"tensor_cores": 0.0, "cuda_cores": 0.0}, {}
+
+    def check(label, pool, args, window, tol, *, route="tensor_cores",
+              hook=False, nsplit=None):
+        """Two launches on ``route``, through the wrapper (the route asserted
+        and counted) or, with ``hook``, through _decode_launch with
+        ``nsplit`` shares; held against the plain version and each other."""
+        kw = dict(window=window, softcap_val=softcap)
+        if hook:
+            out, again = (_decode_launch(route, *args, nsplit=nsplit, **kw)
+                          for _ in range(2))
+            label = f"{label} {route}" + ("" if nsplit is None
+                                          else f" nsplit {nsplit}")
+        else:
+            assert decode_route(args[0], args[1]) == route, label
+            counter = ("tc_launches" if route == "tensor_cores"
+                       else "cc_launches")
+            n0 = getattr(paged_flash_decode, counter)
+            out = paged_flash_decode(*args, **kw)
+            again = paged_flash_decode(*args, **kw)
+            assert getattr(paged_flash_decode, counter) == n0 + 2, label
+        ref = paged_flash_decode_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        same = bool(torch.equal(out, again))
+        print(f"  paged decode {label} {pool} pool window {window}: "
+              f"max_abs_err={err:.3g} (tol {tol}), repeat bit-identical {same}")
+        assert bool(torch.isfinite(out).all()) and err <= tol, \
+            f"paged decode {label} {pool} window {window}: {err} > {tol}"
+        assert same, f"paged decode {label} {pool}: launches differ"
+        if tol >= 1e-4:
+            worst[route] = max(worst[route], err)
+        return err
+
+    def host_us(fn, n=100):
+        """Host microseconds a call, the card kept ahead of the host."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    # phase 3's shape: random cases on both routes, timed side by side
+    page = 16
+    C = 1024 // page
+    q, bt, pos, pools = decode_inputs(torch, gen, KV, R, hd, page, DECODE_POS)
     for pool, (k_, v_, ks_, vs_) in pools.items():
         row_bytes = hd * k_.element_size() + (4 if ks_ is not None else 0)
+        args = (q, k_, v_, bt, pos, ks_, vs_)
         for label, window in (("global", 0), ("local", cfg.sliding_window),
                               ("window-100", 100)):
-            kw = dict(window=window, softcap_val=cfg.attn_logit_softcap)
-            args = (q, k_, v_, bt, pos, ks_, vs_)
-            out = paged_flash_decode(*args, **kw)
-            ref = paged_flash_decode_plain(*args, **kw)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            tol = 1e-4    # fp32 online softmax vs one softmax, |v| < ~5
-            print(f"  paged decode {pool} pool {label}: max_abs_err={err:.3g} "
-                  f"(tol {tol})")
-            assert err <= tol, f"paged decode {pool} {label}: {err} > {tol}"
-            worst = max(worst, err)
+            # fp32 online softmax vs one softmax, |v| < ~5
+            err = check(label, pool, args, window, 1e-4)
+            cc_err = check(label, pool, args, window, 1e-4, route="cuda_cores",
+                           hook=True)
+            kw = dict(window=window, softcap_val=softcap)
             ms = time_ms(torch, lambda: paged_flash_decode(*args, **kw), flush)
+            cc = time_ms(torch, lambda: _decode_launch("cuda_cores", *args, **kw),
+                         flush)
             plain = time_ms(torch, lambda: paged_flash_decode_plain(*args, **kw),
                             flush)
-            b_ms, b_by = bound(q.numel() * 2 + live_rows * KV * row_bytes * 2
+            h_us = host_us(lambda: paged_flash_decode(*args, **kw))
+            n_rows = decode_rows(DECODE_POS, page, C, window)
+            b_ms, b_by = bound(q.numel() * 2 + n_rows * KV * row_bytes * 2
                                + bt.numel() * 4 + pos.numel() * 4
-                               + out.numel() * 4,
-                               4.0 * live_rows * KV * R * hd, "bf16")
+                               + q.numel() * 4,
+                               4.0 * n_rows * KV * R * hd, "bf16")
             rows.append({"pool": pool, "layer": label, "window": window,
-                         "L": L, "KV": KV, "R": R, "hd": hd,
-                         "live_rows": live_rows, "max_abs_err": err, "ms": ms,
-                         "plain_ms": plain, "library_ms": None,
+                         "L": len(DECODE_POS), "KV": KV, "R": R, "hd": hd,
+                         "page": page, "rows": n_rows, "max_abs_err": err,
+                         "cc_max_abs_err": cc_err, "route": "tensor_cores",
+                         "ms": ms, "cc_ms": cc, "plain_ms": plain,
+                         "host_us": h_us, "library_ms": None,
                          "bound_ms": b_ms, "bound_by": b_by})
-            print(f"    kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
-                  f"{b_ms:.4f} ms ({b_by}); library: none (no single PyTorch "
-                  "call computes softcapped attention over a paged pool)")
-    return rows, worst
+            print(f"    kernel {ms:.4f} ms  CUDA-core kernel {cc:.4f} ms  plain "
+                  f"{plain:.4f} ms  bound {b_ms:.4f} ms ({b_by}, {n_rows} "
+                  f"rows)  wrapper host {h_us:.1f} us a call; library: none "
+                  "(no single PyTorch call computes softcapped attention over "
+                  "a paged pool)")
+    # the CUDA-core route as phases 4 and 6 reach it: fp32 q over fp32 and
+    # int8 pools through the wrapper, random (1e-4) and exact (1e-6)
+    for exact_case in (False, True):
+        q_, bt_, pos_, pools_ = decode_inputs(
+            torch, gen, KV, R, hd, page,
+            DECODE_POS_FAR if exact_case else DECODE_POS, exact=exact_case)
+        q_ = q_.float()
+        kp_, vp_ = (t.float() for t in pools_["bf16"][:2])
+        for pool, pargs in (("fp32", (kp_, vp_, None, None)),
+                            ("int8", pools_["int8"])):
+            args = (q_, pargs[0], pargs[1], bt_, pos_, *pargs[2:])
+            for label, window in ((("global", 0), ("window-100", 100))
+                                  if exact_case else
+                                  (("global", 0), ("local", cfg.sliding_window),
+                                   ("window-100", 100))):
+                label = "fp32 q " + label + (" exact" if exact_case else "")
+                err = check(label, pool, args, window,
+                            1e-6 if exact_case else 1e-4, route="cuda_cores")
+                if exact_case:
+                    exact[f"{label} {pool}"] = err
+                elif window == cfg.sliding_window:
+                    h_us = host_us(lambda: paged_flash_decode(
+                        *args, window=window, softcap_val=softcap))
+                    rows.append({"pool": pool, "layer": label,
+                                 "window": window, "route": "cuda_cores",
+                                 "max_abs_err": err, "host_us": h_us})
+                    print(f"    wrapper host {h_us:.1f} us a call")
+    # the exact case at phase 3's shape, global and windowed, also with the
+    # lanes' pages in 1 or 3 shares (the measurement hook): up to 64 tiles a
+    # block through the ring, each stage refilled many times; every other
+    # instance at window 100, random and exact
+    for nsplit in (1, 3):
+        for exact_case in (False, True):
+            q_, bt_, pos_, pools_ = decode_inputs(
+                torch, gen, KV, R, hd, 16,
+                DECODE_POS_FAR if exact_case else DECODE_POS, exact=exact_case)
+            for pool, (k_, v_, ks_, vs_) in pools_.items():
+                args = (q_, k_, v_, bt_, pos_, ks_, vs_)
+                for window in (0, 100):
+                    err = check("phase 3" + (" exact" if exact_case else ""), pool,
+                                args, window, 1e-6 if exact_case else 1e-4,
+                                hook=True, nsplit=nsplit)
+                    if exact_case:
+                        exact[f"phase 3 nsplit {nsplit} {pool} window {window}"] = err
+    cases = [("phase 3", hd, R, 16, True, (0, 100))] + [
+        (label, hd_, R_, page_, exact_case, (100,))
+        for label, hd_, R_, page_ in DECODE_SHAPES for exact_case in (False, True)]
+    for label, hd_, R_, page_, exact_case, windows in cases:
+        q_, bt_, pos_, pools_ = decode_inputs(
+            torch, gen, KV, R_, hd_, page_,
+            DECODE_POS_FAR if exact_case else DECODE_POS, exact=exact_case)
+        for pool, (k_, v_, ks_, vs_) in pools_.items():
+            args = (q_, k_, v_, bt_, pos_, ks_, vs_)
+            for window in windows:
+                if exact_case:
+                    err = check(f"{label} exact", pool, args, window, 1e-6)
+                    exact[f"{label} {pool} window {window}"] = err
+                else:
+                    check(label, pool, args, window, 1e-4)
+    return rows, worst, exact
 
 
 def _live_pairs(S: int, window: int) -> int:
@@ -913,7 +1090,7 @@ def check_bool_gemm(torch, flush, gen, rates):
 # 3. serve gemma2-2b at published widths
 # ---------------------------------------------------------------------------
 KERNEL_GROUPS = (("packed_xnor_gemv", ("xnor_gemv",)),
-                 ("paged_flash_decode", ("paged_decode",)),
+                 ("paged_flash_decode", ("paged_decode", "decode_tc")),
                  ("flash_attention", ("flash_tc", "flash_fwd")),
                  ("gemm (head, cuBLAS)", ("gemm", "sm90_", "cutlass", "nvjet")))
 
@@ -1076,7 +1253,7 @@ def serve(torch, seed: int):
     for name in ("packed_xnor_gemv", "paged_flash_decode", "flash_attention_fwd"):
         assert launches[name] > 0, launches
     print(f"  launches by route {routes}")
-    for name in ("packed_xnor_gemv", "flash_attention_fwd"):
+    for name in ("packed_xnor_gemv", "flash_attention_fwd", "paged_flash_decode"):
         assert routes[name] == {"tensor_cores": want[name], "cuda_cores": 0}, \
             (name, routes[name])
     for h in handles:
@@ -1251,7 +1428,7 @@ def agree_with_cpu(torch, seed: int):
     assert outs[0] == outs[1], outs
     routes = route_counts()
     print(f"  card session's launches by route {routes} (fp32)")
-    for name in ("packed_xnor_gemv", "flash_attention_fwd"):
+    for name in ("packed_xnor_gemv", "flash_attention_fwd", "paged_flash_decode"):
         assert routes[name]["tensor_cores"] == 0 \
             and routes[name]["cuda_cores"] > 0, (name, routes[name])
 
@@ -1281,7 +1458,7 @@ def agree_with_cpu(torch, seed: int):
             (res[0]["streams"], res[1]["streams"])
         assert res[0]["stats"]["prefix"] == res[1]["stats"]["prefix"]
         for name in ("packed_xnor_gemv", "flash_attention_fwd",
-                     "paged_prefix_attention"):
+                     "paged_prefix_attention", "paged_flash_decode"):
             r = res[0]["routes"][name]
             assert r["tensor_cores"] == 0 and r["cuda_cores"] \
                 == res[0]["launches"][name] > 0, (name, r)
@@ -1737,7 +1914,7 @@ def serve_prefix(torch, engine, seed: int):
         assert launches == want, (launches, want)
         print(f"  {label}: launches by route {res['routes']}")
         for name in ("packed_xnor_gemv", "flash_attention_fwd",
-                     "paged_prefix_attention"):
+                     "paged_prefix_attention", "paged_flash_decode"):
             assert res["routes"][name] == {"tensor_cores": want[name],
                                            "cuda_cores": 0}, \
                 (label, name, res["routes"][name])
@@ -2017,7 +2194,7 @@ def vision(torch, seed: int):
     return out
 
 
-def ring_kernels(build):
+def ring_kernels(build, decode_kv: int):
     """ptxas's registers and spills for each instance of the tensor-core
     templates, with the dynamic shared memory its ring takes, which ptxas
     does not see: the wgmma + TMA skeleton (csrc/hopper_gemm.cuh's
@@ -2027,19 +2204,22 @@ def ring_kernels(build):
     packed_xnor_matmul by tile width, two stages of
     128 x 128 + BN x 128 bytes; the two attention kernels' tensor-core
     routes (csrc/attention_tc.cuh) by head dim (and int8 pool), as each
-    library reports its ring; each with 1 KB of alignment slack and the
-    barriers."""
+    library reports its ring; the decode kernel's tensor-core route by
+    <head dim, group size, int8 pool> at ``decode_kv`` heads (its stages
+    hold the int8 rows' scales of every head), as the library plans it;
+    each with 1 KB of alignment slack and the barriers."""
     import re
     from repro_torch.kernels.packed_xnor import gemv_tc_tiles
-    from repro_torch.kernels.paged_attention import attention_tc_tiles
+    from repro_torch.kernels.paged_attention import (attention_tc_tiles,
+                                                     decode_tc_plan)
 
     template = re.compile(r"(weight_bwd_tc|boolean_matmul_tc|xnor_gemv_tc_kernel"
-                          r"|packed_xnor_matmul_tc|flash_tc|prefix_tc)"
+                          r"|packed_xnor_matmul_tc|flash_tc|prefix_tc|decode_tc)"
                           r"I((?:L[a-z]+\d+E)+)")
     out = {}
     for name in ("boolean_weight_bwd", "boolean_matmul", "packed_xnor_gemv",
                  "packed_xnor_matmul", "flash_attention",
-                 "paged_prefix_attention"):
+                 "paged_prefix_attention", "paged_flash_decode"):
         label = None
         for line in build.build_log(name).splitlines():
             if "Compiling entry function" in line:
@@ -2061,6 +2241,10 @@ def ring_kernels(build):
                     tiles = attention_tc_tiles(name)
                     smem = tiles.smem[args[0]]
                     extra = {"stages": tiles.stages[args[0]]}
+                elif k.group(1) == "decode_tc":
+                    plan = decode_tc_plan(*args, decode_kv)
+                    smem = plan.smem
+                    extra = {"stages": plan.stages, "threads": plan.threads}
                 else:
                     bn, st = args[:2]
                     smem = 1024 + st * (16384 + 128 * bn + 16)
@@ -2104,7 +2288,7 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    ring = ring_kernels(build)
+    ring = ring_kernels(build, get_config("gemma2-2b").kv_heads_padded())
     for label, info in ring.items():
         print(f"  tensor-core kernel {label}: {info}")
 
@@ -2112,8 +2296,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     gemv_rows, gemv_err = check_gemv(torch, flush, gen)
-    dec_rows, dec_err = check_paged_decode(torch, flush, gen,
-                                           get_config("gemma2-2b"))
+    dec_rows, dec_err, dec_exact = check_paged_decode(torch, flush, gen,
+                                                      get_config("gemma2-2b"))
     flash_rows, flash_err = check_flash(torch, flush, gen, get_config("gemma2-2b"))
     pfx_rows, pfx_err = check_prefix(torch, flush, gen, get_config("gemma2-2b"))
     uniform = check_uniform(torch, gen, get_config("gemma2-2b"))
@@ -2152,6 +2336,8 @@ def main() -> int:
                  and r["pool"] == "bf16")
     local8 = next(r for r in dec_rows if r["layer"] == "local"
                   and r["pool"] == "int8")
+    local32 = next(r for r in dec_rows if r["layer"] == "fp32 q local"
+                   and r["pool"] == "fp32")
     flash = next(r for r in flash_rows if (r["case"], r["S"], r["dtype"], r["hd"])
                  == ("local", 1024, "bf16", 256))
     pfx = next(r for r in pfx_rows if (r["pool"], r["T"], r["prefix_rows"],
@@ -2209,16 +2395,32 @@ def main() -> int:
         {"name": "paged_flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_flash_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:156",
-         "launches": launches["paged_flash_decode"], "max_abs_err": dec_err,
+         "launches": launches["paged_flash_decode"],
+         "max_abs_err": dec_err["tensor_cores"],
+         "cc_max_abs_err": dec_err["cuda_cores"],
          "ms": local["ms"], "plain_ms": local["plain_ms"],
          "bound_ms": local["bound_ms"], "bound_by": local["bound_by"],
-         "library_ms": None, "kernel_route": "cuda_cores",
-         "int8_ms": local8["ms"], "int8_plain_ms": local8["plain_ms"],
+         "library_ms": None, "kernel_route": "tensor_cores",
+         "tc_launches": metrics["routes"]["paged_flash_decode"]["tensor_cores"],
+         "cc_ms": local["cc_ms"], "host_us": local["host_us"],
+         "cc_host_us": local32["host_us"],
+         "int8_ms": local8["ms"], "int8_cc_ms": local8["cc_ms"],
+         "int8_plain_ms": local8["plain_ms"],
          "int8_bound_ms": local8["bound_ms"],
+         "exact_max_abs_err": max(dec_exact.values()),
+         "phase7_routes": {k: v["routes"]["paged_flash_decode"]
+                           for k, v in prefix_metrics.items()},
          "shape": f"{local['L']} lanes, {local['KV']} KV heads x {local['R']} "
                   f"q heads, head_dim {local['hd']}, bf16 pool (int8_*: int8 "
-                  f"pool + fp32 scales), {local['live_rows']} live rows, "
-                  f"window {local['window']}"},
+                  f"pool + fp32 scales), {local['rows']} rows, window "
+                  f"{local['window']} (kernel_route; cc_ms: the CUDA-core "
+                  "kernel on the same inputs; tc_launches: phase 3's launches "
+                  "on the tensor-core route, phase7_routes phase 7's by route "
+                  "over both pools; exact_max_abs_err: the q = 0, integer-V "
+                  "cases; cc_max_abs_err: the CUDA-core kernel's random cases, "
+                  "bf16 through the hook and fp32 q through the wrapper; "
+                  "host_us / cc_host_us: the wrapper's host time a call on "
+                  "bf16 / fp32 q)"},
         {"name": "boolean_weight_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/boolean_weight_bwd.cu",
          "replaces": "src/repro/kernels/boolean_bwd.py:52",
@@ -2311,7 +2513,9 @@ def main() -> int:
     out.write_text(json.dumps({"device": device_line, "seed": args.seed,
                                "build_s": secs, "tensor_core_kernels": ring,
                                "gemv": gemv_rows,
-                               "paged_decode": dec_rows, "weight_bwd": wbwd_rows,
+                               "paged_decode": dec_rows,
+                               "paged_decode_exact": dec_exact,
+                               "weight_bwd": wbwd_rows,
                                "flash_prefill": flash_rows,
                                "paged_prefix": pfx_rows,
                                "uniform_attention": uniform,

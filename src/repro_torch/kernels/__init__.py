@@ -15,8 +15,9 @@ boolean_bwd      -- the Boolean-variation weight backward (vote counts) of
                     CUDA-core one, picked by ``weight_bwd_route``)
 paged_attention  -- serve-decode flash attention that walks the block table
                     and reads K/V pool pages (bf16/fp32, or int8 + scales) in
-                    place (csrc/paged_flash_decode.cu), and the prefix-cache
-                    tail prefill over in-place prefix pages
+                    place (csrc/paged_flash_decode.cu: a tensor-core route
+                    and a CUDA-core one, picked by ``decode_route``), and
+                    the prefix-cache tail prefill over in-place prefix pages
                     (csrc/paged_prefix_attention.cu: a tensor-core route and
                     a CUDA-core one, picked by ``prefix_route``)
 flash_attention  -- causal flash attention of every cold prefill
@@ -26,9 +27,9 @@ flash_attention  -- causal flash attention of every cold prefill
 boolean_matmul and the weight backward's tensor-core route share
 csrc/hopper_gemm.cuh: TMA tensor maps, mbarrier rings, wgmma and one
 warp-specialised kernel skeleton; the two packed kernels use its maps,
-barriers and wgmma instructions; the two prefill-attention kernels'
-tensor-core routes share one consumer body on them
-(csrc/attention_tc.cuh).
+barriers and wgmma instructions, the decode kernel's tensor-core route its
+barriers and TMA loads; the two prefill-attention kernels' tensor-core
+routes share one consumer body on them (csrc/attention_tc.cuh).
 
 A wrapper runs its plain version on CPU tensors and its CUDA kernel on CUDA
 tensors (or raises); ``<wrapper>.launches`` counts kernel launches.
@@ -43,8 +44,8 @@ from .flash_attention import (flash_attention_fwd, flash_attention_plain,
 from .packed_xnor import (gemv_route, pack_bits, packed_xnor_gemv,
                           packed_xnor_gemv_plain, packed_xnor_matmul,
                           packed_xnor_matmul_plain, unpack_bits)
-from .paged_attention import (paged_flash_decode, paged_flash_decode_plain,
-                              paged_prefix_attention,
+from .paged_attention import (decode_route, paged_flash_decode,
+                              paged_flash_decode_plain, paged_prefix_attention,
                               paged_prefix_attention_plain, prefix_route)
 
 #: every kernel wrapper of the port, for launch-count bookkeeping

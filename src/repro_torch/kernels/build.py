@@ -133,6 +133,8 @@ _SIGNATURES = {
         "paged_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                                _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                                _P],
+        "paged_flash_decode_tc": [_P] * 11 + [_I] * 10 + [_F, _F, _P],
+        "paged_flash_decode_tc_plan": [_I, _I, _I, _I, _P],
         "paged_flash_decode_error_string": [_I],
     },
     "boolean_weight_bwd": {

@@ -5,10 +5,14 @@ The counterparts of the JAX package's ``kernels/paged_attention.py``:
   * ``paged_flash_decode`` -- one new token per lane over its block-table
     pages. CPU tensors run ``paged_flash_decode_plain`` (gather the lane's
     table into a contiguous window, int8 rows dequantised to fp32, masked
-    softmax in fp32); CUDA tensors launch ``csrc/paged_flash_decode.cu`` or
-    raise. The kernel streams pages through an online softmax split over
-    the page range, so its reduction order differs from the plain
-    version's: the two agree to a tolerance, not bit for bit.
+    softmax in fp32); CUDA tensors launch the route of
+    ``csrc/paged_flash_decode.cu`` that ``decode_route`` names (the scores
+    on the tensor cores for bf16 q over bf16 or int8 pools with pages TMA
+    can box, the CUDA-core kernel for the rest), or raise. Both stream pages
+    through an online softmax split over the page range (the tensor-core
+    route over ``decode_shares`` of the live window), so their reduction
+    order differs from the plain version's: they agree to a tolerance, not
+    bit for bit.
   * ``paged_prefix_attention`` -- the prefix-cache tail prefill: the tail's
     queries over [the cached prefix's pool pages ; the tail's own K/V].
     CPU tensors run ``paged_prefix_attention_plain`` (the JAX package's
@@ -22,14 +26,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import build
 
-# Fill the card: aim for this many (lane, KV head, split) blocks.
-_TARGET_BLOCKS = 264
 #: head dims every kernel here (both routes of the prefix kernel) is built for
 _HEAD_DIMS = (64, 128, 256)
 _GROUP_SIZES = (1, 2, 4, 8)
@@ -92,11 +94,151 @@ def paged_flash_decode_plain(q, k_pool, v_pool, block_table, pos,
     return acc / torch.clamp(e.sum(dim=-1), min=1e-30)[..., None]
 
 
-def decode_split(L: int, KV: int, C: int):
-    """(nsplit, pages per split) for the CUDA kernel's page-range split."""
-    nsplit = max(1, min(C, -(-_TARGET_BLOCKS // (L * KV))))
-    pps = -(-C // nsplit)
-    return -(-C // pps), pps
+def decode_split(L: int, KV: int, C: int, sms: int) -> int:
+    """Shares of each lane's pages, on both routes: as many as keep the
+    (lane, KV head, share) blocks to one wave of two blocks on each of the
+    card's ``sms`` SMs, at least one, and no more than the ``C`` pages of
+    the table. (The CUDA-core kernel then rounds it to whole pages a share:
+    ``_decode_launch``.)"""
+    return max(1, min(C, 2 * sms // (L * KV)))
+
+
+def decode_window(pos: int, page: int, C: int,
+                  window: int) -> Tuple[int, int, int]:
+    """(n_live, lo, hi) of one lane: its live pages are [0, n_live), and
+    the rows valid for the token at ``pos`` are [lo, hi], none when lo >
+    hi (the lane then averages every live row, as the reference does)."""
+    n_live = max(0, min(C, (pos + page) // page))
+    lo = max(0, pos - window + 1) if window > 0 else 0
+    return n_live, lo, min(pos, n_live * page - 1)
+
+
+def decode_shares(pos: int, page: int, C: int, window: int,
+                  nsplit: int) -> List[Tuple[int, int]]:
+    """The tensor-core route's shares of one lane, as page ranges [c0, c1)
+    in split order: the window starts at page first = lo // page of
+    ``decode_window``'s valid rows [lo, hi], or 0 when no row is valid;
+    [first, n_live) splits evenly. The CUDA kernel (``tc::share``) is the
+    same arithmetic, line for line."""
+    n_live, lo, hi = decode_window(pos, page, C, window)
+    first = lo // page if lo <= hi else 0
+    n = n_live - first
+    return [(first + z * n // nsplit, first + (z + 1) * n // nsplit)
+            for z in range(nsplit)]
+
+
+def decode_route(q: torch.Tensor, k_pool: torch.Tensor) -> str:
+    """The kernel a CUDA launch takes: ``"tensor_cores"`` for bf16 q over
+    bf16 or int8 pools at a head dim and group size the route is built for,
+    whose page is a power of two of at least 8 rows (a ring stage holds 16
+    key rows: two pages of 8, or one TMA box of 16 rows of a larger page),
+    else ``"cuda_cores"`` (fp32, or other pages). A function of dtypes and
+    shapes alone; the wrapper checks contiguity and alignment before it
+    asks."""
+    R, hd = q.shape[-2:]
+    page = k_pool.shape[1]
+    if (q.dtype == torch.bfloat16
+            and k_pool.dtype in (torch.bfloat16, torch.int8)
+            and hd in _HEAD_DIMS and R in _GROUP_SIZES
+            and page >= 8 and page & (page - 1) == 0):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+class DecodePlan(NamedTuple):
+    """One tensor-core instance's ring stages, dynamic shared bytes and
+    threads a block, as ``csrc/paged_flash_decode.cu`` builds it."""
+    stages: int
+    smem: int
+    threads: int
+
+
+def decode_tc_plan(hd: int, R: int, quant: bool, KV: int) -> DecodePlan:
+    """The tensor-core route's plan at head dim ``hd``, group size ``R``,
+    an int8 (``quant``) or bf16 pool and ``KV`` heads, read from the
+    library."""
+    out = (ctypes.c_int * 3)()
+    rc = build.library("paged_flash_decode").paged_flash_decode_tc_plan(
+        hd, R, int(quant), KV, out)
+    build.check("paged_flash_decode", "paged_flash_decode", rc)
+    return DecodePlan(*out)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 tickets for the tensor-core route's last-block
+    merge on ``stream``: zero when made, and every launch leaves them zero
+    (each lane's last block resets its own). One set a stream, so launches
+    on two streams never share one."""
+    t = _TICKETS.get((dev.index, stream))
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 256),), dtype=torch.int32, device=dev)
+        _TICKETS[(dev.index, stream)] = t
+    return t
+
+
+def _decode_launch(route: str, q, k_pool, v_pool, block_table, pos, k_scale,
+                   v_scale, *, window: int, softcap_val: float,
+                   nsplit: Optional[int] = None) -> torch.Tensor:
+    """Launch the kernel of ``route`` on checked CUDA operands; counts
+    nothing. The wrapper calls it with ``decode_route``'s answer and the
+    shares of ``decode_split`` at the device's SM count. ``nsplit`` is a
+    measurement hook that the serving path never passes: a measurement may
+    time a route with another number of shares, or the CUDA-core kernel on
+    bf16."""
+    L, KV, R, hd = q.shape
+    n_pages, page = k_pool.shape[:2]
+    C = block_table.shape[1]
+    quant = k_pool.dtype == torch.int8
+    dev = q.device
+    if nsplit is None:
+        nsplit = decode_split(L, KV, C, _sm_count(dev.index))
+    out = torch.empty((L, KV, R, hd), dtype=torch.float32, device=dev)
+    lib = build.library("paged_flash_decode")
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        scales = (k_scale.data_ptr() if quant else None,
+                  v_scale.data_ptr() if quant else None)
+        if route == "tensor_cores":
+            part_ml = part_acc = tickets = None
+            if nsplit > 1:
+                part_ml = torch.empty((L, KV, nsplit, R, 2), dtype=torch.float32,
+                                      device=dev)
+                part_acc = torch.empty((L, KV, nsplit, R, hd),
+                                       dtype=torch.float32, device=dev)
+                tickets = _tickets(dev, stream.value, L * KV)
+            rc = lib.paged_flash_decode_tc(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+                block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                *(None if t is None else t.data_ptr()
+                  for t in (part_ml, part_acc, tickets)),
+                int(quant), n_pages, L, KV, R, hd, page, C, nsplit, int(window),
+                float(softcap_val), 1.0 / math.sqrt(hd), stream)
+        else:
+            pps = -(-C // nsplit)          # whole pages a share
+            nsplit = -(-C // pps)
+            part_m = torch.empty((L, KV, nsplit, R), dtype=torch.float32,
+                                 device=dev)
+            part_l = torch.empty_like(part_m)
+            part_acc = torch.empty((L, KV, nsplit, R, hd), dtype=torch.float32,
+                                   device=dev)
+            rc = lib.paged_flash_decode(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+                int(q.dtype == torch.bfloat16), int(quant),
+                block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), L,
+                KV, R, hd, page, C, nsplit, pps, int(window),
+                float(softcap_val), 1.0 / math.sqrt(hd), stream)
+    build.check("paged_flash_decode", "paged_flash_decode", rc)
+    return out
 
 
 def paged_flash_decode(q, k_pool, v_pool, block_table, pos,
@@ -108,8 +250,10 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos,
     hd) in q's dtype, or int8 with k_scale/v_scale (n_pages, page, KV) fp32
     per-(token, head) scales; block_table: (L, C) int32 lane-logical page
     -> physical page; pos: (L,) int32 positions (new token already written
-    at pos). Returns (L, KV, R, hd) fp32. ``paged_flash_decode.launches``
-    counts kernel launches.
+    at pos). Returns (L, KV, R, hd) fp32. CUDA tensors launch the kernel
+    ``decode_route`` names. ``paged_flash_decode.launches`` counts kernel
+    launches, ``.tc_launches`` and ``.cc_launches`` those of the
+    tensor-core and CUDA-core routes.
     """
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"paged decode shapes: q {tuple(q.shape)}, pools "
@@ -142,32 +286,28 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos,
                          f"and group size in {_GROUP_SIZES}, got {hd}, {R}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged decode operands must be contiguous")
-    C = block_table.shape[1]
-    nsplit, pps = decode_split(L, KV, C)
-    dev = q.device
-    out = torch.empty((L, KV, R, hd), dtype=torch.float32, device=dev)
-    part_m = torch.empty((L, KV, nsplit, R), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((L, KV, nsplit, R, hd), dtype=torch.float32,
-                           device=dev)
-    lib = build.library("paged_flash_decode")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.paged_flash_decode(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr() if quant else None,
-            v_scale.data_ptr() if quant else None,
-            int(q.dtype == torch.bfloat16), int(quant), block_table.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-            part_l.data_ptr(), part_acc.data_ptr(), L, KV, R, hd, page, C,
-            nsplit, pps, int(window), float(softcap_val),
-            1.0 / math.sqrt(hd), ctypes.c_void_p(stream))
-    build.check("paged_flash_decode", "paged_flash_decode", rc)
+    route = decode_route(q, k_pool)
+    # the CUDA-core kernel reads q and pool rows by vector loads of up to 16
+    # bytes (hd / 32 elements a lane, .cu load_row); the tensor-core route
+    # asks it of every operand (TMA boxes of the pools, bulk copies of the
+    # scales)
+    if any(t.data_ptr() % 16 for t in
+           (tensors if route == "tensor_cores" else (q, k_pool, v_pool))):
+        raise ValueError(f"paged decode on the {route} route takes "
+                         "16-byte-aligned operands")
+    out = _decode_launch(route, q, k_pool, v_pool, block_table, pos, k_scale,
+                         v_scale, window=window, softcap_val=softcap_val)
     paged_flash_decode.launches += 1
+    if route == "tensor_cores":
+        paged_flash_decode.tc_launches += 1
+    else:
+        paged_flash_decode.cc_launches += 1
     return out
 
 
 paged_flash_decode.launches = 0
+paged_flash_decode.tc_launches = 0
+paged_flash_decode.cc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -338,9 +478,8 @@ def _prefix_launch(route: str, q, k_tail, v_tail, k_pool, v_pool, page_ids,
                 tiles = attention_tc_tiles()
                 n_live = min(page_ids.shape[0], -(-prefix_len // page))
                 n_tiles = -(-n_live * page // tiles.bk) + -(-S // tiles.bk)
-                nsplit = prefix_split(H, T, KV, n_tiles, tiles.bq, torch.cuda
-                                      .get_device_properties(q.device)
-                                      .multi_processor_count)
+                nsplit = prefix_split(H, T, KV, n_tiles, tiles.bq,
+                                      _sm_count(q.device.index))
             part_o = part_ml = None
             if nsplit > 1:
                 part_o = torch.empty((nsplit, H * T, hd), dtype=torch.float32,
