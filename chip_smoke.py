@@ -2,29 +2,43 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed N] [--out build/chip_smoke.json]
+    python3 chip_smoke.py --step-probe [--out ...]
 
 Run from the repository root on a host with one CUDA card (Hopper: the
-kernels are built for sm_90a). Phases, each fatal on failure:
+kernels are built for sm_90a). Phases, each fatal on failure, each
+opened by the host microseconds of one eager launch (a one-element add,
+the floor under a serving step's ~5,600 launches) and followed by its
+wall seconds, each on a line of its own:
 
 1. build   -- nvcc builds every kernel of the paths from src/repro_torch/csrc
               (seven sources, one nvcc each, all started together) into
               build/; ptxas's registers and spills, and the shared memory
               of its ring, for each instance of the wgmma + TMA skeleton
               (csrc/hopper_gemm.cuh's ring_kernel), of the two packed
-              kernels' tensor-core templates and of the two attention
-              kernels' tensor-core routes (csrc/attention_tc.cuh);
+              kernels' tensor-core templates, of the two attention
+              kernels' tensor-core routes (csrc/attention_tc.cuh) and of
+              the decode kernel's (its R 6 instances at qwen2.5-14b's 8 KV
+              heads, the others at gemma2-2b's 4);
 2. kernels -- each kernel against its plain PyTorch version on the card, at
               the shapes its path gives it at gemma2-2b widths (serving for
               the GEMV: its tensor-core route at M = 8 decode lanes, 16 to
               256 prefill rows and six ragged M, every lane tile it is
               built for, bit-exact on integer-valued x, its CUDA-core route
-              for fp32 and unaligned bf16 x; paged decode's tensor-core
+              for fp32 and unaligned bf16 x; also at qwen2.5-14b's six
+              projections at M = 8, bit-exact, timed beside torch.matmul;
+              paged decode's tensor-core
               route over bf16 and int8 pools, global and windowed, at hd
-              64 to 256, R 1 to 8 and pages of 8 to 32 rows, with exact
+              64 to 256, R 1 to 8 and pages of 8 to 32 rows, and at each
+              other dense id's decode shape (hd 128: R 6 over 8 KV heads,
+              qwen2.5-14b; R 1 over 48, qwen1.5-32b; R 8 over 8,
+              qwen1.5-110b; global, no softcap), with exact
               cases (q = 0, integer V: the mean of the valid rows, within
               1e-6) and two launches bit-identical, its CUDA-core kernel
-              timed on the same inputs; the flash
-              prefill and the paged prefix attention; one training
+              timed on the same inputs at phase 3's and phase 9's shapes;
+              the flash prefill (also at qwen2.5-14b's hd 128, 48 q over
+              8 KV heads, no softcap, S = 64 and 1,024, beside SDPA,
+              the same function there) and the paged prefix attention;
+              one training
               microbatch for the weight backward), with the stated
               tolerance (per element for the two prefill kernels, whose
               query rows are scaled so the softcap binds: the flash
@@ -62,7 +76,15 @@ kernels are built for sm_90a). Phases, each fatal on failure:
 4. check   -- a small fp32 model (gemma2-2b smoke widths, head_dim 64)
               served on the card with the kernels and on the CPU with the
               plain versions: logits within tolerance, greedy tokens
-              identical, also under prefix-cached traffic with and without
+              identical, a session with greedy, seeded and session-keyed
+              sampled lanes identical but for counted near-ties (the
+              logits within 1e-3, and the card's token scoring, as
+              logits / T + Gumbel, within 2 x (1e-3 / T + 2^-20 of 1 +
+              |g| + |z|) of the CPU's winner; each later token of a parted
+              stream held to the CPU's draw at its own context),
+              generate and generate_eager (the contiguous cache, no paged
+              decode) greedy and on the batch-level stream the same, also
+              prefix-cached traffic with and without
               kv-quant; every GEMV, flash prefill, prefix attention and
               paged decode launch on its CUDA-core route (fp32);
 5. train   -- gemma2-2b at its published widths, bf16, remat on, trained
@@ -112,10 +134,42 @@ kernels are built for sm_90a). Phases, each fatal on failure:
               3 training steps of the example (flip rule + Adam) at batch
               100; SMALL-EDSR (8 blocks, width 64, x2) on 4 x 128x128
               through the three leaf forms (8 launches a kernel forward,
-              outputs identical to the plain route). Images/s per route.
+              outputs identical to the plain route). Images/s per route;
+9. qwen    -- qwen2.5-14b at its published widths (48 layers, d_model
+              5120, 40 q heads padded to 48 over 8 KV heads, head_dim 128,
+              q/k/v biases, rope theta 1e6, vocab 152064, bf16): lm_init on
+              a seeded generator, packed with pack_weights(consume=True)
+              (a stacked group slice at a time, each int8 leaf freed as it
+              is packed; the peak memory of init + pack printed and held
+              under 80 GB), served through ServeEngine(packed=True,
+              max_len=1024).session: 8 lanes, 16 requests of phase 3's
+              prompt lengths, 32 tokens each, 8 greedy, 4 at T = 0.8 with
+              their own seeds and 4 at T = 0.8 on the session key, some
+              submitted mid-flight and one cancelled. Launch counters
+              exact (6 x 48 GEMV a decode step and a prefill of <= 256
+              rows, 48 paged decode a step, 48 flash prefill a prefill),
+              every launch on its tensor-core route, every decode launch
+              at R = 6; decode step, tokens/s, TTFT, serving memory and
+              one profiled 8-step segment by kernel group; the threefry
+              bits on the card equal the CPU's and every recorded sampled
+              draw of the segments equals the CPU's from the same logits
+              but for counted near-ties (a differing token must score
+              within a fixed bound of the CPU's winner: the log's ulps
+              and the fp32 sum); decode_route_check holds one
+              lane's paged decode step, every layer teacher-forced, to the
+              plain full forward (new K/V rows and attention output within
+              bf16 roundings) and to the exact attention over its own
+              operands (tight enough that an fp16 or int8 rounding of the
+              kernel's output fails it, asserted).
 
 The last lines are one JSON object of kernel results, the card's name and
 power limit as nvidia-smi reports them, and the result object.
+
+``--step-probe`` runs only phase 9's engine and its timed decode segments,
+read in turn in one process (three times fresh, twice after a
+torch.profiler session, after CPU matmuls, with the garbage collector
+off), each beside the host cost of one launch, and prints the readings as
+JSON: it says what in the earlier phases sets phase 9's decode step.
 """
 from __future__ import annotations
 
@@ -139,6 +193,11 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 GEMV_SHAPES = (("wqkv", 2304, 6144), ("wo", 4096, 2304),
                ("wgu", 2304, 18432), ("wd", 9216, 2304))
+# qwen2.5-14b's six packed projections a block (q/k/v biases keep wq, wk
+# and wv apart): (name, K, N)
+QWEN_GEMV_SHAPES = (("wq", 5120, 6144), ("wk", 5120, 1024), ("wv", 5120, 1024),
+                    ("wgu", 5120, 27648), ("wo", 6144, 5120),
+                    ("wd", 13824, 5120))
 FLUSH_BYTES = 1 << 30            # > the 50 MB L2; zeroing it keeps the card
                                  # busy ~0.3 ms while the host enqueues the
                                  # timed launch, so host time stays outside
@@ -242,10 +301,12 @@ def smi_line() -> str:
 GEMV_M, GEMV_RAGGED_M = (8, 16, 32, 64, 128, 256), (5, 13, 29, 37, 100, 200)
 
 
-def check_gemv(torch, flush, gen):
-    """packed_xnor_gemv at one layer's four projection shapes: the
-    tensor-core route (bf16 x) at each M of GEMV_M and GEMV_RAGGED_M, which
-    between them run every lane tile the kernel is built for, bit-exact on
+def check_gemv(torch, flush, gen, shapes=GEMV_SHAPES, timed=GEMV_M,
+               ragged=GEMV_RAGGED_M):
+    """packed_xnor_gemv at one layer's projection shapes (by default
+    gemma2-2b's four): the tensor-core route (bf16 x) at each M of
+    ``timed`` and ``ragged`` (by default GEMV_M and GEMV_RAGGED_M, which
+    between them run every lane tile the kernel is built for), bit-exact on
     integer-valued x (its fp32 sums are exact in any order, so a
     fragment-layout error cannot hide under the tolerance) and within the
     tolerance on random x; the CUDA-core route on fp32 x and on bf16 x at an
@@ -274,12 +335,12 @@ def check_gemv(torch, flush, gen):
         assert err <= tol, f"gemv {label}: {err} > {tol}"
         return err
 
-    for name, K, N in GEMV_SHAPES:
+    for name, K, N in shapes:
         w = (torch.randint(0, 2, (K, N), generator=gen, device="cuda",
                            dtype=torch.int8) * 2 - 1).to(torch.int8)
         wp = pack_bits(w, axis=0)
         w_bf16 = w.to(torch.bfloat16)
-        for M in (*GEMV_M, *GEMV_RAGGED_M):
+        for M in (*timed, *ragged):
             lanes = gemv_tc_plan(M, wp.shape[0], N, tiles)[0]
             tiles_run.add(lanes)
             xi = torch.randint(-3, 4, (M, K), generator=gen,
@@ -293,7 +354,7 @@ def check_gemv(torch, flush, gen):
             err = check(f"{name:4s} M={M:3d} K={K} N={N}", x, wp, K,
                         "tensor_cores")
             worst = max(worst, err)
-            if M in GEMV_RAGGED_M:
+            if M in ragged:
                 continue
             ms = time_ms(torch, lambda: packed_xnor_gemv(x, wp, k_valid=K), flush)
             plain = time_ms(torch, lambda: packed_xnor_gemv_plain(x, wp, k_valid=K),
@@ -321,16 +382,30 @@ def check_gemv(torch, flush, gen):
                           device="cuda").to(torch.bfloat16)
         worst = max(worst, check(f"{name:4s} M=  8 bf16 x at an unaligned base",
                                  buf[1:].view(8, K), wp, K, "cuda_cores"))
-    assert tiles_run == set(tiles.blocks), ("gemv lane tiles not checked",
-                                            set(tiles.blocks) - tiles_run)
+    if ragged:
+        assert tiles_run == set(tiles.blocks), ("gemv lane tiles not checked",
+                                                set(tiles.blocks) - tiles_run)
     return rows, worst
 
 
-# the decode kernel's other instances, each over both pools at window 100
-# and in the exact case: (label, head dim, group size R, page)
-DECODE_SHAPES = (("hd 64", 64, 4, 16), ("hd 128", 128, 4, 16),
-                 ("R 1", 256, 1, 16), ("R 2", 256, 2, 16), ("R 8", 256, 8, 16),
-                 ("page 8", 256, 4, 8), ("page 32", 256, 4, 32))
+# the decode kernel's other instances, each over both pools and in the
+# exact case: (label, head dim, group size R, page, KV heads, windows,
+# softcap); gemma2-2b's KV heads at window 100 and its softcap, then each
+# other dense id's decode shape as its layers run it (global, no softcap):
+# qwen2.5-14b's 40 q heads padded to 48 over 8 KV heads (R 6),
+# qwen1.5-32b's 48 over 48 (R 1), qwen1.5-110b's 64 over 8 (R 8)
+DECODE_SHAPES = (("hd 64", 64, 4, 16, 4, (100,), 50.0),
+                 ("hd 128", 128, 4, 16, 4, (100,), 50.0),
+                 ("R 1", 256, 1, 16, 4, (100,), 50.0),
+                 ("R 2", 256, 2, 16, 4, (100,), 50.0),
+                 ("R 8", 256, 8, 16, 4, (100,), 50.0),
+                 ("page 8", 256, 4, 8, 4, (100,), 50.0),
+                 ("page 32", 256, 4, 32, 4, (100,), 50.0),
+                 ("qwen2.5-14b R 6", 128, 6, 16, 8, (0,), 0.0),
+                 ("qwen1.5-32b R 1", 128, 1, 16, 48, (0,), 0.0),
+                 ("qwen1.5-110b R 8", 128, 8, 16, 8, (0,), 0.0))
+# the shape timed beside phase 3's: phase 9's (qwen2.5-14b)
+QWEN_DECODE = DECODE_SHAPES[7]
 # lane positions: pos 0, mid-page, page ends, the table's last row (1,023 at
 # 1,024 rows a lane), one lane past its table (its writes go to the garbage
 # page; all rows valid), or, for the exact case, far past it (under a
@@ -395,7 +470,9 @@ def decode_rows(pos, page, C, window):
 def check_paged_decode(torch, flush, gen, cfg):
     """paged_flash_decode against its plain version: at phase 3's shape
     (8 lanes over gemma2-2b's 16 padded q heads on 4 KV heads, head dim 256,
-    16-row pages, 1,024 rows a lane, softcap 50) over bf16 and int8 pools,
+    16-row pages, 1,024 rows a lane, softcap 50) and phase 9's
+    (qwen2.5-14b: 48 padded q heads on 8 KV heads, R 6, head dim 128, no
+    softcap, global) over bf16 and int8 pools,
     global, gemma2's local window and a 100-row window, within 1e-4, on
     both routes (the CUDA-core kernel through the measurement hook on the
     same bf16 inputs, and through the wrapper on fp32 q, the route phases 4
@@ -419,11 +496,11 @@ def check_paged_decode(torch, flush, gen, cfg):
     rows, worst, exact = [], {"tensor_cores": 0.0, "cuda_cores": 0.0}, {}
 
     def check(label, pool, args, window, tol, *, route="tensor_cores",
-              hook=False, nsplit=None):
+              hook=False, nsplit=None, cap=softcap):
         """Two launches on ``route``, through the wrapper (the route asserted
         and counted) or, with ``hook``, through _decode_launch with
         ``nsplit`` shares; held against the plain version and each other."""
-        kw = dict(window=window, softcap_val=softcap)
+        kw = dict(window=window, softcap_val=cap)
         if hook:
             out, again = (_decode_launch(route, *args, nsplit=nsplit, **kw)
                           for _ in range(2))
@@ -460,43 +537,52 @@ def check_paged_decode(torch, flush, gen, cfg):
         torch.cuda.synchronize()
         return t
 
-    # phase 3's shape: random cases on both routes, timed side by side
+    # phase 3's shape: random cases on both routes, timed side by side; then
+    # phase 9's (qwen2.5-14b: 8 KV heads, R 6, hd 128, global, no softcap)
     page = 16
     C = 1024 // page
-    q, bt, pos, pools = decode_inputs(torch, gen, KV, R, hd, page, DECODE_POS)
-    for pool, (k_, v_, ks_, vs_) in pools.items():
-        row_bytes = hd * k_.element_size() + (4 if ks_ is not None else 0)
-        args = (q, k_, v_, bt, pos, ks_, vs_)
-        for label, window in (("global", 0), ("local", cfg.sliding_window),
-                              ("window-100", 100)):
-            # fp32 online softmax vs one softmax, |v| < ~5
-            err = check(label, pool, args, window, 1e-4)
-            cc_err = check(label, pool, args, window, 1e-4, route="cuda_cores",
-                           hook=True)
-            kw = dict(window=window, softcap_val=softcap)
-            ms = time_ms(torch, lambda: paged_flash_decode(*args, **kw), flush)
-            cc = time_ms(torch, lambda: _decode_launch("cuda_cores", *args, **kw),
-                         flush)
-            plain = time_ms(torch, lambda: paged_flash_decode_plain(*args, **kw),
-                            flush)
-            h_us = host_us(lambda: paged_flash_decode(*args, **kw))
-            n_rows = decode_rows(DECODE_POS, page, C, window)
-            b_ms, b_by = bound(q.numel() * 2 + n_rows * KV * row_bytes * 2
-                               + bt.numel() * 4 + pos.numel() * 4
-                               + q.numel() * 4,
-                               4.0 * n_rows * KV * R * hd, "bf16")
-            rows.append({"pool": pool, "layer": label, "window": window,
-                         "L": len(DECODE_POS), "KV": KV, "R": R, "hd": hd,
-                         "page": page, "rows": n_rows, "max_abs_err": err,
-                         "cc_max_abs_err": cc_err, "route": "tensor_cores",
-                         "ms": ms, "cc_ms": cc, "plain_ms": plain,
-                         "host_us": h_us, "library_ms": None,
-                         "bound_ms": b_ms, "bound_by": b_by})
-            print(f"    kernel {ms:.4f} ms  CUDA-core kernel {cc:.4f} ms  plain "
-                  f"{plain:.4f} ms  bound {b_ms:.4f} ms ({b_by}, {n_rows} "
-                  f"rows)  wrapper host {h_us:.1f} us a call; library: none "
-                  "(no single PyTorch call computes softcapped attention over "
-                  "a paged pool)")
+    _, q_hd, q_R, _, q_KV, _, q_cap = QWEN_DECODE
+    timed = [("phase 3", KV, R, hd, softcap,
+              (("global", 0), ("local", cfg.sliding_window),
+               ("window-100", 100))),
+             ("phase 9", q_KV, q_R, q_hd, q_cap, (("global", 0),))]
+    for phase, KV_, R_, hd_, cap, windows in timed:
+        q, bt, pos, pools = decode_inputs(torch, gen, KV_, R_, hd_, page,
+                                            DECODE_POS)
+        for pool, (k_, v_, ks_, vs_) in pools.items():
+            row_bytes = hd_ * k_.element_size() + (4 if ks_ is not None else 0)
+            args = (q, k_, v_, bt, pos, ks_, vs_)
+            for label, window in windows:
+                # fp32 online softmax vs one softmax, |v| < ~5
+                err = check(f"{phase} {label}", pool, args, window, 1e-4,
+                            cap=cap)
+                cc_err = check(f"{phase} {label}", pool, args, window, 1e-4,
+                               route="cuda_cores", hook=True, cap=cap)
+                kw = dict(window=window, softcap_val=cap)
+                ms = time_ms(torch, lambda: paged_flash_decode(*args, **kw), flush)
+                cc = time_ms(torch, lambda: _decode_launch("cuda_cores", *args, **kw),
+                             flush)
+                plain = time_ms(torch, lambda: paged_flash_decode_plain(*args, **kw),
+                                flush)
+                h_us = host_us(lambda: paged_flash_decode(*args, **kw))
+                n_rows = decode_rows(DECODE_POS, page, C, window)
+                b_ms, b_by = bound(q.numel() * 2 + n_rows * KV_ * row_bytes * 2
+                                   + bt.numel() * 4 + pos.numel() * 4
+                                   + q.numel() * 4,
+                                   4.0 * n_rows * KV_ * R_ * hd_, "bf16")
+                rows.append({"phase": phase, "pool": pool, "layer": label,
+                             "window": window, "softcap": cap,
+                             "L": len(DECODE_POS), "KV": KV_, "R": R_, "hd": hd_,
+                             "page": page, "rows": n_rows, "max_abs_err": err,
+                             "cc_max_abs_err": cc_err, "route": "tensor_cores",
+                             "ms": ms, "cc_ms": cc, "plain_ms": plain,
+                             "host_us": h_us, "library_ms": None,
+                             "bound_ms": b_ms, "bound_by": b_by})
+                print(f"    kernel {ms:.4f} ms  CUDA-core kernel {cc:.4f} ms  plain "
+                      f"{plain:.4f} ms  bound {b_ms:.4f} ms ({b_by}, {n_rows} "
+                      f"rows)  wrapper host {h_us:.1f} us a call; library: none "
+                      "(no single PyTorch call computes attention over a paged "
+                      "pool)")
     # the CUDA-core route as phases 4 and 6 reach it: fp32 q over fp32 and
     # int8 pools through the wrapper, random (1e-4) and exact (1e-6)
     for exact_case in (False, True):
@@ -541,21 +627,23 @@ def check_paged_decode(torch, flush, gen, cfg):
                                 hook=True, nsplit=nsplit)
                     if exact_case:
                         exact[f"phase 3 nsplit {nsplit} {pool} window {window}"] = err
-    cases = [("phase 3", hd, R, 16, True, (0, 100))] + [
-        (label, hd_, R_, page_, exact_case, (100,))
-        for label, hd_, R_, page_ in DECODE_SHAPES for exact_case in (False, True)]
-    for label, hd_, R_, page_, exact_case, windows in cases:
+    cases = [("phase 3", hd, R, 16, KV, True, (0, 100), softcap)] + [
+        (label, hd_, R_, page_, KV_, exact_case, windows, cap)
+        for label, hd_, R_, page_, KV_, windows, cap in DECODE_SHAPES
+        for exact_case in (False, True)]
+    for label, hd_, R_, page_, KV_, exact_case, windows, cap in cases:
         q_, bt_, pos_, pools_ = decode_inputs(
-            torch, gen, KV, R_, hd_, page_,
+            torch, gen, KV_, R_, hd_, page_,
             DECODE_POS_FAR if exact_case else DECODE_POS, exact=exact_case)
         for pool, (k_, v_, ks_, vs_) in pools_.items():
             args = (q_, k_, v_, bt_, pos_, ks_, vs_)
             for window in windows:
                 if exact_case:
-                    err = check(f"{label} exact", pool, args, window, 1e-6)
+                    err = check(f"{label} exact", pool, args, window, 1e-6,
+                                cap=cap)
                     exact[f"{label} {pool} window {window}"] = err
                 else:
-                    check(label, pool, args, window, 1e-4)
+                    check(label, pool, args, window, 1e-4, cap=cap)
     return rows, worst, exact
 
 
@@ -580,14 +668,22 @@ FLASH_CASES = (("global", 16, 0, "bf16", 256), ("global", 64, 0, "bf16", 256),
                ("window-256", 1024, 256, "bf16", 256),
                ("global", 256, 0, "bf16", 64), ("global", 256, 0, "bf16", 128),
                ("global", 256, 0, "fp32", 256))
+# qwen2.5-14b prefill of one layer (48 padded q heads over 8 KV heads, n_rep
+# 6, head_dim 128, no softcap, no window): phase 9's largest bucket and a
+# small one
+QWEN_FLASH_CASES = (("global", 64, 0, "bf16", 128),
+                    ("global", 1024, 0, "bf16", 128))
 
 
-def check_flash(torch, flush, gen, cfg):
-    """flash_attention_fwd at FLASH_CASES against its plain version, per
-    element; the route flash_route names asserted and counted; kernel,
-    plain-version and SDPA times beside the bound, and on bf16 the
+def check_flash(torch, flush, gen, cfg, cases=FLASH_CASES):
+    """flash_attention_fwd at ``cases`` (by default FLASH_CASES, at
+    gemma2-2b's heads) against its plain version, per element, at ``cfg``'s
+    heads and softcap; the route flash_route names asserted and counted;
+    kernel, plain-version and SDPA times beside the bound, and on bf16 the
     CUDA-core kernel's time on the same inputs (cc_ms: the design the
-    tensor-core route replaced)."""
+    tensor-core route replaced). Without softcap and window SDPA (causal,
+    on the repeated KV heads) computes the same function: its time is then
+    the library time."""
     from repro_torch.kernels import (flash_attention_fwd, flash_attention_plain,
                                      flash_route)
     from repro_torch.kernels.flash_attention import _launch
@@ -595,10 +691,11 @@ def check_flash(torch, flush, gen, cfg):
     H, KV = cfg.heads_padded(), cfg.kv_heads_padded()
     n_rep = H // KV
     rows, worst = [], 0.0
-    for label, S, window, dt, hd in FLASH_CASES:
+    for label, S, window, dt, hd in cases:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         # q x 8: scores of std ~8 reach |s| ~ 40, where the softcap of 50
-        # moves them by up to ~10 (a kernel without the tanh fails)
+        # moves them by up to ~10 (a kernel without the tanh fails); without
+        # a softcap, peaked rows
         q = (8 * torch.randn((H, S, hd), generator=gen, device="cuda")).to(dtype)
         k = torch.randn((KV, S, hd), generator=gen, device="cuda").to(dtype)
         v = torch.randn((KV, S, hd), generator=gen, device="cuda").to(dtype)
@@ -643,19 +740,23 @@ def check_flash(torch, flush, gen, cfg):
         pairs = H * _live_pairs(S, window)
         b_ms, b_by = bound((q.numel() * 2 + k.numel() * 2) * q.element_size(),
                            4.0 * hd * pairs, "bf16")
-        rows.append({"case": label, "S": S, "window": window, "dtype": dt,
+        same_fn = cfg.attn_logit_softcap == 0 and window == 0
+        rows.append({"model": cfg.name, "case": label, "S": S,
+                     "window": window, "dtype": dt,
                      "BH": H, "KV": KV, "hd": hd, "live_pairs": pairs,
                      "route": route, "max_abs_err": err,
                      "max_err_over_tol": ratio, "ms": ms, "cc_ms": cc,
-                     "plain_ms": plain, "library_ms": None,
+                     "plain_ms": plain,
+                     "library_ms": sdpa if same_fn else None,
                      "sdpa_causal_no_softcap_ms": sdpa, "bound_ms": b_ms,
                      "bound_by": b_by})
         print(f"    kernel {ms:.4f} ms"
               + (f"  CUDA-core kernel {cc:.4f} ms" if cc is not None else "")
               + f"  plain {plain:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
-              "library: none (no single PyTorch call computes softcapped "
-              "attention); sdpa(is_causal, no softcap or window: not the same "
-              f"function) {sdpa:.4f} ms")
+              + (f"library: sdpa(is_causal) {sdpa:.4f} ms" if same_fn else
+                 "library: none (no single PyTorch call computes softcapped "
+                 "or windowed attention); sdpa(is_causal, no softcap or "
+                 f"window: not the same function) {sdpa:.4f} ms"))
     return rows, worst
 
 
@@ -1128,15 +1229,20 @@ def _profiled(torch, fn, steps=1):
             "device_ms_by_group": groups}
 
 
-def profile_segment(torch, engine, prompts, n_tok):
+def profile_segment(torch, engine, prompts, n_tok, params_for=None, key=None):
     """Device time by kernel group over an admission round of 8 prompts
     (their prefills) and then one decode segment at 8 busy lanes, from
-    torch.profiler (CUPTI), against each one's wall time."""
+    torch.profiler (CUPTI), against each one's wall time. ``params_for(i)``
+    gives request i's SamplingParams (greedy by default), ``key`` the
+    session key."""
     from repro_torch.serve import SamplingParams
 
-    sess = engine.session(lanes=8, page_size=16, segment=8)
-    for p in prompts:
-        sess.submit(p, SamplingParams(max_tokens=n_tok))
+    if params_for is None:
+        def params_for(i):
+            return SamplingParams(max_tokens=n_tok)
+    sess = engine.session(lanes=8, page_size=16, segment=8, key=key)
+    for i, p in enumerate(prompts):
+        sess.submit(p, params_for(i))
     admission = _profiled(torch, sess.step)            # admission round
     out = _profiled(torch, sess.step, sess.segment)    # one decode segment
     sess.close()
@@ -1391,6 +1497,77 @@ def expected_kinds(n, repeats, quant):
 # ---------------------------------------------------------------------------
 # 4. small model: card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
+SMOKE_LOGIT_ATOL = 1e-3     # fp32 smoke logits card vs CPU: sums
+                            # reassociated across 4 layers
+
+
+def draw_scores(torch, engines, context, temp, noise_key, step, row=0,
+                rows=1):
+    """(the CPU's scores, the bound on a score's noise) of the draw of
+    ``context``'s next token on two engines (card, CPU): the last-position
+    logits / T plus the Gumbel noise of row ``row`` of a (rows, V) draw
+    from ``noise_key`` folded with ``step``. The card's logits at the
+    context are first held to the CPU's within SMOKE_LOGIT_ATOL; the bound
+    is fixed by that tolerance, not by the measured difference:
+    SMOKE_LOGIT_ATOL / T + 2^-20 of 1 + |g| + |z| (the two libraries'
+    log in the Gumbel, the fp32 sum)."""
+    import numpy as np
+    from repro_torch.models import lm_prefill
+    from repro_torch.serve.sampling import fold_in, gumbel
+
+    cfg = engines[0].cfg
+    tok = torch.from_numpy(np.asarray(context, np.int32)[None])
+    lg = [lm_prefill(cfg, e.params, {"tokens": tok.to(e.device)})[0]
+          [0, -1, :cfg.vocab_size].cpu().float() for e in engines]
+    err = (lg[0] - lg[1]).abs().max().item()
+    assert err <= SMOKE_LOGIT_ATOL, f"logits card vs CPU differ by {err}"
+    g = gumbel(fold_in(noise_key, step), (rows, cfg.vocab_size))[row]
+    z = lg[1] / float(temp) + g
+    eps = SMOKE_LOGIT_ATOL / float(temp) + 2.0 ** -20 * (
+        1.0 + g.abs().max().item() + z.abs().max().item())
+    return z, eps
+
+
+def streams_agree(torch, engines, outs, contexts, draws):
+    """Card vs CPU token streams: identical, or differing only from a
+    near-tie on. ``outs``: two lists of streams; ``contexts[i]``: stream
+    i's prompt; ``draws(i, t)``: (temperature, noise key, step, row, rows)
+    of stream i's token t (temperature <= 0: greedy, which must be
+    identical). Where a sampled stream parts, the card's token must score
+    within twice ``draw_scores``' bound of the CPU's winner at that
+    context; from there on the card's stream follows its own context, and
+    each later token must be the CPU's draw at that context or such a
+    near-tie. Returns (identical streams, near-ties); fails at a
+    difference that is not a near-tie."""
+    import numpy as np
+
+    same = ties = 0
+    for i, (a, b) in enumerate(zip(*outs)):
+        a, b = list(map(int, a)), list(map(int, b))
+        if a == b:
+            same += 1
+            continue
+        assert len(a) == len(b), f"stream {i}: {len(a)} vs {len(b)} tokens"
+        t0 = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        for t in range(t0, len(a)):
+            temp, key, step, row, rows = draws(i, t)
+            assert temp > 0, f"greedy stream {i} differs card vs CPU at {t}"
+            ctx = np.concatenate([np.asarray(contexts[i], np.int32),
+                                  np.asarray(a[:t], np.int32)])
+            z, eps = draw_scores(torch, engines, ctx, temp, key, step, row,
+                                 rows)
+            win = int(torch.argmax(z))
+            if t > t0 and a[t] == win:
+                continue
+            off = (z[win] - z[a[t]]).item()
+            print(f"    stream {i} token {t}: card {a[t]}, CPU winner {win}, "
+                  f"score {off:.3g} under it, near-tie bound {2 * eps:.3g}")
+            assert off <= 2 * eps, \
+                f"stream {i} differs at token {t}: {off} > 2 x {eps}"
+            ties += 1
+    return same, ties
+
+
 def agree_with_cpu(torch, seed: int):
     import numpy as np
     from repro_torch.configs import get_smoke
@@ -1409,7 +1586,7 @@ def agree_with_cpu(torch, seed: int):
           for e in engines]
     err = (lg[0] - lg[1]).abs().max().item()
     print(f"  smoke fp32 prefill logits card vs CPU: max_abs_err={err:.3g}")
-    assert err <= 1e-3, err      # fp32, sums reassociated across 4 layers
+    assert err <= SMOKE_LOGIT_ATOL, err
 
     outs = []
     zero_counts()
@@ -1426,11 +1603,73 @@ def agree_with_cpu(torch, seed: int):
     same = sum(a == b for a, b in zip(*outs))
     print(f"  smoke greedy streams identical card vs CPU: {same}/{len(prompts)}")
     assert outs[0] == outs[1], outs
+
+    # the same traffic with sampled lanes: every third request greedy,
+    # every third at T = 0.8 with its own seed, the rest at T = 0.8 on the
+    # session's key folded with the request id
+    from repro_torch.serve import PRNGKey
+    from repro_torch.serve.sampling import fold_in
+    skey = PRNGKey(seed + 3)
+
+    def mixed(i):
+        return SamplingParams(max_tokens=12, temperature=0.0 if i % 3 == 0
+                              else 0.8, seed=seed + 100 + i if i % 3 == 1
+                              else None)
+
+    outs = []
+    for e in engines:
+        with e.session(lanes=4, page_size=16, segment=4, key=skey) as s:
+            hs = [s.submit(p, mixed(i)) for i, p in enumerate(prompts[:4])]
+            s.step()
+            s.step()
+            hs += [s.submit(p, mixed(i + 4))
+                   for i, p in enumerate(prompts[4:])]
+            s.step()
+            hs[1].cancel()
+            s.run_until_idle()
+            outs.append([h.tokens_so_far() for h in hs])
+
+    def lane_draw(i, t):
+        sp = mixed(i)
+        key = PRNGKey(sp.seed) if sp.seed is not None \
+            else fold_in(skey, i).numpy().astype(np.uint32)
+        return sp.temperature, key, t, 0, 1
+
+    s_same, s_ties = streams_agree(torch, engines, outs, prompts, lane_draw)
+    print(f"  smoke sampled session (greedy, seeded and session-keyed lanes) "
+          f"card vs CPU: {s_same}/{len(prompts)} streams identical, "
+          f"{s_ties} near-ties")
     routes = route_counts()
-    print(f"  card session's launches by route {routes} (fp32)")
+    print(f"  card sessions' launches by route {routes} (fp32)")
     for name in ("packed_xnor_gemv", "flash_attention_fwd", "paged_flash_decode"):
         assert routes[name]["tensor_cores"] == 0 \
             and routes[name]["cuda_cores"] > 0, (name, routes[name])
+
+    # generate and generate_eager (the contiguous cache, no paged decode),
+    # greedy and on the batch-level stream
+    gprompts = np.stack([rng.integers(0, cfg.vocab_size, (24,))
+                         for _ in range(3)]).astype(np.int32)
+    gkey = PRNGKey(seed + 5)
+    gen_agree = {}
+    zero_counts()
+    for name in ("generate", "generate_eager"):
+        for label, temp, key in (("greedy", 0.0, None), ("sampled", 0.8, gkey)):
+            outs = [getattr(e, name)(gprompts, 10, temperature=temp, key=key)
+                    .cpu().numpy() for e in engines]
+            g_same, g_ties = streams_agree(
+                torch, engines, outs, gprompts,
+                lambda i, t: (temp, gkey, t, i, len(gprompts)))
+            gen_agree[f"{name} {label}"] = {"identical": g_same,
+                                            "near_ties": g_ties}
+            print(f"  smoke {name} {label} card vs CPU: {g_same}/"
+                  f"{len(gprompts)} rows identical, {g_ties} near-ties")
+    g_routes = route_counts()
+    print(f"  card generate's launches by route {g_routes} (fp32)")
+    assert g_routes["paged_flash_decode"] == {"tensor_cores": 0,
+                                              "cuda_cores": 0}, \
+        "generate reached the paged decode"
+    assert g_routes["packed_xnor_gemv"]["tensor_cores"] == 0 \
+        and g_routes["packed_xnor_gemv"]["cuda_cores"] > 0, g_routes
 
     # prefix-cached traffic, scaled down: a 32-token system prompt, 6 tails
     system = rng.integers(0, cfg.vocab_size, (32,)).astype(np.int32)
@@ -1464,6 +1703,9 @@ def agree_with_cpu(torch, seed: int):
                 == res[0]["launches"][name] > 0, (name, r)
         pfx["kv_quant" if quant else "fp32_pool"] = n_same
     return {"smoke_logits_max_abs_err": err, "smoke_streams_identical": same,
+            "smoke_sampled_streams_identical": s_same,
+            "smoke_sampled_near_ties": s_ties,
+            "smoke_generate": gen_agree, "smoke_generate_routes": g_routes,
             "smoke_prefix_streams_identical": pfx,
             "smoke_gemv_routes": routes["packed_xnor_gemv"],
             "smoke_routes": routes}
@@ -2193,8 +2435,581 @@ def vision(torch, seed: int):
               f"({r['images_per_s']:.1f} images/s), launches {r['launches']}")
     return out
 
+# ---------------------------------------------------------------------------
+# 9. qwen2.5-14b at published widths: greedy and sampled traffic
+# ---------------------------------------------------------------------------
+QWEN_LENS = (16, 40, 100, 200, 250, 600, 300, 20, 64, 130, 500, 33, 256, 90,
+             480, 17)                    # phase 3's prompt lengths
+QWEN_TOKENS, QWEN_TEMP, QWEN_FIRST_WAVE, QWEN_CANCEL = 32, 0.8, 10, 3
+QWEN_ROUTE_PROMPT = 400                  # decode_route_check: > 256 rows, so
+                                         # the plain forward's projections
+                                         # are dense matmuls, no kernel
 
-def ring_kernels(build, decode_kv: int):
+
+def qwen_sampling(i: int, seed: int, n_tok: int = QWEN_TOKENS):
+    """Request i's SamplingParams in phase 9: i % 4 of 0 or 1 greedy, 2 at
+    T = 0.8 with its own seed, 3 at T = 0.8 on the session key folded with
+    its request id (8 greedy, 4 seeded, 4 session-keyed of 16)."""
+    from repro_torch.serve import SamplingParams
+
+    if i % 4 < 2:
+        return SamplingParams(max_tokens=n_tok)
+    return SamplingParams(max_tokens=n_tok, temperature=QWEN_TEMP,
+                          seed=seed + 1000 + i if i % 4 == 2 else None)
+
+
+def qwen_timed_segments(torch, engine, prompts, skey, seed: int):
+    """Phase 9's first 8 requests admitted untimed, then each decode segment
+    timed between synchronizes until the lanes drain -> (ms a step for each
+    segment, decode tokens, decode seconds)."""
+    seg_ms, decode_tokens, decode_s = [], 0, 0.0
+    sess = engine.session(lanes=8, page_size=16, segment=8, key=skey)
+    for i in range(8):
+        sess.submit(prompts[i], qwen_sampling(i, seed))
+    while sess.step():
+        if not sess.sched.pending and all(
+                len(r.emitted) for r in sess.sched.active.values()):
+            break
+    while not sess.idle:
+        before = sum(len(r.emitted) for r in sess.sched.active.values())
+        lanes_live = len(sess.sched.active)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sess.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        seg_ms.append(dt * 1e3 / sess.segment)
+        decode_tokens += min(lanes_live * sess.segment,
+                             lanes_live * QWEN_TOKENS - before)
+        decode_s += dt
+    sess.close()
+    return seg_ms, decode_tokens, decode_s
+
+
+def launch_us(torch, n: int = 20000) -> float:
+    """Host microseconds a launch of a one-element in-place add, over a
+    loop of ``n`` ended by a synchronize: the floor under every eager op of
+    a serving step."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(200):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e6
+
+
+def step_probe(torch, seed: int):
+    """``--step-probe``: phase 9's decode step (``qwen_timed_segments``, the
+    same engine and traffic) and the host cost of one launch, read in turn
+    in one process: fresh, fresh again, after a torch.profiler session (as
+    phases 3, 5, 7 and 9 hold one), after CPU matmuls on the default
+    threads (as phases 4 and 6 run CPU engines), and with the garbage
+    collector off. Which reading moves says what sets the step."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import lm_init
+    from repro_torch.serve import PRNGKey, ServeEngine, pack_weights
+
+    build.build_all()
+    cfg = get_config("qwen2.5-14b")
+    params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    engine = ServeEngine(cfg, pack_weights(params, consume=True),
+                         max_len=1024, packed=True)
+    del params
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in QWEN_LENS]
+    skey = PRNGKey(seed + 9)
+    readings = []
+
+    def read(label):
+        seg_ms, toks, secs = qwen_timed_segments(torch, engine, prompts,
+                                                 skey, seed)
+        r = {"after": label, "launch_us": launch_us(torch),
+             "step_ms_median": statistics.median(seg_ms),
+             "tokens_per_s": toks / secs, "step_ms": seg_ms}
+        print(f"  {label}: one launch {r['launch_us']:.2f} us of host, "
+              f"decode step median {r['step_ms_median']:.2f} ms, "
+              f"{r['tokens_per_s']:.1f} tokens/s")
+        readings.append(r)
+
+    for i in range(3):
+        read(f"fresh, reading {i + 1}")
+    _profiled(torch, lambda: torch.ones(8, device="cuda").sum())
+    for i in range(2):
+        read(f"a torch.profiler session, reading {i + 1}")
+    a = torch.randn(1024, 1024)
+    t = time.perf_counter()
+    while time.perf_counter() - t < 2.0:
+        a = torch.tanh(a @ a)
+    read(f"2 s of CPU matmuls on {torch.get_num_threads()} threads")
+    gc.disable()
+    try:
+        read("the garbage collector off")
+    finally:
+        gc.enable()
+    return readings
+
+
+@contextlib.contextmanager
+def decode_group_sizes():
+    """Count the decode kernel's launches by (route, group size R), from
+    the launches the wrapper makes (paged_attention._decode_launch)."""
+    import collections
+
+    import repro_torch.kernels.paged_attention as PA
+
+    launch, sizes = PA._decode_launch, collections.Counter()
+
+    def counted(route, q, *args, **kw):
+        sizes[(route, q.shape[2])] += 1
+        return launch(route, q, *args, **kw)
+
+    PA._decode_launch = counted
+    try:
+        yield sizes
+    finally:
+        PA._decode_launch = launch
+
+
+@contextlib.contextmanager
+def recorded_draws(limit: int = 16):
+    """Keep the first ``limit`` sampled draws of the sessions' decode
+    segments on the card: the logits, temperatures, keys and steps each
+    was given and the tokens it returned."""
+    import repro_torch.serve.session as SS
+
+    draw, seen = SS.sample_tokens, []
+
+    def keep(cfg, logits, temperature=0.0, key=None, step=0):
+        out = draw(cfg, logits, temperature, key, step)
+        if key is not None and hasattr(temperature, "clone") \
+                and len(seen) < limit:
+            seen.append(tuple(t.clone() for t in
+                              (logits, temperature, key, step, out)))
+        return out
+
+    SS.sample_tokens = keep
+    try:
+        yield seen
+    finally:
+        SS.sample_tokens = draw
+
+
+def sampling_card_vs_cpu(torch, cfg, keys, draws):
+    """The port's random stream on the card against the CPU: the bits of a
+    (rows, vocab) draw for every key of ``keys`` folded with steps 0, 1, 7,
+    8 and 31, bit for bit; and every recorded decode-segment draw of
+    ``draws`` redone on the CPU from the same logits copied to the host:
+    tokens identical except near-ties, which are counted, as are the rows
+    whose top-2 gap is that close whether or not their tokens differ. Both
+    sides draw from the same logits, so a score (logits / T + Gumbel)
+    differs only by the ulps of the two libraries' log and the fp32 sum:
+    each of the top-2 scores is held within eps = 2^-20 of 1 + |g| + |z|
+    of the CPU's, and a differing token must score within 2 eps of the
+    CPU's winner, a fixed bound."""
+    import numpy as np
+    from repro_torch.serve.sampling import (fold_in, gumbel, random_bits,
+                                            sample_tokens)
+
+    V = cfg.vocab_size
+    steps = np.asarray([0, 1, 7, 8, 31], np.int64)
+    ks = np.repeat(np.asarray(keys, np.uint32), len(steps), axis=0)
+    st = np.tile(steps, len(keys))
+    bits = [random_bits(fold_in(ks, st, dev), (len(ks), V), dev).cpu()
+            for dev in ("cuda", "cpu")]
+    same_bits = bool(torch.equal(bits[0], bits[1]))
+    print(f"  threefry bits card vs CPU: {len(ks)} (key, step) draws of "
+          f"{V} words, bit-identical {same_bits}")
+    assert same_bits, "the card's random bits differ from the CPU's"
+
+    rows = mismatched = near = 0
+    for logits, temps, kk, ss, out in draws:
+        args = [t.cpu() for t in (logits, temps, kk, ss)]
+        cpu = sample_tokens(cfg, *args[:1], *args[1:])
+        hot = args[1] > 0
+        rows += int(hot.sum())
+        z, g = [], None
+        for dev, lg in (("cuda", logits), ("cpu", args[0])):
+            sc = lg[..., :V].float() / torch.clamp(
+                temps.to(dev).float(), min=1e-6)[:, None]
+            g = gumbel(fold_in(kk.to(dev), ss.to(dev), dev),
+                       tuple(sc.shape), dev).cpu()
+            z.append(sc.cpu() + g)
+        eps = 2.0 ** -20 * (1.0 + g.abs().amax(-1) + z[1].abs().amax(-1))
+        top = torch.topk(z[1], 2, dim=-1).indices
+        pick = lambda t: torch.gather(t, 1, top)
+        off = (pick(z[0]) - pick(z[1])).abs().amax(-1)
+        assert not bool((hot & (off > eps)).any()), \
+            ("card and CPU scores differ beyond the log's ulps",
+             off[hot].max(), eps[hot].min())
+        gap = pick(z[1])[:, 0] - pick(z[1])[:, 1]
+        tie = hot & (gap <= 2 * eps)
+        card = out.cpu()[:, :1].long()
+        under = z[1].gather(1, top[:, :1]) - z[1].gather(1, card)
+        differ = card[:, 0] != cpu[:, 0]
+        near += int(tie.sum())
+        mismatched += int(differ.sum())
+        assert not bool((differ & ~(hot & (under[:, 0] <= 2 * eps))).any()), \
+            ("card and CPU sampling differ beyond a near-tie",
+             under[differ, 0], eps[differ])
+    print(f"  sample_tokens card vs CPU over {len(draws)} recorded segment "
+          f"draws ({rows} sampled rows): {mismatched} tokens differ, "
+          f"{near} near-ties (all differences near-ties)")
+
+    # the cost of one step's draw at 8 lanes: sampled (per-lane streams)
+    # and greedy, device time by CUDA events and host time a call
+    logits, temps, kk, ss, _ = draws[0]
+    cost = {}
+    for label, args in (("sampled", (temps, kk, ss)), ("greedy", ())):
+        def draw():
+            return sample_tokens(cfg, logits, *args)
+        flush = torch.empty(1 << 20, dtype=torch.uint8, device="cuda")
+        cost[f"{label}_ms"] = time_ms(torch, draw, flush)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(20):
+            draw()
+        cost[f"{label}_host_us"] = (time.perf_counter() - t) / 20 * 1e6
+        torch.cuda.synchronize()
+    print(f"  one step's draw at {logits.shape[0]} lanes over {V} tokens: "
+          f"sampled {cost['sampled_ms']:.3f} ms on the card, "
+          f"{cost['sampled_host_us']:.0f} us of host a call; greedy "
+          f"{cost['greedy_ms']:.3f} ms, {cost['greedy_host_us']:.0f} us")
+    return {"bits_identical": same_bits, "draws": len(draws),
+            "sampled_rows": rows, "tokens_differing": mismatched,
+            "near_ties": near, "draw_cost": cost}
+
+
+def decode_route_check(torch, eng, prompt, token: int, page: int = 16):
+    """One decode step of one lane through the paged path (the GEMV and
+    the decode kernel) against the plain full forward (``lm_forward``:
+    dense matmuls for its > 256 rows, the chunked plain attention) over the
+    prompt and ``token``, on the card, every layer teacher-forced: the pool
+    holds the forward's own K/V rows of the prompt, and each block of the
+    decode step takes the forward's input to that block at the decode
+    position. So each layer's difference is that layer's own. At each of
+    the layers:
+
+    * the new K/V rows against the forward's row at the position: the
+      projections' summation order (the GEMV's against cuBLAS's) may move
+      a bf16 rounding of q, k or v, carried through the scale, the bias,
+      RoPE (which mixes d with d + hd/2) and the bf16 rounding: 2^-6 of the
+      larger magnitude (of both RoPE partners for k), as tail_route_check;
+    * the attention output against the forward's: the forward rounds p to
+      bf16 before its value product and its output to bf16, and q, k carry
+      the roundings above: 2^-7 of sum p|v| / l and of the larger output;
+    * the attention output against the exact attention (fp64) over the
+      decode's own operands (its q, the pool rows it read, its new row):
+      2^-16 of sum p|v| / l plus 2^-24 of the value, about ten times the
+      fp32 sums' error measured in phase 2; the check asserts that the
+      kernel's output rounded to fp16, or to int8 at a scale of its
+      largest value, would fail it.
+
+    Returns the readings by layer; fails past a tolerance at any layer."""
+    import numpy as np
+    import repro_torch.models.attention as A
+    import repro_torch.models.lm as LM
+    from repro_torch.kernels import packed_xnor_gemv, paged_flash_decode
+    from repro_torch.models import lm_forward
+    from repro_torch.serve import commit_prefill, paged_pool_init
+
+    cfg = eng.cfg
+    S = len(prompt)
+    hp, kvp, hd = cfg.heads_padded(), cfg.kv_heads_padded(), cfg.head_dim_
+    R = hp // kvp
+    n_layers = cfg.n_groups
+    assert len(LM.block_roles(cfg)) == 1 and S + 1 > 256
+    qkv, attn, x_in = A._qkv, A.flash_attention, LM._apply_block
+    seen = {"x": [], "qkv": [], "attention": []}
+
+    def keep_qkv(*args, **kw):
+        out = qkv(*args, **kw)
+        seen["qkv"].append(out)
+        return out
+
+    def keep_attn(*args, **kw):
+        out = attn(*args, **kw)
+        seen["attention"].append(out)
+        return out
+
+    def keep_x(cfg_, bp, role, x, positions):
+        seen["x"].append(x)
+        return x_in(cfg_, bp, role, x, positions)
+
+    # the plain full forward over prompt + token
+    tokens = torch.from_numpy(np.append(prompt, token).astype(np.int32)[None])
+    A._qkv, A.flash_attention, LM._apply_block = keep_qkv, keep_attn, keep_x
+    try:
+        with torch.no_grad():
+            lm_forward(cfg.scaled(remat=False), eng.params,
+                       {"tokens": tokens.to(eng.device)})
+    finally:
+        A._qkv, A.flash_attention, LM._apply_block = qkv, attn, x_in
+    ref = {k: list(v) for k, v in seen.items()}
+    assert all(len(v) == n_layers for v in ref.values()), \
+        {k: len(v) for k, v in ref.items()}
+
+    # the pool: the forward's K/V rows 0..S-1, in pages 1..C of one lane
+    C = -(-(S + 1) // page)
+    pool = paged_pool_init(cfg, 1 + C, page, eng.device)
+    ids = torch.arange(1, 1 + C, dtype=torch.int32)
+    rows = {n: torch.stack([r[i][:, :S] for r in ref["qkv"]])
+            for i, n in ((1, "k"), (2, "v"))}
+    commit_prefill(cfg, pool, {"b0": rows}, ids, page, length=S)
+    del rows
+
+    # one paged decode step of that lane at position S, teacher-forced
+    dec = {"x": 0, "qkv": [], "out": []}
+    block_dec, decode = LM._apply_block_decode, A.paged_flash_decode
+
+    def forced(cfg_, bp, role, bcache, x, pos, block_table):
+        x = ref["x"][dec["x"]][:, S:S + 1].clone()
+        dec["x"] += 1
+        return block_dec(cfg_, bp, role, bcache, x, pos, block_table)
+
+    def keep_decode(*args, **kw):
+        out = decode(*args, **kw)
+        dec["out"].append(out)
+        return out
+
+    def keep_qkv_dec(*args, **kw):
+        out = qkv(*args, **kw)
+        dec["qkv"].append(out)
+        return out
+
+    cache = {"blocks": pool, "block_table": ids[None].to(eng.device),
+             "pos": torch.tensor([S], dtype=torch.int32, device=eng.device)}
+    zero_counts()
+    LM._apply_block_decode, A.paged_flash_decode = forced, keep_decode
+    A._qkv = keep_qkv_dec
+    try:
+        with torch.no_grad():
+            eng.decode_step(cache, torch.tensor([[token]], dtype=torch.int32,
+                                                device=eng.device))
+    finally:
+        LM._apply_block_decode, A.paged_flash_decode = block_dec, decode
+        A._qkv = qkv
+    torch.cuda.synchronize()
+    assert dec["x"] == len(dec["out"]) == n_layers
+    assert paged_flash_decode.tc_launches == n_layers \
+        and packed_xnor_gemv.tc_launches == 6 * n_layers, route_counts()
+
+    def compare(a, b, tol):
+        diff = (a - b).abs()
+        return {"max_abs_err": diff.max().item(),
+                "max_err_over_tol": (diff / tol).max().item(),
+                "share_not_equal": (diff > 0).float().mean().item()}
+
+    def fails(a, b, tol):
+        return bool(((a - b).abs() > tol).any())
+
+    out = {"k": [], "v": [], "attention": [], "attention_exact": []}
+    col, off = S // page, S % page
+    teeth = {"fp16": 0, "int8": 0}
+    for n in range(n_layers):
+        for i, name in ((1, "k"), (2, "v")):
+            a = pool["b0"][name][n, col + 1, off].float()   # page ids[col]
+            b = ref["qkv"][n][i][0, S].float()
+            mag = torch.maximum(a.abs(), b.abs())
+            if name == "k":
+                mag = mag + mag.roll(hd // 2, dims=-1)
+            out[name].append(compare(a, b, 2.0 ** -6 * mag + 1e-6))
+        # the exact attention over the decode's own operands, in fp64
+        q = dec["qkv"][n][0][0, 0].double().reshape(kvp, R, hd)
+        k = pool["b0"]["k"][n, 1:1 + C].reshape(-1, kvp, hd)[:S + 1].double()
+        v = pool["b0"]["v"][n, 1:1 + C].reshape(-1, kvp, hd)[:S + 1].double()
+        p = torch.softmax(torch.einsum("grd,cgd->grc", q, k) / math.sqrt(hd),
+                          dim=-1)
+        exact = torch.einsum("grc,cgd->grd", p, v)
+        absv = torch.einsum("grc,cgd->grd", p, v.abs())
+        got = dec["out"][n].double()[0]                   # (KV, R, hd)
+        tol = 2.0 ** -16 * absv + 2.0 ** -24 * exact.abs()
+        out["attention_exact"].append(compare(got, exact, tol))
+        teeth["fp16"] += fails(got.half().double(), exact, tol)
+        scale = got.abs().max() / 127
+        teeth["int8"] += fails(torch.round(got / scale) * scale, exact, tol)
+        # against the forward's attention output at S
+        b = ref["attention"][n][0, S].double().reshape(kvp, R, hd)
+        tol = 2.0 ** -7 * (absv + torch.maximum(got.abs(), b.abs())) + 1e-6
+        out["attention"].append(compare(got, b, tol))
+    for what, by_layer in out.items():
+        worst = max(range(n_layers),
+                    key=lambda n: by_layer[n]["max_err_over_tol"])
+        r = by_layer[worst]
+        print(f"    decode {what} at position {S}, each of {n_layers} layers "
+              f"teacher-forced: worst layer {worst}, max_abs_err "
+              f"{r['max_abs_err']:.3g}, max err/tol "
+              f"{r['max_err_over_tol']:.3g}, share not bit-equal "
+              f"{r['share_not_equal']:.3g}; max err/tol by layer "
+              + " ".join(f"{x['max_err_over_tol']:.2g}" for x in by_layer))
+    print(f"    the exact-attention tolerance fails the kernel's output "
+          f"rounded to fp16 at {teeth['fp16']} and to int8 at "
+          f"{teeth['int8']} of {n_layers} layers")
+    bad = {(w, n): r for w, by_layer in out.items()
+           for n, r in enumerate(by_layer) if not r["max_err_over_tol"] <= 1.0}
+    assert not bad, f"decode route disagrees with the plain forward: {bad}"
+    assert teeth["fp16"] > 0 and teeth["int8"] > 0, teeth
+    out["teeth"] = teeth
+    return out
+
+
+def serve_qwen(torch, seed: int):
+    """Phase 9: qwen2.5-14b at its published widths (48 layers, d_model
+    5120, vocab 152064, bf16), packed, through ServeEngine.session with
+    greedy and sampled requests; launch counts exact, every launch on the
+    tensor-core route, the decode at R = 6; init + pack peak memory under
+    80 GB; decode_route_check; card sampling against the CPU's."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import lm_init
+    from repro_torch.serve import (PRNGKey, RequestStatus, ServeEngine,
+                                   pack_weights)
+    from repro_torch.serve.sampling import fold_in
+
+    cfg = get_config("qwen2.5-14b")
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = lm_init(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, pack_weights(params, consume=True), max_len=1024,
+                         packed=True)
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    card = smi_line()
+    print(f"  qwen2.5-14b {cfg.n_layers} layers d_model {cfg.d_model} vocab "
+          f"{cfg.vocab_size} {cfg.dtype}: init {init_s:.1f} s, init + pack "
+          f"{setup_s:.1f} s, peak memory of init + pack "
+          f"{setup_peak / 1e9:.2f} GB ({base / 1e9:.2f} GB held before), "
+          f"resident after {resident / 1e9:.2f} GB ({card})")
+    assert setup_peak < 80e9, f"init + pack peaked at {setup_peak} bytes"
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in QWEN_LENS]
+    skey = PRNGKey(seed + 9)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    submitted, first_at, handles = {}, {}, []
+    with decode_group_sizes() as sizes, recorded_draws() as draws:
+        sess = engine.session(lanes=8, page_size=16, segment=8, key=skey)
+
+        def submit(i):
+            submitted[i] = time.perf_counter()
+            handles.append(sess.submit(prompts[i], qwen_sampling(i, seed)))
+
+        for i in range(QWEN_FIRST_WAVE):
+            submit(i)
+        steps = 0
+        t_serve = time.perf_counter()
+        while sess.step():
+            steps += 1
+            now = time.perf_counter()
+            for h in handles:
+                if h.rid not in first_at and h.tokens_ready:
+                    first_at[h.rid] = now
+            if steps == 2:
+                for i in range(QWEN_FIRST_WAVE, len(prompts)):
+                    submit(i)
+            if steps == 3:
+                assert handles[QWEN_CANCEL].cancel()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t_serve
+    launches = {k.__name__: k.launches for k in KERNELS}
+    routes = route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    stats = sess.stats
+    d_steps = stats["decode_steps"]
+    gemv_prefills = sum(c for b, c in stats["prefills"].items() if b <= 256)
+    want = {"packed_xnor_gemv": 6 * cfg.n_layers * (d_steps + gemv_prefills),
+            "paged_flash_decode": cfg.n_layers * d_steps,
+            "boolean_weight_bwd": 0,
+            "flash_attention_fwd": cfg.n_layers * sum(stats["prefills"].values()),
+            "paged_prefix_attention": 0, "boolean_matmul": 0,
+            "packed_xnor_matmul": 0}
+    print(f"  served {len(handles)} requests (8 greedy, 4 seeded and 4 "
+          f"session-keyed at T = {QWEN_TEMP}) in {serve_s:.2f} s: {d_steps} "
+          f"decode steps, prefill buckets {dict(stats['prefills'])}")
+    print(f"  launches {launches}, expected {want} (6 x {cfg.n_layers} GEMV "
+          f"per decode step and per prefill of <= 256 rows, {cfg.n_layers} "
+          f"paged decode per decode step, {cfg.n_layers} flash prefill per "
+          "prefill)")
+    assert launches == want, (launches, want)
+    print(f"  launches by route {routes}; decode launches by (route, R) "
+          f"{dict(sizes)}")
+    for name in ("packed_xnor_gemv", "flash_attention_fwd", "paged_flash_decode"):
+        assert want[name] > 0 and routes[name] == {
+            "tensor_cores": want[name], "cuda_cores": 0}, (name, routes[name])
+    assert dict(sizes) == {("tensor_cores", 6): want["paged_flash_decode"]}, sizes
+    for i, h in enumerate(handles):
+        toks = h.tokens_so_far()
+        assert all(0 <= t < cfg.vocab_size for t in toks), h.rid
+        if h.rid == QWEN_CANCEL:
+            assert h.status is RequestStatus.CANCELLED and len(toks) < QWEN_TOKENS
+        else:
+            assert h.status is RequestStatus.DONE \
+                and len(toks) == QWEN_TOKENS, (h.rid, h.status, len(toks))
+    assert draws, "no sampled decode segment was recorded"
+    ttft = [1e3 * (first_at[r] - submitted[r]) for r in first_at]
+
+    # the same traffic again, timed per segment, for the step and token rates
+    seg_ms, decode_tokens, decode_s = qwen_timed_segments(torch, engine,
+                                                          prompts, skey, seed)
+    host_launch_us = launch_us(torch)
+    profile = profile_segment(torch, engine, prompts[:8], QWEN_TOKENS,
+                              lambda i: qwen_sampling(i, seed), skey)
+
+    keys = [PRNGKey(seed + 1000 + i) if i % 4 == 2
+            else fold_in(skey, i).numpy().astype(np.uint32)
+            for i in range(len(prompts)) if i % 4 >= 2]
+    sampling = sampling_card_vs_cpu(torch, cfg, keys, draws)
+    del draws
+
+    print(f"  decode_route_check: one lane's decode step at position "
+          f"{QWEN_ROUTE_PROMPT} against the plain forward, teacher-forced")
+    route_check = decode_route_check(
+        torch, engine, rng.integers(0, cfg.vocab_size, (QWEN_ROUTE_PROMPT,)
+                                    ).astype(np.int32),
+        int(rng.integers(0, cfg.vocab_size)))
+    metrics = {
+        "model": cfg.name, "requests": len(handles), "decode_steps": d_steps,
+        "prefill_buckets": {str(b): c for b, c in stats["prefills"].items()},
+        "serve_s": serve_s, "init_s": init_s, "setup_s": setup_s,
+        "setup_peak_bytes": setup_peak, "resident_bytes": resident,
+        "ttft_ms_median": statistics.median(ttft), "ttft_ms_max": max(ttft),
+        "step_ms_median": statistics.median(seg_ms),
+        "decode_tokens_per_s": decode_tokens / decode_s,
+        "launch_us": host_launch_us,
+        "max_memory_allocated_bytes": peak,
+        "launches": launches, "routes": routes,
+        "decode_group_sizes": {f"{r} R{n}": c for (r, n), c in sizes.items()},
+        "profiled_segment": profile, "sampling": sampling,
+        "decode_route_check": route_check,
+    }
+    print(f"  decode {metrics['decode_tokens_per_s']:.1f} tokens/s at 8 lanes, "
+          f"median step {metrics['step_ms_median']:.2f} ms (one launch "
+          f"{host_launch_us:.2f} us of host), median TTFT "
+          f"{metrics['ttft_ms_median']:.1f} ms, max_memory_allocated "
+          f"{peak / 1e9:.2f} GB while serving ({card})")
+    metrics["device"] = card
+    return engine, metrics
+
+
+def ring_kernels(build, decode_kv: int, decode_kv_by_r=None):
     """ptxas's registers and spills for each instance of the tensor-core
     templates, with the dynamic shared memory its ring takes, which ptxas
     does not see: the wgmma + TMA skeleton (csrc/hopper_gemm.cuh's
@@ -2205,8 +3020,9 @@ def ring_kernels(build, decode_kv: int):
     128 x 128 + BN x 128 bytes; the two attention kernels' tensor-core
     routes (csrc/attention_tc.cuh) by head dim (and int8 pool), as each
     library reports its ring; the decode kernel's tensor-core route by
-    <head dim, group size, int8 pool> at ``decode_kv`` heads (its stages
-    hold the int8 rows' scales of every head), as the library plans it;
+    <head dim, group size, int8 pool> at ``decode_kv`` heads, or at
+    ``decode_kv_by_r[R]`` for a group size R it names (its stages hold the
+    int8 rows' scales of every head), as the library plans it;
     each with 1 KB of alignment slack and the barriers."""
     import re
     from repro_torch.kernels.packed_xnor import gemv_tc_tiles
@@ -2242,9 +3058,11 @@ def ring_kernels(build, decode_kv: int):
                     smem = tiles.smem[args[0]]
                     extra = {"stages": tiles.stages[args[0]]}
                 elif k.group(1) == "decode_tc":
-                    plan = decode_tc_plan(*args, decode_kv)
+                    kv = (decode_kv_by_r or {}).get(args[1], decode_kv)
+                    plan = decode_tc_plan(*args, kv)
                     smem = plan.smem
-                    extra = {"stages": plan.stages, "threads": plan.threads}
+                    extra = {"stages": plan.stages, "threads": plan.threads,
+                             "kv_heads": kv}
                 else:
                     bn, st = args[:2]
                     smem = 1024 + st * (16384 + 128 * bn + 16)
@@ -2265,12 +3083,25 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke.json"))
+    ap.add_argument("--step-probe", action="store_true",
+                    help="only read phase 9's decode step fresh and after "
+                         "what the earlier phases leave behind (step_probe)")
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    if args.step_probe:
+        print(f"device: {smi_line()}")
+        readings = step_probe(torch, args.seed)
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"device": smi_line(),
+                                   "step_probe": readings}, indent=1))
+        print(json.dumps([{k: v for k, v in r.items() if k != "step_ms"}
+                          for r in readings]))
+        return 0
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
@@ -2280,52 +3111,80 @@ def main() -> int:
     device_line = smi_line()
     print(f"device: {device_line}")
 
-    print("1. build")
-    t0 = time.perf_counter()
-    secs = build.build_all()
-    print(f"  built {secs} in {time.perf_counter() - t0:.1f} s")
-    for name in build.SOURCES:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
-    ring = ring_kernels(build, get_config("gemma2-2b").kv_heads_padded())
-    for label, info in ring.items():
-        print(f"  tensor-core kernel {label}: {info}")
+    walls, launch_at = {}, {}
 
-    print("2. kernels vs plain versions")
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    gemv_rows, gemv_err = check_gemv(torch, flush, gen)
-    dec_rows, dec_err, dec_exact = check_paged_decode(torch, flush, gen,
-                                                      get_config("gemma2-2b"))
-    flash_rows, flash_err = check_flash(torch, flush, gen, get_config("gemma2-2b"))
-    pfx_rows, pfx_err = check_prefix(torch, flush, gen, get_config("gemma2-2b"))
-    uniform = check_uniform(torch, gen, get_config("gemma2-2b"))
-    wbwd_rows, wbwd_err = check_weight_bwd(torch, flush, gen)
-    tc_rates = tensor_core_rates(torch)
-    gemm_rows = check_bool_gemm(torch, flush, gen, tc_rates)
-    del flush
+    @contextlib.contextmanager
+    def phase(n: int, title: str):
+        print(f"{n}. {title}")
+        launch_at[n] = launch_us(torch)
+        print(f"  one launch {launch_at[n]:.2f} us of host at the phase's start")
+        t = time.perf_counter()
+        yield
+        walls[n] = time.perf_counter() - t
+        print(f"  phase {n} wall {walls[n]:.1f} s")
 
-    print("3. serve gemma2-2b (published widths) through the packed session")
-    engine, launches, metrics = serve(torch, args.seed)
+    gemma, qwen = get_config("gemma2-2b"), get_config("qwen2.5-14b")
+    with phase(1, "build"):
+        t0 = time.perf_counter()
+        secs = build.build_all()
+        print(f"  built {secs} in {time.perf_counter() - t0:.1f} s")
+        for name in build.SOURCES:
+            for line in build.build_log(name).splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  {name}: {line.strip()}")
+        # the decode kernel's R 6 instances at qwen2.5-14b's 8 KV heads
+        ring = ring_kernels(build, gemma.kv_heads_padded(),
+                            {qwen.heads_padded() // qwen.kv_heads_padded():
+                             qwen.kv_heads_padded()})
+        for label, info in ring.items():
+            print(f"  tensor-core kernel {label}: {info}")
 
-    print("4. small fp32 model: card kernels vs CPU plain versions")
-    metrics.update(agree_with_cpu(torch, args.seed))
+    with phase(2, "kernels vs plain versions"):
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        gemv_rows, gemv_err = check_gemv(torch, flush, gen)
+        qwen_gemv_rows, qwen_gemv_err = check_gemv(
+            torch, flush, gen, QWEN_GEMV_SHAPES, (8,), ())
+        dec_rows, dec_err, dec_exact = check_paged_decode(torch, flush, gen,
+                                                          gemma)
+        flash_rows, flash_err = check_flash(torch, flush, gen, gemma)
+        qwen_flash_rows, qwen_flash_err = check_flash(
+            torch, flush, gen, qwen, QWEN_FLASH_CASES)
+        pfx_rows, pfx_err = check_prefix(torch, flush, gen, gemma)
+        uniform = check_uniform(torch, gen, gemma)
+        wbwd_rows, wbwd_err = check_weight_bwd(torch, flush, gen)
+        tc_rates = tensor_core_rates(torch)
+        gemm_rows = check_bool_gemm(torch, flush, gen, tc_rates)
+        del flush
 
-    print("5. train gemma2-2b (published widths) through make_train_step + TrainLoop")
-    train_launches, train_metrics = train(torch, args.seed)
+    with phase(3, "serve gemma2-2b (published widths) through the packed "
+                  "session"):
+        engine, launches, metrics = serve(torch, args.seed)
 
-    print("6. small fp32 model training: card kernels vs CPU plain versions")
-    train_metrics.update(train_agree_with_cpu(torch, args.seed))
+    with phase(4, "small fp32 model: card kernels vs CPU plain versions"):
+        metrics.update(agree_with_cpu(torch, args.seed))
 
-    print("7. prefix-cached serving of gemma2-2b (published widths), bf16 and "
-          "int8 KV pools")
-    prefix_metrics = serve_prefix(torch, engine, args.seed)
-    del engine
+    with phase(5, "train gemma2-2b (published widths) through make_train_step "
+                  "+ TrainLoop"):
+        train_launches, train_metrics = train(torch, args.seed)
 
-    print("8. Boolean VGG-SMALL and SMALL-EDSR (published widths): float, int8 "
-          "and packed Boolean leaves")
-    vision_metrics = vision(torch, args.seed)
+    with phase(6, "small fp32 model training: card kernels vs CPU plain "
+                  "versions"):
+        train_metrics.update(train_agree_with_cpu(torch, args.seed))
+
+    with phase(7, "prefix-cached serving of gemma2-2b (published widths), "
+                  "bf16 and int8 KV pools"):
+        prefix_metrics = serve_prefix(torch, engine, args.seed)
+        del engine
+
+    with phase(8, "Boolean VGG-SMALL and SMALL-EDSR (published widths): "
+                  "float, int8 and packed Boolean leaves"):
+        vision_metrics = vision(torch, args.seed)
+
+    with phase(9, "serve qwen2.5-14b (published widths), greedy and sampled "
+                  "requests, through the packed session"):
+        engine, qwen_metrics = serve_qwen(torch, args.seed)
+        del engine
 
     decode_m8 = [r for r in gemv_rows if r["M"] == 8]
     layer_votes = [r for r in wbwd_rows if r["alpha"] == 0.0
@@ -2370,11 +3229,16 @@ def main() -> int:
     fused = [r for r in gemm_rows if r["kernel"] == "boolean_matmul fused"
              and r["shape"] in {g[0] for g in VGG_GEMMS}]
     gemv_at = {M: [r for r in gemv_rows if r["M"] == M] for M in GEMV_M}
+    q_dec = {pool: next(r for r in dec_rows if r.get("phase") == "phase 9"
+                        and r["pool"] == pool) for pool in ("bf16", "int8")}
+    q_flash = next(r for r in qwen_flash_rows if r["S"] == 1024)
+    q_launch, q_routes = qwen_metrics["launches"], qwen_metrics["routes"]
     kernels = [
         {"name": "packed_xnor_gemv", "route": "cuda",
          "source": "src/repro_torch/csrc/packed_xnor_gemv.cu",
          "replaces": "src/repro/kernels/packed_xnor.py:168",
-         "launches": launches["packed_xnor_gemv"], "max_abs_err": gemv_err,
+         "launches": launches["packed_xnor_gemv"],
+         "max_abs_err": max(gemv_err, qwen_gemv_err),
          "ms": sum(r["ms"] for r in decode_m8),
          "plain_ms": sum(r["plain_ms"] for r in decode_m8),
          "bound_ms": sum(r["bound_ms"] for r in decode_m8),
@@ -2387,11 +3251,17 @@ def main() -> int:
             for M in GEMV_M[1:] for k in ("ms", "plain_ms", "bound_ms",
                                           "library_ms", "cc_ms")},
          "cc_ms": sum(r["cc_ms"] for r in decode_m8),
+         **{f"qwen_{k}": sum(r[k] for r in qwen_gemv_rows)
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "cc_ms")},
+         "phase9_launches": q_launch["packed_xnor_gemv"],
+         "phase9_routes": q_routes["packed_xnor_gemv"],
          "shape": "sum over one layer's wqkv, wo, wgu, wd at M=8 lanes, bf16 x "
                   "(m16_* .. m256_*: the same at 16 to 256 prefill rows); "
                   "library_ms: torch.matmul on the bf16 ±1 weight; cc_ms: "
                   "the CUDA-core kernel on the same x; tc_launches: phase 3's "
-                  "launches on the tensor-core route"},
+                  "launches on the tensor-core route; qwen_*: the same over "
+                  "qwen2.5-14b's six projections (wq, wk, wv, wgu, wo, wd) at "
+                  "M=8, phase9_*: phase 9's launches"},
         {"name": "paged_flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_flash_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:156",
@@ -2410,6 +3280,13 @@ def main() -> int:
          "exact_max_abs_err": max(dec_exact.values()),
          "phase7_routes": {k: v["routes"]["paged_flash_decode"]
                            for k, v in prefix_metrics.items()},
+         **{f"qwen_{k}": q_dec["bf16"][k]
+            for k in ("ms", "cc_ms", "plain_ms", "bound_ms", "rows")},
+         **{f"qwen_int8_{k}": q_dec["int8"][k]
+            for k in ("ms", "cc_ms", "plain_ms", "bound_ms")},
+         "phase9_launches": q_launch["paged_flash_decode"],
+         "phase9_launches_by_route_and_group":
+             qwen_metrics["decode_group_sizes"],
          "shape": f"{local['L']} lanes, {local['KV']} KV heads x {local['R']} "
                   f"q heads, head_dim {local['hd']}, bf16 pool (int8_*: int8 "
                   f"pool + fp32 scales), {local['rows']} rows, window "
@@ -2420,7 +3297,9 @@ def main() -> int:
                   "cases; cc_max_abs_err: the CUDA-core kernel's random cases, "
                   "bf16 through the hook and fp32 q through the wrapper; "
                   "host_us / cc_host_us: the wrapper's host time a call on "
-                  "bf16 / fp32 q)"},
+                  "bf16 / fp32 q; qwen_* / qwen_int8_*: phase 9's shape, 8 "
+                  "KV heads x 6 q heads, head_dim 128, no softcap, global, "
+                  "bf16 / int8 pool; phase9_*: phase 9's launches)"},
         {"name": "boolean_weight_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/boolean_weight_bwd.cu",
          "replaces": "src/repro/kernels/boolean_bwd.py:52",
@@ -2441,19 +3320,27 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:87",
-         "launches": p7["flash_attention_fwd"], "max_abs_err": flash_err,
+         "launches": p7["flash_attention_fwd"],
+         "max_abs_err": max(flash_err, qwen_flash_err),
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": None, "kernel_route": flash["route"],
          "cc_ms": flash["cc_ms"],
          "sdpa_causal_no_softcap_ms": flash["sdpa_causal_no_softcap_ms"],
          "phase3_routes": metrics["routes"]["flash_attention_fwd"],
+         **{f"qwen_{k}": q_flash[k]
+            for k in ("ms", "cc_ms", "plain_ms", "bound_ms", "library_ms")},
+         "phase9_launches": q_launch["flash_attention_fwd"],
+         "phase9_routes": q_routes["flash_attention_fwd"],
          "shape": f"one layer's cold prefill: {flash['BH']} q heads over "
                   f"{flash['KV']} KV heads, S={flash['S']}, head_dim "
                   f"{flash['hd']}, bf16, softcap 50, window {flash['window']} "
                   "(kernel_route; cc_ms: the CUDA-core kernel on the same "
                   "inputs); launches from phase 7 (bf16 pool), phase3_routes "
-                  "phase 3's launches by route"},
+                  "phase 3's launches by route; qwen_*: qwen2.5-14b's 1,024-"
+                  "token prefill, 48 q over 8 KV heads, head_dim 128, no "
+                  "softcap or window, library_ms SDPA (causal), the same "
+                  "function there; phase9_*: phase 9's launches"},
         {"name": "paged_prefix_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_prefix_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:335",
@@ -2524,6 +3411,11 @@ def main() -> int:
                                "serve": metrics, "train": train_metrics,
                                "prefix_serve": prefix_metrics,
                                "vision": vision_metrics,
+                               "qwen_gemv": qwen_gemv_rows,
+                               "qwen_flash_prefill": qwen_flash_rows,
+                               "qwen_serve": qwen_metrics,
+                               "phase_wall_s": walls,
+                               "phase_start_launch_us": launch_at,
                                "kernels": kernels}, indent=1))
     print(f"details written to {out}")
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 
 Each ported arch module exposes ``CONFIG`` (the published configuration)
 and ``SMOKE`` (a reduced same-family config for CPU tests). Ported: the
-dense gemma2-2b and the paper's VGG-SMALL; the other ids of the JAX
-package's registry raise until their families are.
+dense family (gemma2-2b, the three qwens and the paper's bold-bert) and
+the paper's VGG-SMALL; the other ids of the JAX package's registry raise
+until their families are.
 """
 from __future__ import annotations
 
@@ -27,6 +28,10 @@ PAPER_IDS: List[str] = ["bold-bert", "bold-vgg-small"]
 
 _MODULES: Dict[str, str] = {
     "gemma2-2b": "gemma2_2b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "bold-bert": "bold_bert",
     "bold-vgg-small": "bold_vgg_small",
 }
 

@@ -42,7 +42,8 @@
 //    each;
 //  * scores on the tensor cores: each of NW = 6 consumer warps takes every
 //    NW-th stage and runs mma.sync m16n8k16 (bf16, fp32 sums) with the 16
-//    key rows as M and the R query heads, padded to n = 8, as the B
+//    key rows as M and the R query heads (1, 2, 4, 6 or 8), padded to n =
+//    8 (heads R..7 of the tile zero), as the B
 //    fragment held in registers for the whole block. The contraction runs
 //    over hd in a permuted order (kcol below), the same for A and B, so a
 //    thread reads its A fragment as whole 16-byte chunks of the stage (rows
@@ -308,6 +309,7 @@ bool launch_r(int R, const Args& a, cudaStream_t s)
         case 1: launch<T, KT, HD, 1>(a, s); return true;
         case 2: launch<T, KT, HD, 2>(a, s); return true;
         case 4: launch<T, KT, HD, 4>(a, s); return true;
+        case 6: launch<T, KT, HD, 6>(a, s); return true;
         case 8: launch<T, KT, HD, 8>(a, s); return true;
         default: return false;
     }
@@ -947,6 +949,7 @@ cudaError_t launch_r(int R, const void* kp, const void* vp, int n_pages, int L, 
         case 1: return launch<HD, 1, QUANT>(kp, vp, n_pages, L, a, s);
         case 2: return launch<HD, 2, QUANT>(kp, vp, n_pages, L, a, s);
         case 4: return launch<HD, 4, QUANT>(kp, vp, n_pages, L, a, s);
+        case 6: return launch<HD, 6, QUANT>(kp, vp, n_pages, L, a, s);
         case 8: return launch<HD, 8, QUANT>(kp, vp, n_pages, L, a, s);
         default: return cudaErrorInvalidValue;
     }
@@ -974,6 +977,7 @@ int plan_r(int R, int KV, int* out)
         case 1: out[1] = smem_bytes<HD, 1, QUANT>(KV); return 0;
         case 2: out[1] = smem_bytes<HD, 2, QUANT>(KV); return 0;
         case 4: out[1] = smem_bytes<HD, 4, QUANT>(KV); return 0;
+        case 6: out[1] = smem_bytes<HD, 6, QUANT>(KV); return 0;
         case 8: out[1] = smem_bytes<HD, 8, QUANT>(KV); return 0;
         default: return (int)cudaErrorInvalidValue;
     }
@@ -1001,7 +1005,7 @@ extern "C" {
 // KV) scales kscale/vscale (ignored otherwise); bt: (L, C); pos: (L,); out:
 // (L, KV, R, HD) fp32. Scratch: part_m/part_l (L, KV, nsplit, R), part_acc
 // (L, KV, nsplit, R, HD) fp32. pps pages per split, nsplit * pps >= C. HD
-// in {64, 128, 256}, R in {1, 2, 4, 8}. Returns cudaGetLastError() after
+// in {64, 128, 256}, R in {1, 2, 4, 6, 8}. Returns cudaGetLastError() after
 // the launches.
 int paged_flash_decode(const void* q, const void* kpool, const void* vpool,
                        const float* kscale, const float* vscale, int is_bf16,
@@ -1032,7 +1036,7 @@ int paged_flash_decode(const void* q, const void* kpool, const void* vpool,
 // and part_acc (L, KV, nsplit, R, HD) fp32 and L * KV int32 tickets that
 // are 0 on entry and left 0 (unused when nsplit = 1); nsplit <= 512. HD
 // in {64, 128,
-// 256}, R in {1, 2, 4, 8}; all contiguous and 16-byte aligned. Returns
+// 256}, R in {1, 2, 4, 6, 8}; all contiguous and 16-byte aligned. Returns
 // cudaGetLastError() after the launch, or the error that kept it from
 // running.
 int paged_flash_decode_tc(const void* q, const void* kpool, const void* vpool,

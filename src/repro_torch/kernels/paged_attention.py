@@ -34,7 +34,7 @@ from . import build
 
 #: head dims every kernel here (both routes of the prefix kernel) is built for
 _HEAD_DIMS = (64, 128, 256)
-_GROUP_SIZES = (1, 2, 4, 8)
+_GROUP_SIZES = (1, 2, 4, 6, 8)
 
 
 def _dequant(x, scale):

@@ -2,7 +2,8 @@
 training, the flash-prefill kernel for cold prefill, the prefix-cache tail
 prefill over in-place pool pages, sliding-window + global alternation
 (gemma2), logit softcap, the int8 KV cache with per-(token, head) scales,
-and the block-table paged decode of continuous batching.
+the contiguous one-token decode of ``generate`` and the block-table paged
+decode of continuous batching.
 
 Q heads are padded up to a multiple of 16 and the padded heads' outputs are
 masked to zero before the o-projection, because Boolean ±1 weights cannot
@@ -52,6 +53,18 @@ def _qkv(cfg: ModelConfig, p, x, positions, axis_size: int = 16):
     q = rope(q.reshape(B, S, hp, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(B, S, kvp, hd), positions, cfg.rope_theta)
     return q, k, v.reshape(B, S, kvp, hd)
+
+
+def _group(cfg: ModelConfig, axis_size: int = 16) -> int:
+    """q heads a KV head serves, hp // kvp. A KV head count that does not
+    divide the padded q heads (bold-bert at full width: 12 under 16) is no
+    whole group, and the JAX package's attention fails on it too: raise."""
+    hp = cfg.heads_padded(axis_size)
+    kvp = cfg.kv_heads_padded(axis_size)
+    if hp % kvp:
+        raise ValueError(f"{cfg.name}: {kvp} KV heads do not divide the "
+                         f"{hp} padded q heads into whole groups")
+    return hp // kvp
 
 
 def _head_mask(cfg: ModelConfig, out, axis_size: int = 16):
@@ -184,9 +197,9 @@ def attention_apply(cfg: ModelConfig, p, x, positions, *,
     B, S, _ = x.shape
     hd = cfg.head_dim_
     hp = cfg.heads_padded(axis_size)
-    kvp = cfg.kv_heads_padded(axis_size)
+    n_rep = _group(cfg, axis_size)
     q, k, v = _qkv(cfg, p, x, positions, axis_size)
-    out = flash_attention(q, _repeat_kv(k, hp // kvp), _repeat_kv(v, hp // kvp),
+    out = flash_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
                           causal=True,
                           window=cfg.sliding_window if local else 0,
                           softcap_val=cfg.attn_logit_softcap,
@@ -245,6 +258,73 @@ def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def attention_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
+                     local: bool = False):
+    """One-token decode over a CONTIGUOUS cache (``generate``): plain
+    torch, as the JAX package leaves it to XLA.
+
+    x: (B, 1, D); cache{k, v}: (B, Smax, KVp, hd) in cfg.dtype, or int8
+    with {"k_scale", "v_scale"}: (B, Smax, KVp) under kv_cache_quant,
+    UPDATED IN PLACE with the new token's row at ``pos`` (an int, every
+    row of the batch at the same position). The read is the JAX package's
+    ``_flash_decode_local``: fp32 scores over chunks of ``cfg.decode_chunk``
+    rows with an online softmax, rows valid at kpos <= pos (and kpos > pos
+    - window on a local layer). Returns (out, cache).
+
+    The cache has the paged pool's layout (B pages of Smax rows, block
+    table ``arange(B)[:, None]``), but this read stays its own copy: the
+    JAX package runs no kernel here, and the paged op on a CUDA tensor
+    must launch one (never its plain version), which would give
+    ``generate`` kernel launches and numbers the reference does not have,
+    and the CUDA-core kernel wherever ``max_len`` is not a power of two
+    (``decode_route``).
+    """
+    B = x.shape[0]
+    hd = cfg.head_dim_
+    hp, kvp = cfg.heads_padded(), cfg.kv_heads_padded()
+    n_rep = _group(cfg)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(cfg, p, x, positions)
+    qg = q[:, 0].reshape(B, kvp, n_rep, hd).to(torch.float32)
+    if cache["k"].dtype == torch.int8:
+        k_new, ks_new = kv_quant(k_new)
+        v_new, vs_new = kv_quant(v_new)
+        cache["k_scale"][:, pos] = ks_new[:, 0]
+        cache["v_scale"][:, pos] = vs_new[:, 0]
+    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+
+    S = cache["k"].shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    c = min(cfg.decode_chunk, S)
+    m = torch.full((B, kvp, n_rep), -1e30, device=x.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, kvp, n_rep, hd), device=x.device)
+    for c0 in range(0, S, c):
+        rows = slice(c0, min(S, c0 + c))
+        kf = kv_dequant(cache["k"][:, rows], cache["k_scale"][:, rows]
+                        if "k_scale" in cache else None)
+        vf = kv_dequant(cache["v"][:, rows], cache["v_scale"][:, rows]
+                        if "v_scale" in cache else None)
+        s = torch.einsum("bgrd,bcgd->bgrc", qg, kf) * scale
+        s = softcap(s, cfg.attn_logit_softcap)
+        kpos = torch.arange(rows.start, rows.stop, device=x.device)
+        valid = kpos <= pos
+        if local and cfg.sliding_window > 0:
+            valid &= kpos > pos - cfg.sliding_window
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        pexp = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + pexp.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bgrc,bcgd->bgrd", pexp, vf)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    out = out.reshape(B, 1, hp, hd).to(x.dtype)
+    out = _head_mask(cfg, out)
+    return _wo_project(cfg, p["wo"], out.reshape(B, 1, hp * hd)), cache
+
+
 def attention_decode_paged(cfg: ModelConfig, p, x, cache, block_table, pos,
                            *, local: bool = False):
     """One-token decode over a block-table PAGED cache (continuous batching).
@@ -264,7 +344,7 @@ def attention_decode_paged(cfg: ModelConfig, p, x, cache, block_table, pos,
     page = cache["k"].shape[1]
     C = block_table.shape[1]
     q, k_new, v_new = _qkv(cfg, p, x, pos[:, None])
-    qg = q[:, 0].reshape(B, kvp, hp // kvp, hd).contiguous()
+    qg = q[:, 0].reshape(B, kvp, _group(cfg), hd).contiguous()
 
     col = (pos // page).long()
     in_table = col < C

@@ -1,6 +1,6 @@
 """Decoder LM on the dense path: block roles, init, the training forward and
 loss, bucketed prefill (cold, or the tail of a prefix-cache hit) and the
-paged decode step.
+decode step over a contiguous or a block-table paged cache.
 
 Block parameters are stacked on a leading ``n_groups`` axis, as in the JAX
 package's ``models/lm.py``; its ``lax.scan`` over groups becomes a Python
@@ -14,6 +14,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.core import PackedBool
 from repro_torch.kernels import flash_attention_fwd
 
 from . import attention as A
@@ -131,7 +132,7 @@ def _apply_block_prefill(cfg: ModelConfig, bp, role, x, positions,
         out = flash_attention_fwd(
             rows(q), rows(k), rows(v), causal=True,
             window=cfg.sliding_window if local else 0,
-            softcap=cfg.attn_logit_softcap, n_rep=hp // kvp)
+            softcap=cfg.attn_logit_softcap, n_rep=A._group(cfg))
         out = out.reshape(B, hp, S, hd).transpose(1, 2)
     out = A._head_mask(cfg, out)
     x = x + A._wo_project(cfg, bp["attn"]["wo"], out.reshape(B, S, hp * hd))
@@ -141,9 +142,13 @@ def _apply_block_prefill(cfg: ModelConfig, bp, role, x, positions,
 def _apply_block_decode(cfg: ModelConfig, bp, role, bcache, x, pos,
                         block_table):
     h = rmsnorm_apply(bp["norm1"], x)
-    mix, new_c = A.attention_decode_paged(
-        cfg, bp["attn"], h, bcache, block_table, pos,
-        local=(role["mixer"] == "attn_local"))
+    local = role["mixer"] == "attn_local"
+    if block_table is None:
+        mix, new_c = A.attention_decode(cfg, bp["attn"], h, bcache, pos,
+                                        local=local)
+    else:
+        mix, new_c = A.attention_decode_paged(cfg, bp["attn"], h, bcache,
+                                              block_table, pos, local=local)
     return _ffn_residual(cfg, bp, role, x + mix), new_c
 
 
@@ -153,10 +158,13 @@ def _apply_block_decode(cfg: ModelConfig, bp, role, bcache, x, pos,
 def unbind_tree(tree, n: int):
     """Stacked (n, ...) leaves -> n per-group trees of views. Its backward
     stacks the groups' grads once (``torch.unbind``), where indexing each
-    group would scatter into a zeroed full-size grad per group."""
+    group would scatter into a zeroed full-size grad per group. Packed
+    serving leaves (``PackedBool``, no grad) are indexed."""
     if isinstance(tree, dict):
         parts = {k: unbind_tree(v, n) for k, v in tree.items()}
         return [{k: parts[k][g] for k in tree} for g in range(n)]
+    if isinstance(tree, PackedBool):
+        return [tree[g] for g in range(n)]
     return torch.unbind(tree, 0)
 
 
@@ -284,14 +292,12 @@ def lm_prefill(cfg: ModelConfig, params, batch, cache=None,
 
 
 def lm_decode_step(cfg: ModelConfig, params, cache, tokens):
-    """One-token decode over a block-table paged cache -> (logits (L, 1,
-    Vp) fp32, cache). cache: {"blocks": the page pool (updated in place),
-    "block_table": (L, C) int32, "pos": (L,) int32}; tokens (L, 1).
-    Contiguous (non-paged) caches are not ported yet."""
+    """One-token decode -> (logits (B, 1, Vp) fp32, cache), the cache
+    updated in place. A contiguous cache (``cache_init``, after
+    ``lm_prefill``) is {"blocks", "pos": int}, every row at position pos; a
+    paged one (``lm_decode_step_paged``) is {"blocks": the page pool,
+    "block_table": (L, C) int32, "pos": (L,) int32}. tokens (B, 1)."""
     block_table = cache.get("block_table")
-    if block_table is None:
-        raise NotImplementedError("contiguous-cache decode is not ported yet; "
-                                  "pass a paged cache with a block_table")
     pos = cache["pos"]
     h = embed_apply(cfg, params["embed"], tokens).to(cfg.dtype)
     roles = _dense_roles(cfg)
@@ -303,8 +309,10 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens):
                                        block_table)
     h = rmsnorm_apply(params["final_norm"], h)
     logits = head_apply(cfg, params["head"], h)
-    return logits, {"blocks": cache["blocks"], "block_table": block_table,
-                    "pos": pos + 1}
+    new_cache = {"blocks": cache["blocks"], "pos": pos + 1}
+    if block_table is not None:
+        new_cache["block_table"] = block_table
+    return logits, new_cache
 
 
 def lm_decode_step_paged(cfg: ModelConfig, params, cache, tokens):

@@ -68,6 +68,7 @@ class ModelConfig:
     remat: bool = True             # recompute each group in the backward
     remat_policy: str = "full"     # "save_block_outs": multi-device slice
     attn_chunk: int = 1024         # flash-attention KV chunk
+    decode_chunk: int = 2048       # contiguous flash-decode KV chunk
     kv_cache_quant: bool = False   # int8 KV cache (kv-quant slice)
     reduce_bf16: bool = False      # bf16 cross-shard partials: multi-device
     block_grad_barriers: bool = False  # XLA scheduling: multi-device

@@ -2,11 +2,16 @@
 paged cache pool, on one device.
 
 ``ServeEngine.session`` is the traffic-shaped entry point (serve/session.py);
-``generate_batch`` is a thin wrapper over it. With ``packed=True`` every
-Boolean projection is bit-packed once at engine init (32 weights per int32
-word; q/k/v and gate/up fused), and decode contractions stream the packed
-words through the packed-XNOR GEMV kernel — under continuous batching ONCE
-per step for the whole lane pool.
+``generate_batch`` is a thin wrapper over it. ``generate`` and
+``generate_eager`` serve one fixed batch over a contiguous cache (prefill,
+then one decode step a token, greedy or on the batch-level random stream):
+the JAX package's parity oracles, ``generate`` on a cache reused across
+calls of one batch size (``CachePool``), ``generate_eager`` on a fresh one.
+With ``packed=True`` every Boolean projection is bit-packed once at engine
+init (32 weights per int32 word; q/k/v and gate/up fused where no bias
+keeps them apart), and decode contractions stream the packed words through
+the packed-XNOR GEMV kernel — under continuous batching ONCE per step for
+the whole lane pool.
 
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and a host
 without one raises instead of serving on the CPU. ``device="cpu"`` runs the
@@ -19,11 +24,13 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.core import PackedBool, pack_boolean_weight
-from repro_torch.models import (ModelConfig, cache_init, lm_decode_step_paged,
-                                lm_prefill)
+from repro_torch.core import PackedBool
+from repro_torch.kernels import pack_bits
+from repro_torch.models import (ModelConfig, cache_init, lm_decode_step,
+                                lm_decode_step_paged, lm_prefill)
 
-from .paged_cache import commit_prefill, paged_pool_init
+from .paged_cache import CachePool, commit_prefill, paged_pool_init
+from .sampling import sample_tokens
 from .scheduler import SamplingParams
 from .session import ServeSession
 
@@ -54,33 +61,68 @@ def _fusable(*projs) -> bool:
                for p in projs)
 
 
-def pack_weights(params):
+def _pack_stacked(ws) -> PackedBool:
+    """Bit-pack the int8 ±1 leaves ``ws`` (one leading shape, one K),
+    concatenated along their last axis, along K, one stacked group slice
+    at a time: the words equal packing the whole concatenated leaf, and no
+    temporary grows past one slice."""
+    lead, K = tuple(ws[0].shape[:-2]), ws[0].shape[-2]
+    N = sum(w.shape[-1] for w in ws)
+    bits = torch.empty(lead + (-(-K // 32), N), dtype=torch.int32,
+                       device=ws[0].device)
+    for idx in np.ndindex(*lead):
+        w = ws[0][idx] if len(ws) == 1 \
+            else torch.cat([x[idx] for x in ws], dim=-1)
+        bits[idx] = pack_bits(w, axis=-2)
+    return PackedBool(bits, K)
+
+
+def _is_bool_leaf(v) -> bool:
+    return isinstance(v, torch.Tensor) and v.dtype == torch.int8 \
+        and v.dim() >= 2
+
+
+def pack_weights(params, *, consume: bool = False):
     """Bit-pack every Boolean int8 projection leaf for serving.
 
     q/k/v (and FFN gate/up) projections sharing an input dim fuse into one
     packed leaf (``wqkv`` / ``wgu``, columns [q|k|v] and [g|u]), so a
     decode token makes one pass per block over activations and packed
-    words. FP leaves (embed, head, norms, biases) pass through untouched.
+    words; a bias keeps its projection apart (the qwens' q/k/v). FP leaves
+    (embed, head, norms, biases) and packed leaves pass through untouched.
+    Each leaf packs one stacked group slice at a time.
+
+    ``consume=True`` hands the tree over: each int8 leaf leaves ``params``
+    (its dict is emptied as the walk goes) once it is packed, so its memory
+    frees as soon as nothing else holds it, and the int8 tree and the
+    packed one never live whole side by side.
     """
+    def take(node, key):
+        return node.pop(key) if consume else node[key]
+
     def walk(node):
-        if not isinstance(node, dict):
-            return node
-        node = dict(node)
+        out = {}
+        fused = {}
         if {"wq", "wk", "wv"} <= node.keys() \
                 and _fusable(node["wq"], node["wk"], node["wv"]):
-            w = torch.cat([node.pop("wq")["w"], node.pop("wk")["w"],
-                           node.pop("wv")["w"]], dim=-1)
-            node["wqkv"] = {"w": pack_boolean_weight(w)}
+            fused["wqkv"] = ("wq", "wk", "wv")
         if {"wg", "wu"} <= node.keys() and _fusable(node["wg"], node["wu"]):
-            w = torch.cat([node.pop("wg")["w"], node.pop("wu")["w"]], dim=-1)
-            node["wgu"] = {"w": pack_boolean_weight(w)}
-        out = {}
-        for k, v in node.items():
-            if k == "w" and isinstance(v, torch.Tensor) \
-                    and v.dtype == torch.int8 and v.dim() >= 2:
-                out[k] = pack_boolean_weight(v)
-            else:
+            fused["wgu"] = ("wg", "wu")
+        parts = {k for ks in fused.values() for k in ks}
+        for k in list(node):
+            if k in parts:
+                continue
+            v = node[k]
+            if k == "w" and _is_bool_leaf(v):
+                out[k] = _pack_stacked([take(node, k)])
+            elif isinstance(v, dict):
                 out[k] = walk(v)
+                if consume and not v:
+                    del node[k]
+            else:
+                out[k] = v
+        for name, ks in fused.items():
+            out[name] = {"w": _pack_stacked([take(node, k)["w"] for k in ks])}
         return out
 
     return walk(params)
@@ -96,18 +138,23 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_len: int,
                  packed: bool = False, prefix_cache: bool = False,
                  device="cuda"):
-        """``params``: the model tree (``lm_init`` or ``bridge.
-        params_from_numpy``), moved to ``device``. ``packed=True`` packs the
-        Boolean projections once, here. ``prefix_cache`` is the sessions'
+        """``params``: the model tree (``lm_init``, ``bridge.
+        params_from_numpy`` or ``pack_weights``' output), moved to
+        ``device``. ``packed=True`` packs the Boolean projections once,
+        here, dropping each int8 leaf of the engine's copy of the tree as
+        it is packed (a caller that holds no other reference to the leaves,
+        or that packed them with ``pack_weights(consume=True)`` first,
+        never holds both trees whole). ``prefix_cache`` is the sessions'
         default for the radix prefix index (serve/prefix_cache.py)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_len = max_len
         self.packed = packed
         self.prefix_cache = prefix_cache
+        self._caches = CachePool()
         params = tree_to(params, self.device)
         if packed:
-            params = pack_weights(params)
+            params = pack_weights(params, consume=True)
             if _count_packed(params) == 0:
                 raise ValueError(
                     "packed=True but no Boolean int8 projection leaves were "
@@ -121,7 +168,8 @@ class ServeEngine:
     def prefill_commit(self, pool, prompt: np.ndarray, length: int,
                        page_ids: np.ndarray, page_size: int, *,
                        offset: int = 0,
-                       prefix_ids: Optional[np.ndarray] = None):
+                       prefix_ids: Optional[np.ndarray] = None,
+                       lane: int = 0):
         """Batch-1 prefill of a bucket-padded prompt with its true
         ``length``, then the masked scatter of its K/V rows into the pool
         pages ``page_ids`` (entries past the request's pages point at the
@@ -139,39 +187,100 @@ class ServeEngine:
         logits, pcache = lm_prefill(self.cfg, self.params, {"tokens": tokens},
                                     cache=scratch, length=length, **kw)
         commit_prefill(self.cfg, pool, pcache["blocks"],
-                       torch.from_numpy(page_ids), page_size, length=length)
+                       torch.from_numpy(page_ids), page_size, length=length,
+                       lane=lane)
         return logits
 
     def decode_step(self, cache, tokens):
         """One paged decode step over every lane (pool updated in place)."""
         return lm_decode_step_paged(self.cfg, self.params, cache, tokens)
 
+    # -- one fixed batch over a contiguous cache ------------------------------
+    def _generate(self, cache, prompts, n_tokens: int, temperature: float,
+                  key):
+        """Prefill ``prompts`` into ``cache``, then ``n_tokens`` decode
+        steps, each sampling the next token (step 0 from the prefill
+        logits)."""
+        B, S = prompts.shape
+        if S + n_tokens > self.max_len:
+            raise ValueError(f"{S}+{n_tokens} tokens exceeds max_len="
+                             f"{self.max_len}")
+        tokens = torch.as_tensor(np.asarray(prompts, np.int32)).to(self.device)
+        logits, cache = lm_prefill(self.cfg, self.params, {"tokens": tokens},
+                                   cache=cache)
+        tok = sample_tokens(self.cfg, logits[:, -1], temperature, key, 0)
+        out = []
+        for i in range(n_tokens):
+            out.append(tok)
+            logits, cache = lm_decode_step(self.cfg, self.params, cache, tok)
+            tok = sample_tokens(self.cfg, logits[:, -1], temperature, key,
+                                i + 1)
+        return torch.cat(out, dim=1), cache
+
+    def generate(self, prompts, n_tokens: int, temperature: float = 0.0,
+                 key=None) -> torch.Tensor:
+        """prompts: (B, S) int32 -> (B, n_tokens) int32 tokens on the
+        engine's device: greedy, or (``temperature`` > 0 and a raw (2,)
+        uint32 ``key``) drawn from the batch-level stream, step i folded
+        into ``key``. The contiguous cache of batch size B is taken from
+        the engine's pool before the call and put back after it."""
+        sampled = temperature > 0.0 and key is not None
+        B = int(np.shape(prompts)[0])
+        cache = self._caches.take(B)
+        if cache is None:
+            cache = cache_init(self.cfg, B, self.max_len, self.device)
+        toks, cache = self._generate(cache, prompts, n_tokens,
+                                     temperature if sampled else 0.0,
+                                     key if sampled else None)
+        self._caches.put(B, cache)
+        return toks
+
+    def generate_eager(self, prompts, n_tokens: int,
+                       temperature: float = 0.0, key=None) -> torch.Tensor:
+        """``generate`` on a fresh cache, sampling as ``sample_tokens``
+        does with this temperature and key (greedy without a key or at
+        temperature <= 0): the JAX package's per-token parity oracle."""
+        cache = cache_init(self.cfg, int(np.shape(prompts)[0]), self.max_len,
+                           self.device)
+        return self._generate(cache, prompts, n_tokens, temperature, key)[0]
+
     def session(self, *, lanes: int = 4, page_size: int = 16,
-                n_pages: Optional[int] = None, segment: int = 1,
+                n_pages: Optional[int] = None, segment: int = 1, key=None,
                 buckets: Optional[Sequence[int]] = None,
                 prefix_cache: Optional[bool] = None) -> ServeSession:
-        """Open a streaming serve session (serve/session.py).
+        """Open a streaming serve session (serve/session.py). ``key``: the
+        session's raw (2,) uint32 key (``PRNGKey(0)`` by default);
         ``prefix_cache`` overrides the engine default."""
         return ServeSession(self, lanes=lanes, page_size=page_size,
-                            n_pages=n_pages, segment=segment, buckets=buckets,
-                            prefix_cache=prefix_cache)
+                            n_pages=n_pages, segment=segment, key=key,
+                            buckets=buckets, prefix_cache=prefix_cache)
 
     def generate_batch(self, prompts: Sequence,
-                       n_tokens: Union[int, Sequence[int]], *,
+                       n_tokens: Union[int, Sequence[int]],
+                       temperatures=None, key=None, *,
                        lanes: int = 4, page_size: int = 16,
                        n_pages: Optional[int] = None, segment: int = 1,
                        prefix_cache: Optional[bool] = None):
-        """Greedy continuous-batching generation: submit every request, run
-        the session until idle, return a list of (n_tokens_i,) int32 arrays
-        in request order."""
+        """Continuous-batching generation: submit every request, run the
+        session until idle, return a list of (n_tokens_i,) int32 arrays in
+        request order. Greedy without ``key``; with it, each request with a
+        temperature > 0 draws from ``key`` folded with its request id, at
+        its own step (per-lane streams, independent of lane placement)."""
         n = len(prompts)
         n_tok = ([int(n_tokens)] * n if isinstance(n_tokens, int)
                  else [int(t) for t in n_tokens])
-        if len(n_tok) != n:
-            raise ValueError(f"{n} prompts but {len(n_tok)} n_tokens")
+        temps = ([0.0] * n if temperatures is None
+                 else [float(t) for t in temperatures])
+        if len(n_tok) != n or len(temps) != n:
+            raise ValueError(f"{n} prompts but {len(n_tok)} n_tokens / "
+                             f"{len(temps)} temperatures")
+        if key is None:
+            temps = [0.0] * n
         with self.session(lanes=lanes, page_size=page_size, n_pages=n_pages,
-                          segment=segment, prefix_cache=prefix_cache) as sess:
-            handles = [sess.submit(p, SamplingParams(max_tokens=nt))
-                       for p, nt in zip(prompts, n_tok)]
+                          segment=segment, key=key,
+                          prefix_cache=prefix_cache) as sess:
+            handles = [sess.submit(p, SamplingParams(max_tokens=nt,
+                                                     temperature=t))
+                       for p, nt, t in zip(prompts, n_tok, temps)]
             sess.run_until_idle()
             return [h.result() for h in handles]

@@ -9,6 +9,12 @@ logical cache rows to physical pages. Layout, as in the JAX package's
 cfg.kv_cache_quant; physical page 0 is RESERVED as the garbage page — idle
 and overrun lanes point at it, so their writes never touch pages owned by
 live requests.
+
+``CachePool`` is the host-side pool of preallocated cache trees that the
+engine reuses across calls (the contiguous caches of ``generate``, keyed by
+batch size): an entry is *taken* (removed) before a call that writes it and
+*put* back after, so a call that fails leaves nothing half-written in the
+pool, and FIFO eviction bounds the device memory it holds.
 """
 from __future__ import annotations
 
@@ -44,19 +50,24 @@ def paged_pool_init(cfg: ModelConfig, n_pages: int, page_size: int, device):
 
 
 def commit_prefill(cfg: ModelConfig, pool, prefill_blocks,
-                   page_ids: torch.Tensor, page_size: int, length=None):
+                   page_ids: torch.Tensor, page_size: int, length=None, *,
+                   lane: int = 0):
     """Scatter a batch-1 prefilled contiguous cache into the pool, in place.
 
     prefill_blocks: ``lm_prefill``'s cache["blocks"] at batch 1 (leaves
     (n_groups, 1, S, ...)); page_ids: (npp,) physical pages receiving the
-    request's logical pages 0.. (the JAX package's ``lane`` argument, the
-    slot of a mamba block's state, comes with the mamba slice).
+    request's logical pages 0..; ``lane``: the scheduler lane, the slot of
+    a mamba block's lane-indexed state in the JAX package's layout (an
+    attention block's rows go to its pages alone, so the dense family
+    only checks it).
     ``length``: the true prompt length when the prefill was right-padded to
     a bucket. Rows at and past it are zeroed before the scatter — the pool
     bytes equal an unpadded commit — and ``page_ids`` entries past the
     request's real pages may point at the garbage page 0, which absorbs
     only zero rows.
     """
+    if lane < 0:
+        raise ValueError(f"commit_prefill: lane {lane} < 0")
     npp = page_ids.shape[0]
     idx = page_ids.to(device=next(iter(pool.values()))["k"].device,
                       dtype=torch.long)
@@ -165,3 +176,28 @@ class PageAllocator:
                     f"{holds.get(p, 0)} holders claimed")
         return {"n_pages": self.n_pages, "n_free": len(free),
                 "n_owned": self.n_pages - 1 - len(free)}
+
+
+class CachePool:
+    """Bounded take/put pool of preallocated cache trees."""
+
+    def __init__(self, limit: int = 8):
+        self.limit = limit
+        self._entries = {}
+
+    def take(self, key):
+        """Remove and return the entry (None if absent): a call that writes
+        the tree holds the only reference, so a failed call cannot hand a
+        half-written tree to the next request."""
+        return self._entries.pop(key, None)
+
+    def put(self, key, value):
+        if key not in self._entries and len(self._entries) >= self.limit:
+            self._entries.pop(next(iter(self._entries)))   # FIFO eviction
+        self._entries[key] = value
+
+    def __contains__(self, key):
+        return key in self._entries
+
+    def __len__(self):
+        return len(self._entries)

@@ -59,11 +59,16 @@ class ShedError(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
-    """Per-request sampling state. ``temperature`` > 0 (sampled decoding) is
-    refused at submit in this slice; ``stop_token`` finishes a request
-    early, releasing its lane and pages, and is itself the last token."""
+    """Per-request sampling state, threaded through the decode lanes.
+
+    temperature <= 0 decodes greedily; > 0 samples from the request's own
+    stream — ``PRNGKey(seed)`` when ``seed`` is given, else the session key
+    folded with the request id (independent of lane placement either way).
+    ``stop_token`` finishes a request early, releasing its lane and pages,
+    and is itself the last token."""
     max_tokens: int = 16
     temperature: float = 0.0
+    seed: Optional[int] = None
     stop_token: Optional[int] = None
 
 

@@ -24,6 +24,14 @@ fork of a partly filled boundary page), a prompt sharing cached full pages
 prefills only its uncached tail over the prefix pages read in place, and a
 finishing request donates its prompt pages to the index.
 
+Sampling state rides per lane, as in the JAX package: a request with
+temperature > 0 draws from its own stream, ``PRNGKey(seed)`` when its
+``SamplingParams`` carry a seed, else the session key folded with its
+request id, at its own step (the first token at step 0 from the prefill
+logits, decode step i at i), so its tokens do not depend on its lane or
+its co-tenants. The keys, steps and temperatures live in host mirrors and
+reach the device as each segment's inputs.
+
 The segment is a Python loop over preallocated pools updated in place — the
 counterpart of the JAX package's donated ``lax.scan``. A kernel error
 propagates to the caller; there is no containment path in this slice.
@@ -39,7 +47,7 @@ import torch
 
 from .paged_cache import fork_page, pages_for
 from .prefix_cache import PrefixCache
-from .sampling import sample_tokens
+from .sampling import PRNGKey, fold_in, sample_tokens
 from .scheduler import (TERMINAL, Request, RequestStatus, SamplingParams,
                         Scheduler)
 
@@ -134,7 +142,10 @@ class RequestHandle:
 class ServeSession:
     """One live serving context: a scheduler, a paged pool on the engine's
     device, and host mirrors of the lane state (block table, positions,
-    current tokens) uploaded once per segment.
+    current tokens, and each lane's sampling key, step and temperature)
+    uploaded once per segment. ``key`` is the session's raw (2,) uint32 key
+    (``PRNGKey(0)`` by default), the stream of sampled requests without a
+    seed.
 
     ``stats`` counts the device work a run did: ``decode_steps`` (one per
     step of a segment), ``prefills`` (cold prefills, {bucket length:
@@ -145,7 +156,7 @@ class ServeSession:
 
     def __init__(self, engine, *, lanes: int = 4, page_size: int = 16,
                  n_pages: Optional[int] = None, segment: int = 1,
-                 buckets: Optional[Sequence[int]] = None,
+                 key=None, buckets: Optional[Sequence[int]] = None,
                  prefix_cache: Optional[bool] = None):
         if segment < 1 or page_size < 1 or lanes < 1:
             raise ValueError("segment, page_size and lanes must be >= 1")
@@ -154,6 +165,8 @@ class ServeSession:
         self.lanes = lanes
         self.page_size = page_size
         self.segment = segment
+        self.key = PRNGKey(0) if key is None \
+            else np.asarray(key, np.uint32).reshape(2)
         self._table_cols = -(-engine.max_len // page_size)
         if n_pages is None:    # full residency for every lane + garbage page
             n_pages = lanes * self._table_cols + 1
@@ -176,13 +189,16 @@ class ServeSession:
         self._bt = np.zeros((lanes, self._table_cols), np.int32)
         self._pos = np.zeros((lanes,), np.int32)
         self._cur = np.zeros((lanes, 1), np.int32)
+        self._steps = np.zeros((lanes,), np.int32)
+        self._temps = np.zeros((lanes,), np.float32)
+        self._keys = np.zeros((lanes, 2), np.uint32)
 
     # -- lifecycle -----------------------------------------------------------
     def submit(self, prompt, params: Optional[SamplingParams] = None
                ) -> RequestHandle:
         """Enqueue a request at any time. An empty prompt, a zero budget, a
-        prompt+budget past ``max_len``, a page budget the pool can never
-        satisfy, or sampled decoding raise here, before any compute."""
+        prompt+budget past ``max_len`` or a page budget the pool can never
+        satisfy raise here, before any compute."""
         if self._closed:
             raise RuntimeError("session is closed")
         p = np.asarray(prompt, np.int32).reshape(-1)
@@ -190,9 +206,6 @@ class ServeSession:
         rid = self._next_rid
         if params.max_tokens < 1 or p.size < 1:
             raise ValueError(f"request {rid}: empty prompt or zero token budget")
-        if params.temperature > 0.0:
-            raise NotImplementedError(f"request {rid}: sampled decoding "
-                                      "(temperature > 0) is not ported yet")
         if p.size + params.max_tokens > self.engine.max_len:
             raise ValueError(
                 f"request {rid}: {p.size}+{params.max_tokens} tokens exceeds "
@@ -282,7 +295,16 @@ class ServeSession:
         """Point a released lane at the garbage page: its in-flight segment
         writes land on page 0 and its position masks every read."""
         self._bt[lane] = 0
-        self._pos[lane] = self._cur[lane] = 0
+        self._pos[lane] = self._cur[lane] = self._steps[lane] = 0
+        self._temps[lane] = 0.0
+        self._keys[lane] = 0
+
+    def _lane_key(self, req) -> np.ndarray:
+        """The request's raw (2,) uint32 key: ``PRNGKey(seed)``, else the
+        session key folded with its request id."""
+        if req.params.seed is not None:
+            return PRNGKey(req.params.seed)
+        return fold_in(self.key, req.rid).numpy().astype(np.uint32)
 
     def _prefix_page_bucket(self, n: int) -> int:
         """Pow-2 bucket of the prefix page count of a tail prefill (the JAX
@@ -331,7 +353,7 @@ class ServeSession:
             prefix_ids[:o_pages] = req.pages[:o_pages]
         logits = self.engine.prefill_commit(
             self._pool, padded, T, page_ids, self.page_size, offset=o,
-            prefix_ids=prefix_ids)
+            prefix_ids=prefix_ids, lane=req.lane)
         self.stats["tail_prefills" if o else "prefills"][bucket] += 1
         if self.prefix is not None:
             req.cache_extras = {
@@ -358,13 +380,20 @@ class ServeSession:
                 logits = self._admit_exact(req, S)
             else:
                 logits = self._admit_prefill(req, eff, S)
-            tok0 = int(sample_tokens(self.cfg, logits[:, -1])[0, 0])
+            lane_key = self._lane_key(req)
+            e = len(req.emitted)
+            temp = req.params.temperature
+            tok0 = int(sample_tokens(self.cfg, logits[:, -1], temp,
+                                     lane_key if temp > 0 else None, e)[0, 0])
             req.first_token_at = time.perf_counter()
             lane = req.lane
             self._bt[lane] = 0
             self._bt[lane, :len(req.pages)] = req.pages
             self._pos[lane] = S
             self._cur[lane, 0] = tok0
+            self._steps[lane] = e
+            self._temps[lane] = temp
+            self._keys[lane] = lane_key
             req.status = RequestStatus.DECODING
             if req.params.stop_token is not None \
                     and tok0 == req.params.stop_token:
@@ -378,7 +407,9 @@ class ServeSession:
     def _decode_segment(self) -> bool:
         """``segment`` decode steps over the full lane pool; lanes whose
         request finished or was cancelled compute into the garbage page.
-        Returns False when no lane is live."""
+        A segment with a sampled lane draws every lane's token from its own
+        key at its own step (greedy lanes take the argmax); an all-greedy
+        segment does no random work. Returns False when no lane is live."""
         if not self.sched.active:
             if self.sched.pending:   # unreachable given check_fits at submit
                 raise RuntimeError("scheduler deadlock: pending requests "
@@ -389,15 +420,27 @@ class ServeSession:
                  "block_table": torch.from_numpy(self._bt).to(dev),
                  "pos": torch.from_numpy(self._pos).to(dev)}
         tok = torch.from_numpy(self._cur).to(dev)
+        sampled = any(r.params.temperature > 0
+                      for r in self.sched.active.values())
+        temps = keys = steps = None
+        if sampled:
+            temps = torch.from_numpy(self._temps).to(dev)
+            keys = torch.from_numpy(self._keys.astype(np.int64)).to(dev)
+            steps = torch.from_numpy(self._steps).to(dev)
         toks = []
-        for _ in range(self.segment):
+        for i in range(self.segment):
             logits, cache = self.engine.decode_step(cache, tok)
-            tok = sample_tokens(self.cfg, logits[:, -1])
+            if sampled:
+                tok = sample_tokens(self.cfg, logits[:, -1], temps, keys,
+                                    steps + (i + 1))
+            else:
+                tok = sample_tokens(self.cfg, logits[:, -1])
             toks.append(tok[:, 0])
         self.stats["decode_steps"] += self.segment
         self._last_toks = torch.stack(toks).cpu().numpy()
         self._cur = tok.cpu().numpy()
         self._pos += self.segment
+        self._steps += self.segment
         return True
 
     def _drain_finished(self):

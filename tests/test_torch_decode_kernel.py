@@ -40,6 +40,8 @@ _BF, _I8, _F32 = torch.bfloat16, torch.int8, torch.float32
     (_BF, _BF, 64, 1, 8, "tensor_cores"),
     (_BF, _I8, 128, 8, 32, "tensor_cores"),
     (_BF, _BF, 128, 2, 256, "tensor_cores"),
+    (_BF, _BF, 128, 6, 16, "tensor_cores"),    # qwen2.5-14b: 48 q / 8 KV heads
+    (_BF, _I8, 128, 6, 16, "tensor_cores"),
     (_BF, _BF, 256, 4, 4, "cuda_cores"),       # below a swizzle period
     (_BF, _I8, 256, 4, 12, "cuda_cores"),      # not a power of two
     (_F32, _F32, 256, 4, 16, "cuda_cores"),    # the small fp32 models

@@ -12,6 +12,7 @@ import torch
 
 import repro_torch
 from repro_torch.configs import get_smoke
+from repro_torch.launch import serve as serve_launcher
 from repro_torch.launch import train as train_launcher
 from repro_torch.models import lm_init
 from repro_torch.serve import ServeEngine
@@ -48,7 +49,11 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.kernels.boolean_matmul", "repro_torch.core.boolean_conv",
             "repro_torch.configs.bold_vgg_small", "repro_torch.vision",
             "repro_torch.vision.vgg", "repro_torch.vision.edsr",
-            "repro_torch.examples.finetune_boolean_cnn"} <= set(SUBMODULES)
+            "repro_torch.examples.finetune_boolean_cnn",
+            "repro_torch.launch.serve", "repro_torch.serve.sampling",
+            "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.qwen1_5_32b",
+            "repro_torch.configs.qwen1_5_110b",
+            "repro_torch.configs.bold_bert"} <= set(SUBMODULES)
 
 
 IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|repro)(?!\w)", re.M)
@@ -83,3 +88,10 @@ def test_train_launcher_default_device_refuses_a_host_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         train_launcher.main(["--arch", "gemma2-2b", "--smoke", "--steps", "1"])
+
+
+def test_serve_launcher_default_device_refuses_a_host_without_cuda(monkeypatch):
+    """The serve launcher's ``--device`` defaults to "cuda" too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_launcher.main(["--arch", "qwen2.5-14b", "--smoke"])

@@ -151,8 +151,12 @@ def test_generate_batch_and_handle_lifecycle(engines):
         stop = s.submit(prompts[0], SamplingParams(max_tokens=5,
                                                     stop_token=toks[1]))
         assert stop.result().tolist() == toks[:toks.index(toks[1]) + 1]
-        with pytest.raises(NotImplementedError):
-            s.submit(prompts[0], SamplingParams(max_tokens=2, temperature=0.7))
+        # sampled decoding: a seeded request's stream is its seed's alone,
+        # whichever lane and request id it gets
+        seeded = [s.submit(prompts[0], SamplingParams(
+            max_tokens=4, temperature=0.7, seed=5)).result() for _ in range(2)]
+        assert len(seeded[0]) == 4
+        assert seeded[0].tolist() == seeded[1].tolist()
         with pytest.raises(ValueError):
             s.submit(prompts[0], SamplingParams(max_tokens=MAX_LEN))
     small = teng.session(lanes=1, page_size=4, n_pages=3)
