@@ -160,7 +160,39 @@ wall seconds, each on a line of its own:
               plain full forward (new K/V rows and attention output within
               bf16 roundings) and to the exact attention over its own
               operands (tight enough that an fp16 or int8 rounding of the
-              kernel's output fails it, asserted).
+              kernel's output fails it, asserted);
+10. falcon -- falcon-mamba-7b at its published widths (64 mamba blocks,
+              d_model 4096, d_inner 8192, state 16, conv 4, dt_rank 256,
+              vocab 65024, bf16): lm_init on a seeded generator, packed
+              (pack_weights(consume=True)), served through
+              ServeEngine(packed=True, max_len=1024).session: 8 lanes, 16
+              greedy requests of phase 3's prompt lengths, 32 tokens each,
+              some submitted mid-flight. Launch counters exact (5 x 64 GEMV
+              a decode step and a prefill of <= 256 rows, no other kernel;
+              its five shapes, x_proj's N = 288 and dt_proj's K = 256
+              among them, bit-exact in phase 2), every launch on the
+              tensor-core route; decode step, tokens/s, TTFT, memory and
+              one profiled 8-step segment (GEMV, the selective scan's and
+              other elementwise work, the head); ssm_state_check: prefill
+              of S tokens then one decode step against the prefill of S +
+              1, every layer teacher-forced, h and conv within stated
+              tolerances (S = 100 and 300); then a prefix round on the same
+              engine (a 512-token shared prompt, 8 requests, 4 exact
+              repeats): exact-hit streams bit-identical to the streams that
+              seeded their records, every stored page-boundary snapshot
+              bit-identical to a rerun of the prefill that stored it, and
+              tail_state_check holding a tail resumed from the boundary
+              state to the cold prefill at every layer, teacher-forced;
+              partial-hit streams against cold runs read, not checked;
+11. families -- moonshot-v1-16b-a3b, arctic-480b and jamba-1.5-large-398b
+              at smoke widths (head_dim 64) in fp32, served packed and on
+              int8 leaves on the card (kernels) and on the CPU (plain
+              versions): phase 4's
+              mixed traffic identical but for counted near-ties, every
+              launch on the CUDA-core routes and counted as the model's
+              packed leaves and attention layers imply; jamba also
+              prefix-cached; musicgen-medium's and internvl2-26b's
+              lm_forward logits on embeddings within phase 4's tolerance.
 
 The last lines are one JSON object of kernel results, the card's name and
 power limit as nvidia-smi reports them, and the result object.
@@ -1196,9 +1228,11 @@ KERNEL_GROUPS = (("packed_xnor_gemv", ("xnor_gemv",)),
                  ("gemm (head, cuBLAS)", ("gemm", "sm90_", "cutlass", "nvjet")))
 
 
-def _profiled(torch, fn, steps=1):
+def _profiled(torch, fn, steps=1, kernel_groups=KERNEL_GROUPS,
+              rest="other kernels"):
     """Wall time of ``fn()`` (ended by a synchronize) and the device time of
-    its kernels by KERNEL_GROUPS, from torch.profiler (CUPTI)."""
+    its kernels by ``kernel_groups`` (name, name fragments), the others
+    under ``rest``, from torch.profiler (CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1207,8 +1241,8 @@ def _profiled(torch, fn, steps=1):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
-    groups["other kernels"] = 0.0
+    groups = {g: 0.0 for g, _ in kernel_groups}
+    groups[rest] = 0.0
     n_kernels = 0
     for e in prof.events():
         if str(e.device_type) != "DeviceType.CUDA":
@@ -1216,12 +1250,12 @@ def _profiled(torch, fn, steps=1):
         ms = e.time_range.elapsed_us() / 1e3
         name = e.name.lower()
         n_kernels += 1
-        for g, keys in KERNEL_GROUPS:
+        for g, keys in kernel_groups:
             if any(k in name for k in keys):
                 groups[g] += ms
                 break
         else:
-            groups["other kernels"] += ms
+            groups[rest] += ms
     busy = sum(groups.values())
     return {"wall_ms": wall_ms, "steps": steps, "device_ms": busy,
             "device_events": n_kernels,
@@ -1229,12 +1263,13 @@ def _profiled(torch, fn, steps=1):
             "device_ms_by_group": groups}
 
 
-def profile_segment(torch, engine, prompts, n_tok, params_for=None, key=None):
+def profile_segment(torch, engine, prompts, n_tok, params_for=None, key=None,
+                    **groups):
     """Device time by kernel group over an admission round of 8 prompts
     (their prefills) and then one decode segment at 8 busy lanes, from
     torch.profiler (CUPTI), against each one's wall time. ``params_for(i)``
     gives request i's SamplingParams (greedy by default), ``key`` the
-    session key."""
+    session key; ``groups``: ``_profiled``'s kernel_groups and rest."""
     from repro_torch.serve import SamplingParams
 
     if params_for is None:
@@ -1243,8 +1278,8 @@ def profile_segment(torch, engine, prompts, n_tok, params_for=None, key=None):
     sess = engine.session(lanes=8, page_size=16, segment=8, key=key)
     for i, p in enumerate(prompts):
         sess.submit(p, params_for(i))
-    admission = _profiled(torch, sess.step)            # admission round
-    out = _profiled(torch, sess.step, sess.segment)    # one decode segment
+    admission = _profiled(torch, sess.step, **groups)   # admission round
+    out = _profiled(torch, sess.step, sess.segment, **groups)  # a segment
     sess.close()
     out["admission"] = admission
     for label, r in (("admission round", admission),
@@ -1399,7 +1434,7 @@ def serve(torch, seed: int):
 
 
 # ---------------------------------------------------------------------------
-# prefix-cached traffic (phases 4 and 7)
+# prefix-cached traffic (phases 4, 7, 10 and 11)
 # ---------------------------------------------------------------------------
 def prefix_traffic(torch, engine, prompts, repeats, n_tok, *, lanes, page,
                    segment):
@@ -1409,9 +1444,10 @@ def prefix_traffic(torch, engine, prompts, repeats, n_tok, *, lanes, page,
     exists). The launch counters are zeroed just before and read after the
     drain, and around the repeats' admission round. Returns the streams,
     each request's admission kind, TTFT by kind (the session's own
-    submit-to-first-token stamps), decode step times, session stats and
-    launch counts (by route for the kernels with two); the pages must be
-    conserved after the drain."""
+    submit-to-first-token stamps), decode step times, session stats,
+    launch counts (by route for the kernels with two) and the session's
+    prefix index (its nodes' SSM snapshots stay readable); the pages must
+    be conserved after the drain."""
     from repro_torch.kernels import KERNELS
     from repro_torch.serve import SamplingParams
 
@@ -1464,6 +1500,7 @@ def prefix_traffic(torch, engine, prompts, repeats, n_tok, *, lanes, page,
     assert not sess.sched.active
     assert sess.prefix.owned_pages + alloc.n_free == alloc.n_pages - 1
     audit = sess.audit()
+    index = sess.prefix
     stats = {"decode_steps": sess.stats["decode_steps"],
              "prefills": sum(sess.stats["prefills"].values()),
              "tail_prefills": sum(sess.stats["tail_prefills"].values()),
@@ -1482,7 +1519,8 @@ def prefix_traffic(torch, engine, prompts, repeats, n_tok, *, lanes, page,
             "admit_ms": admit,
             "step_ms": step_ms, "stats": stats, "launches": launches,
             "gemv_routes": routes["packed_xnor_gemv"], "routes": routes,
-            "repeat_round_launches": repeat_round, "audit": audit}
+            "repeat_round_launches": repeat_round, "audit": audit,
+            "index": index}
 
 
 def expected_kinds(n, repeats, quant):
@@ -2458,14 +2496,16 @@ def qwen_sampling(i: int, seed: int, n_tok: int = QWEN_TOKENS):
                           seed=seed + 1000 + i if i % 4 == 2 else None)
 
 
-def qwen_timed_segments(torch, engine, prompts, skey, seed: int):
-    """Phase 9's first 8 requests admitted untimed, then each decode segment
-    timed between synchronizes until the lanes drain -> (ms a step for each
-    segment, decode tokens, decode seconds)."""
+def timed_segments(torch, engine, prompts, skey, params_for,
+                   n_tok: int = QWEN_TOKENS):
+    """The first 8 requests (``params_for(i)``: request i's SamplingParams)
+    admitted untimed, then each decode segment timed between synchronizes
+    until the lanes drain -> (ms a step for each segment, decode tokens,
+    decode seconds)."""
     seg_ms, decode_tokens, decode_s = [], 0, 0.0
     sess = engine.session(lanes=8, page_size=16, segment=8, key=skey)
     for i in range(8):
-        sess.submit(prompts[i], qwen_sampling(i, seed))
+        sess.submit(prompts[i], params_for(i))
     while sess.step():
         if not sess.sched.pending and all(
                 len(r.emitted) for r in sess.sched.active.values()):
@@ -2480,7 +2520,7 @@ def qwen_timed_segments(torch, engine, prompts, skey, seed: int):
         dt = time.perf_counter() - t
         seg_ms.append(dt * 1e3 / sess.segment)
         decode_tokens += min(lanes_live * sess.segment,
-                             lanes_live * QWEN_TOKENS - before)
+                             lanes_live * n_tok - before)
         decode_s += dt
     sess.close()
     return seg_ms, decode_tokens, decode_s
@@ -2502,7 +2542,7 @@ def launch_us(torch, n: int = 20000) -> float:
 
 
 def step_probe(torch, seed: int):
-    """``--step-probe``: phase 9's decode step (``qwen_timed_segments``, the
+    """``--step-probe``: phase 9's decode step (``timed_segments``, the
     same engine and traffic) and the host cost of one launch, read in turn
     in one process: fresh, fresh again, after a torch.profiler session (as
     phases 3, 5, 7 and 9 hold one), after CPU matmuls on the default
@@ -2529,8 +2569,8 @@ def step_probe(torch, seed: int):
     readings = []
 
     def read(label):
-        seg_ms, toks, secs = qwen_timed_segments(torch, engine, prompts,
-                                                 skey, seed)
+        seg_ms, toks, secs = timed_segments(
+            torch, engine, prompts, skey, lambda i: qwen_sampling(i, seed))
         r = {"after": label, "launch_us": launch_us(torch),
              "step_ms_median": statistics.median(seg_ms),
              "tokens_per_s": toks / secs, "step_ms": seg_ms}
@@ -2967,8 +3007,8 @@ def serve_qwen(torch, seed: int):
     ttft = [1e3 * (first_at[r] - submitted[r]) for r in first_at]
 
     # the same traffic again, timed per segment, for the step and token rates
-    seg_ms, decode_tokens, decode_s = qwen_timed_segments(torch, engine,
-                                                          prompts, skey, seed)
+    seg_ms, decode_tokens, decode_s = timed_segments(
+        torch, engine, prompts, skey, lambda i: qwen_sampling(i, seed))
     host_launch_us = launch_us(torch)
     profile = profile_segment(torch, engine, prompts[:8], QWEN_TOKENS,
                               lambda i: qwen_sampling(i, seed), skey)
@@ -3007,6 +3047,549 @@ def serve_qwen(torch, seed: int):
           f"{peak / 1e9:.2f} GB while serving ({card})")
     metrics["device"] = card
     return engine, metrics
+
+
+# ---------------------------------------------------------------------------
+# 10. falcon-mamba-7b at published widths
+# ---------------------------------------------------------------------------
+# falcon-mamba-7b's five packed projections a block: (name, K, N); x_proj's
+# N = 288 leaves a partial 32-column tile of the tensor-core route, dt_proj's
+# K = 256 is 8 words (two 4-word stages)
+MAMBA_GEMV_SHAPES = (("in_x", 4096, 8192), ("in_z", 4096, 8192),
+                     ("x_proj", 8192, 288), ("dt_proj", 256, 8192),
+                     ("out_proj", 8192, 4096))
+MAMBA_TOKENS = 32
+MAMBA_KERNEL_GROUPS = (("packed_xnor_gemv", ("xnor_gemv",)),
+                       ("gemm (head; projections of > 256 rows, cuBLAS)",
+                        ("gemm", "sm90_", "cutlass", "nvjet")))
+MAMBA_REST = "elementwise (selective scan, conv, norms, unpack)"
+# ssm_state_check: a prefill of <= 256 rows (the GEMV) and one past it (the
+# unpacked matmul). Tolerances relative to the layer's max |state|. h: the
+# prefill and the decode round dt to bf16 apart (2^-8) and dt enters
+# exp(dt·A) with |A| up to 16, so decay's relative error reaches
+# 16·dt·2^-8 = 2^-4 at dt near 1; conv: the rows of x alone, a bf16
+# rounding (2^-8) with room for two
+MAMBA_STATE_PROMPTS = (100, 300)
+MAMBA_STATE_TOL = {"h": 2.0 ** -4, "conv": 2.0 ** -6}
+MAMBA_PFX_SYSTEM, MAMBA_PFX_REQUESTS, MAMBA_PFX_REPEATS = 512, 8, (0, 2, 4, 6)
+
+
+def _rel(got, ref):
+    """max |got - ref| over max |ref|."""
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def ssm_state_check(torch, eng, prompt):
+    """Prefill(S) then one decode step against prefill(S + 1), layer by
+    layer and teacher-forced: the input to each mamba block of a prefill of
+    ``prompt`` (S + 1 tokens) is kept, and at every layer the block runs
+    over its first S rows (return_state), then ``mamba_decode`` on row S
+    from that state; its h and conv must equal the block's state over all
+    S + 1 rows within MAMBA_STATE_TOL of the layer's max |state|. Returns
+    the ratio to the tolerance by layer."""
+    import repro_torch.models.mamba as M
+    from repro_torch.models import lm_prefill
+    from repro_torch.models.lm import index_tree
+
+    cfg = eng.cfg
+    S = len(prompt) - 1
+    xs, apply = [], M.mamba_apply
+
+    def keep(cfg_, p, x, **kw):
+        xs.append(x)
+        return apply(cfg_, p, x, **kw)
+
+    M.mamba_apply = keep
+    try:
+        with torch.no_grad():
+            lm_prefill(cfg, eng.params, {"tokens": torch.from_numpy(
+                prompt[None]).to(eng.device)})
+    finally:
+        M.mamba_apply = apply
+    assert len(xs) == cfg.n_layers, len(xs)
+    ratios = {"h": [], "conv": []}
+    with torch.no_grad():
+        for g, x in enumerate(xs):
+            p = index_tree(eng.params["blocks"]["b0"]["mamba"], g)
+            _, (h1, c1) = apply(cfg, p, x, return_state=True)
+            _, (h0, c0) = apply(cfg, p, x[:, :S], return_state=True)
+            _, new = M.mamba_decode(cfg, p, x[:, S:S + 1],
+                                    {"h": h0, "conv": c0.float()})
+            ratios["h"].append(_rel(new["h"], h1) / MAMBA_STATE_TOL["h"])
+            ratios["conv"].append(_rel(new["conv"], c1)
+                                  / MAMBA_STATE_TOL["conv"])
+    worst = {k: max(v) for k, v in ratios.items()}
+    print(f"  ssm_state_check S={S} ({'GEMV' if S + 1 <= 256 else 'unpacked'}"
+          f" prefill rows): worst layer at {worst['h']:.3f} (h) and "
+          f"{worst['conv']:.3f} (conv) of the tolerance {MAMBA_STATE_TOL} "
+          f"x max |state|; by layer h {[round(r, 3) for r in ratios['h']]}")
+    assert max(worst.values()) <= 1.0, worst
+    return {"S": S, "tol": MAMBA_STATE_TOL, "worst": worst,
+            "by_layer": ratios}
+
+
+def _prefill_snaps(torch, eng, tokens, bucket: int, page: int, **tail):
+    """The page-boundary snapshots of a prefill of ``tokens`` right-padded
+    to ``bucket``, as the session runs it (``tail``: offset, ssm_init)."""
+    import numpy as np
+    from repro_torch.models import lm_prefill
+
+    padded = np.zeros((bucket,), np.int32)
+    padded[:len(tokens)] = tokens
+    if tail:       # an attention-free tail: no prefix pages to read
+        tail.update(prefix_len=tail["offset"], prefix_pages={},
+                    prefix_ids=torch.zeros(1, dtype=torch.int32,
+                                           device=eng.device))
+    with torch.no_grad():
+        return lm_prefill(eng.cfg, eng.params, {"tokens": torch.from_numpy(
+            padded[None]).to(eng.device)}, length=len(tokens),
+            state_at=tuple(range(page, bucket + 1, page)), **tail)[2]
+
+
+def snapshot_check(torch, eng, index, prompts, hit: int, page: int):
+    """Every page-boundary snapshot the prefix index holds against the state
+    of the prefill that stored it, rerun as the session ran it, bit for bit
+    at every layer: request 0's cold prefill (its bucket, its length) for
+    the shared pages and its own, and each partial hit's tail prefill (at
+    offset ``hit``, resumed from the cold run's state there) for its tail
+    pages. At published widths with random weights the other prefills'
+    states part chaotically from these (a bf16 rounding grows through 64
+    blocks), so the numerics of resuming are held by ``tail_state_check``,
+    teacher-forced. Returns the count."""
+    import numpy as np
+    from repro_torch.serve.session import _default_bucket
+
+    def at(snaps, idx):
+        return {bi: {k: t[:, :, idx] for k, t in leaves.items()}
+                for bi, leaves in snaps.items()}
+
+    cold = _prefill_snaps(torch, eng, prompts[0],
+                          _default_bucket(len(prompts[0])), page)
+    n_hit = hit // page
+    tails = {}
+
+    def stored_by(owner, k):
+        """The snapshots of the prefill that stored page k, and its index."""
+        if owner == 0 or k < n_hit:
+            return cold, k
+        if owner not in tails:
+            T = len(prompts[owner]) - hit
+            tails[owner] = _prefill_snaps(
+                torch, eng, prompts[owner][hit:], _default_bucket(T), page,
+                offset=hit, ssm_init=at(cold, n_hit - 1))
+        return tails[owner], k - n_hit
+
+    stack, count = [(index.root, 0)], 0
+    while stack:
+        node, depth = stack.pop()
+        stack.extend((c, depth + len(node.pages)) for c in node.children.values())
+        if node is index.root:
+            continue
+        path = np.concatenate([n.key for n in index._chain(node)])
+        owner = next(i for i, p in enumerate(prompts)
+                     if np.array_equal(p[:len(path)], path))
+        for j, snap in enumerate(node.snaps):
+            want = at(*stored_by(owner, depth + j))
+            for bi, leaves in snap.items():
+                for name, t in leaves.items():
+                    assert torch.equal(t, want[bi][name]), \
+                        (owner, depth + j, bi, name)
+            count += 1
+    print(f"  snapshot check: {count} stored page-boundary snapshots x "
+          f"{eng.cfg.n_layers} layers bit-identical to a rerun of the "
+          "prefill that stored each")
+    assert count > 0
+    return count
+
+
+def tail_state_check(torch, eng, prompt, hit: int, page: int):
+    """A partial hit's tail prefill resumed from the boundary state, layer
+    by layer and teacher-forced: the input to each mamba block of a cold
+    prefill of ``prompt`` is kept; at every layer the block runs over all
+    rows (the cold states at every page boundary, ``state_at``) and over
+    the rows from ``hit`` on, resumed from the cold state at ``hit`` (h0,
+    conv0), as the session's tail prefill does; the tail's snapshots and
+    end state must equal the cold ones within MAMBA_STATE_TOL of the
+    layer's max |state|. Returns the worst ratio to the tolerance."""
+    import repro_torch.models.mamba as M
+    from repro_torch.models import lm_prefill
+    from repro_torch.models.lm import index_tree
+
+    cfg = eng.cfg
+    S = len(prompt)
+    xs, apply = [], M.mamba_apply
+
+    def keep(cfg_, p, x, **kw):
+        xs.append(x)
+        return apply(cfg_, p, x, **kw)
+
+    M.mamba_apply = keep
+    try:
+        with torch.no_grad():
+            lm_prefill(cfg, eng.params, {"tokens": torch.from_numpy(
+                prompt[None]).to(eng.device)})
+    finally:
+        M.mamba_apply = apply
+    bounds = tuple(range(page, S + 1, page))
+    k0 = hit // page - 1
+    worst = {"h": 0.0, "conv": 0.0}
+    with torch.no_grad():
+        for g, x in enumerate(xs):
+            p = index_tree(eng.params["blocks"]["b0"]["mamba"], g)
+            _, end, ref = apply(cfg, p, x, return_state=True, state_at=bounds)
+            _, tend, tail = apply(
+                cfg, p, x[:, hit:], h0=ref["h"][:, k0],
+                conv0=ref["conv"][:, k0].float(), return_state=True,
+                state_at=tuple(b - hit for b in bounds if b > hit))
+            pairs = [(tail[k], ref[k][:, k0 + 1:]) for k in ("h", "conv")]
+            pairs += [(tend[0], end[0]), (tend[1], end[1])]
+            for (got, want), name in zip(pairs, ("h", "conv", "h", "conv")):
+                worst[name] = max(worst[name],
+                                  _rel(got, want) / MAMBA_STATE_TOL[name])
+    print(f"  tail_state_check: a {S - hit}-token tail resumed at {hit}, "
+          f"{len(bounds) - k0 - 1} boundaries x {len(xs)} layers, teacher-"
+          f"forced: worst at {worst['h']:.3f} (h) and {worst['conv']:.3f} "
+          f"(conv) of the tolerance {MAMBA_STATE_TOL} x max |state|")
+    assert len(xs) == cfg.n_layers and max(worst.values()) <= 1.0, worst
+    return worst
+
+
+def falcon_prefix(torch, eng, seed: int):
+    """The prefix round of phase 10 on the same engine: a 512-token shared
+    prompt, 8 requests (distinct tails of 16..64 tokens; the first cold,
+    the rest partial hits resuming the recurrence from the snapshot at
+    512), then 4 exact repeats."""
+    import numpy as np
+
+    cfg = eng.cfg
+    V, L = cfg.vocab_size, cfg.n_layers
+    rng = np.random.default_rng(seed + 11)
+    system = rng.integers(0, V, (MAMBA_PFX_SYSTEM,)).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(0, V, (n,)).astype(np.int32)])
+               for n in rng.integers(16, 65, (MAMBA_PFX_REQUESTS,))]
+    res = prefix_traffic(torch, eng, prompts, MAMBA_PFX_REPEATS, MAMBA_TOKENS,
+                         lanes=8, page=16, segment=8)
+    want_kinds = expected_kinds(MAMBA_PFX_REQUESTS, MAMBA_PFX_REPEATS, False)
+    assert res["kinds"] == want_kinds, (res["kinds"], want_kinds)
+    st, launches = res["stats"], res["launches"]
+    n_exact = want_kinds.count("exact")
+    assert (st["exact_admits"], st["prefills"], st["tail_prefills"]) \
+        == (n_exact, 1, MAMBA_PFX_REQUESTS - 1), st
+    gemv_prefills = sum(c for b, c in st["buckets"].items() if int(b) <= 256)
+    want = {k: 0 for k in launches}
+    want["packed_xnor_gemv"] = 5 * L * (st["decode_steps"] + gemv_prefills)
+    print(f"  prefix round: kinds {want_kinds}, prefix stats {st['prefix']}; "
+          f"launches {launches}, expected {want}")
+    assert launches == want, (launches, want)
+    assert res["routes"]["packed_xnor_gemv"] == {
+        "tensor_cores": want["packed_xnor_gemv"], "cuda_cores": 0}
+    assert res["repeat_round_launches"]["packed_xnor_gemv"] == 0
+    streams = res["streams"]
+    for j, i in enumerate(MAMBA_PFX_REPEATS):
+        assert streams[MAMBA_PFX_REQUESTS + j] == streams[i], (i, j)
+    print(f"  exact-hit streams bit-identical to the streams that seeded "
+          f"their records: prompts {list(MAMBA_PFX_REPEATS)} (prompt 0's "
+          "its cold run)")
+    # read, not checked (phase 7's reason): partial hits against cold runs
+    cold = eng.generate_batch(prompts, MAMBA_TOKENS, lanes=8, page_size=16,
+                              segment=8, prefix_cache=False)
+    assert cold[0].tolist() == streams[0]
+    agree = [next((t for t, (x, y) in enumerate(zip(streams[i], cold[i].tolist()))
+                   if x != y), MAMBA_TOKENS)
+             for i in range(1, MAMBA_PFX_REQUESTS)]
+    print(f"  partial-hit tokens agreeing with a cold run before the first "
+          f"divergence: {agree} (of {MAMBA_TOKENS} each)")
+    snaps = snapshot_check(torch, eng, res["index"], prompts,
+                           MAMBA_PFX_SYSTEM, 16)
+    i = max(range(1, MAMBA_PFX_REQUESTS), key=lambda j: len(prompts[j]))
+    tail = tail_state_check(torch, eng, prompts[i], MAMBA_PFX_SYSTEM, 16)
+    ttft = {k: statistics.median(v) for k, v in res["ttft_ms"].items()}
+    admit = {k: statistics.median(v) for k, v in res["admit_ms"].items()}
+    print(f"  TTFT median (admission work alone) cold {ttft['cold']:.1f} "
+          f"({admit['cold']:.1f}) ms, partial {ttft['partial']:.1f} "
+          f"({admit['partial']:.1f}) ms, exact {ttft['exact']:.1f} "
+          f"({admit['exact']:.1f}) ms")
+    return {"kinds": want_kinds, "stats": st, "launches": launches,
+            "partial_agreement": agree, "snapshots": snaps,
+            "tail_state_check": tail,
+            "ttft_ms_median": ttft, "admit_ms_median": admit,
+            "step_ms_median": statistics.median(res["step_ms"])}
+
+
+def serve_falcon(torch, seed: int):
+    """Phase 10: falcon-mamba-7b at its published widths (64 mamba blocks,
+    d_model 4096, d_inner 8192, state 16, conv 4, dt_rank 256, vocab
+    65024, bf16), packed, through ServeEngine.session: 8 lanes, greedy, 16
+    requests of phase 3's prompt lengths, 32 tokens each, some submitted
+    mid-flight. Launch counts exact (5 x 64 GEMV a decode step and a
+    prefill of <= 256 rows, every one on the tensor-core route, no other
+    kernel); decode step, tokens/s, TTFT, memory and one profiled 8-step
+    segment; ssm_state_check; the prefix round."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import lm_init
+    from repro_torch.serve import RequestStatus, SamplingParams, ServeEngine, pack_weights
+
+    cfg = get_config("falcon-mamba-7b")
+    L = cfg.n_layers
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(seed + 10))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, pack_weights(params, consume=True), max_len=1024,
+                         packed=True)
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    card = smi_line()
+    print(f"  falcon-mamba-7b {L} layers d_model {cfg.d_model} d_inner "
+          f"{cfg.d_inner_} state {cfg.ssm_state} vocab {cfg.vocab_size} "
+          f"{cfg.dtype}: init {init_s:.1f} s, init + pack {setup_s:.1f} s, "
+          f"peak memory of init + pack {setup_peak / 1e9:.2f} GB "
+          f"({base / 1e9:.2f} GB held before), resident after "
+          f"{resident / 1e9:.2f} GB ({card})")
+    assert setup_peak < 80e9, f"init + pack peaked at {setup_peak} bytes"
+
+    rng = np.random.default_rng(seed + 10)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in QWEN_LENS]
+    greedy = SamplingParams(max_tokens=MAMBA_TOKENS)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    submitted, first_at, handles = {}, {}, []
+    sess = engine.session(lanes=8, page_size=16, segment=8)
+
+    def submit(i):
+        submitted[i] = time.perf_counter()
+        handles.append(sess.submit(prompts[i], greedy))
+
+    for i in range(QWEN_FIRST_WAVE):
+        submit(i)
+    steps = 0
+    t_serve = time.perf_counter()
+    while sess.step():
+        steps += 1
+        now = time.perf_counter()
+        for h in handles:
+            if h.rid not in first_at and h.tokens_ready:
+                first_at[h.rid] = now
+        if steps == 2:
+            for i in range(QWEN_FIRST_WAVE, len(prompts)):
+                submit(i)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t_serve
+    launches = {k.__name__: k.launches for k in KERNELS}
+    routes = route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    stats = sess.stats
+    d_steps = stats["decode_steps"]
+    gemv_prefills = sum(c for b, c in stats["prefills"].items() if b <= 256)
+    want = {k: 0 for k in launches}
+    want["packed_xnor_gemv"] = 5 * L * (d_steps + gemv_prefills)
+    print(f"  served {len(handles)} greedy requests in {serve_s:.2f} s: "
+          f"{d_steps} decode steps, prefill buckets {dict(stats['prefills'])}")
+    print(f"  launches {launches}, expected {want} (5 x {L} GEMV per decode "
+          "step and per prefill of <= 256 rows)")
+    assert launches == want, (launches, want)
+    print(f"  GEMV launches by route {routes['packed_xnor_gemv']}")
+    assert routes["packed_xnor_gemv"] == {"tensor_cores": want["packed_xnor_gemv"],
+                                          "cuda_cores": 0}, routes
+    for h in handles:
+        toks = h.tokens_so_far()
+        assert h.status is RequestStatus.DONE and len(toks) == MAMBA_TOKENS \
+            and all(0 <= t < cfg.vocab_size for t in toks), (h.rid, h.status)
+    ttft = [1e3 * (first_at[r] - submitted[r]) for r in first_at]
+    sess.close()
+
+    seg_ms, decode_tokens, decode_s = timed_segments(
+        torch, engine, prompts, None, lambda i: greedy, MAMBA_TOKENS)
+    host_launch_us = launch_us(torch)
+    profile = profile_segment(torch, engine, prompts[:8], MAMBA_TOKENS,
+                              kernel_groups=MAMBA_KERNEL_GROUPS,
+                              rest=MAMBA_REST)
+    state = [ssm_state_check(torch, engine, rng.integers(
+        0, cfg.vocab_size, (n + 1,)).astype(np.int32))
+        for n in MAMBA_STATE_PROMPTS]
+    prefix = falcon_prefix(torch, engine, seed)
+    metrics = {
+        "model": cfg.name, "requests": len(handles), "decode_steps": d_steps,
+        "prefill_buckets": {str(b): c for b, c in stats["prefills"].items()},
+        "serve_s": serve_s, "init_s": init_s, "setup_s": setup_s,
+        "setup_peak_bytes": setup_peak, "resident_bytes": resident,
+        "ttft_ms_median": statistics.median(ttft), "ttft_ms_max": max(ttft),
+        "step_ms_median": statistics.median(seg_ms),
+        "decode_tokens_per_s": decode_tokens / decode_s,
+        "launch_us": host_launch_us, "max_memory_allocated_bytes": peak,
+        "launches": launches, "routes": routes, "profiled_segment": profile,
+        "ssm_state_check": state, "prefix": prefix, "device": card}
+    print(f"  decode {metrics['decode_tokens_per_s']:.1f} tokens/s at 8 lanes, "
+          f"median step {metrics['step_ms_median']:.2f} ms (one launch "
+          f"{host_launch_us:.2f} us of host), TTFT median "
+          f"{metrics['ttft_ms_median']:.1f} ms max {metrics['ttft_ms_max']:.1f} "
+          f"ms, max_memory_allocated {peak / 1e9:.2f} GB while serving ({card})")
+    return engine, metrics
+
+
+# ---------------------------------------------------------------------------
+# 11. the other families at smoke widths: card (kernels) vs CPU
+# ---------------------------------------------------------------------------
+FAMILY_SMOKE = ("moonshot-v1-16b-a3b", "arctic-480b", "jamba-1.5-large-398b")
+EMBED_SMOKE = ("musicgen-medium", "internvl2-26b")
+
+
+def _packed_per_forward(params) -> int:
+    """The GEMV launches of one forward over the blocks: every packed leaf
+    of every group is applied once."""
+    from repro_torch.core import PackedBool
+
+    def count(t):
+        if isinstance(t, dict):
+            return sum(count(v) for v in t.values())
+        return t.bits.shape[0] if isinstance(t, PackedBool) else 0
+
+    return count(params["blocks"])
+
+
+def family_launches(cfg, params, decode_steps: int, buckets, n_prefills: int,
+                    n_tails: int):
+    """Launches a card session of ``cfg`` must make (all on the CUDA-core
+    routes at fp32): the GEMV per packed leaf for every decode step and
+    every prefill (cold or tail; ``buckets``: {bucket rows: count}) of <=
+    256 rows, and per attention layer the paged decode every step, the
+    flash prefill every cold prefill, the prefix attention every tail
+    prefill."""
+    from repro_torch.models import block_roles
+
+    n_attn = cfg.n_groups * sum(r["mixer"] != "mamba" for r in block_roles(cfg))
+    gemv_fwd = decode_steps + sum(c for b, c in buckets.items() if int(b) <= 256)
+    return {"packed_xnor_gemv": _packed_per_forward(params) * gemv_fwd,
+            "paged_flash_decode": n_attn * decode_steps,
+            "flash_attention_fwd": n_attn * n_prefills,
+            "paged_prefix_attention": n_attn * n_tails}
+
+
+def families_agree(torch, seed: int):
+    """Phase 11: moonshot-v1-16b-a3b, arctic-480b and jamba-1.5-large-398b
+    at smoke widths (head_dim 64, as phase 4) in fp32, served packed and
+    on int8 leaves on the card
+    and on the CPU: phase 4's mixed traffic (greedy, seeded and session-
+    keyed lanes, a cancel) identical card vs CPU but for counted near-ties,
+    the card's launches on the CUDA-core routes exactly as the model's
+    attention layers and packed leaves imply; jamba also prefix-cached;
+    musicgen-medium's and internvl2-26b's lm_forward logits on embeddings,
+    card vs CPU within SMOKE_LOGIT_ATOL."""
+    import numpy as np
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm_forward, lm_init
+    from repro_torch.serve import PRNGKey, SamplingParams, ServeEngine
+    from repro_torch.serve.sampling import fold_in
+
+    skey = PRNGKey(seed + 13)
+
+    def mixed(i):
+        return SamplingParams(max_tokens=10, temperature=0.0 if i % 3 == 0
+                              else 0.8, seed=seed + 200 + i if i % 3 == 1
+                              else None)
+
+    def lane_draw(i, t):
+        sp = mixed(i)
+        key = PRNGKey(sp.seed) if sp.seed is not None \
+            else fold_in(skey, i).numpy().astype(np.uint32)
+        return sp.temperature, key, t, 0, 1
+
+    out = {}
+    for arch in FAMILY_SMOKE:
+        # head_dim 64: the attention kernels take head dims 64, 128, 256
+        cfg = get_smoke(arch).scaled(dtype=torch.float32, head_dim=64)
+        params = lm_init(cfg, torch.Generator().manual_seed(seed))
+        rng = np.random.default_rng(seed + 17)
+        prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+                   for n in (7, 30, 64, 5, 21, 50)]
+        for packed in (True, False):
+            label = f"{arch} {'packed' if packed else 'int8'}"
+            engines = [ServeEngine(cfg, params, max_len=128, packed=packed,
+                                   device=d) for d in ("cuda", "cpu")]
+            outs, card_stats = [], None
+            zero_counts()
+            for e in engines:
+                with e.session(lanes=4, page_size=16, segment=4, key=skey) as s:
+                    hs = [s.submit(p, mixed(i)) for i, p in enumerate(prompts[:4])]
+                    s.step()
+                    s.step()
+                    hs += [s.submit(p, mixed(i + 4))
+                           for i, p in enumerate(prompts[4:])]
+                    s.step()
+                    hs[1].cancel()
+                    s.run_until_idle()
+                    outs.append([h.tokens_so_far() for h in hs])
+                    if card_stats is None:
+                        card_stats = dict(s.stats)
+                        routes = route_counts()
+            same, ties = streams_agree(torch, engines, outs, prompts, lane_draw)
+            want = family_launches(
+                cfg, engines[0].params, card_stats["decode_steps"],
+                card_stats["prefills"] + card_stats["tail_prefills"],
+                sum(card_stats["prefills"].values()),
+                sum(card_stats["tail_prefills"].values()))
+            got = {k: routes[k]["cuda_cores"] for k in want}
+            print(f"  {label}: {same}/{len(prompts)} streams identical card vs "
+                  f"CPU, {ties} near-ties; card launches (CUDA-core routes) "
+                  f"{got}, expected {want}")
+            assert got == want, (label, got, want)
+            assert all(r["tensor_cores"] == 0 for r in routes.values()), routes
+            assert want["paged_flash_decode"] > 0 \
+                and (want["packed_xnor_gemv"] > 0) == packed, want
+            out[label] = {"identical": same, "near_ties": ties,
+                          "launches": got}
+        if cfg.family == "hybrid":           # jamba, prefix-cached
+            system = rng.integers(0, cfg.vocab_size, (32,)).astype(np.int32)
+            pfx_prompts = [np.concatenate([system, rng.integers(
+                0, cfg.vocab_size, (n,)).astype(np.int32)])
+                for n in (5, 17, 9, 30, 12, 3)]
+            engines = [ServeEngine(cfg, params, max_len=128, packed=True,
+                                   device=d) for d in ("cuda", "cpu")]
+            res = [prefix_traffic(torch, e, pfx_prompts, (0, 2, 4), 8,
+                                  lanes=4, page=16, segment=4)
+                   for e in engines]
+            want_kinds = expected_kinds(len(pfx_prompts), (0, 2, 4), False)
+            assert res[0]["kinds"] == res[1]["kinds"] == want_kinds, \
+                (res[0]["kinds"], want_kinds)
+            assert res[0]["streams"] == res[1]["streams"], \
+                (res[0]["streams"], res[1]["streams"])
+            st = res[0]["stats"]
+            want = family_launches(cfg, engines[0].params, st["decode_steps"],
+                                   st["buckets"], st["prefills"],
+                                   st["tail_prefills"])
+            got = {k: res[0]["routes"][k]["cuda_cores"] for k in want}
+            print(f"  {arch} prefix-cached: kinds {want_kinds}, streams "
+                  f"identical card vs CPU, card launches (CUDA-core routes) "
+                  f"{got}, expected {want}")
+            assert got == want, (got, want)
+            assert all(r["tensor_cores"] == 0 for r in res[0]["routes"].values())
+            out[f"{arch} prefix"] = {"kinds": want_kinds, "launches": got}
+    for arch in EMBED_SMOKE:
+        cfg = get_smoke(arch).scaled(dtype=torch.float32)
+        params = lm_init(cfg, torch.Generator().manual_seed(seed))
+        emb = torch.randn((2, 40, cfg.d_model),
+                          generator=torch.Generator().manual_seed(seed + 19))
+        with torch.no_grad():
+            lg = [lm_forward(cfg, ServeEngine(cfg, params, max_len=64,
+                                              device=d).params,
+                             {"embeddings": emb.to(d)})[0].cpu()
+                  for d in ("cuda", "cpu")]
+        err = (lg[0] - lg[1]).abs().max().item()
+        print(f"  {arch}: lm_forward logits on embeddings card vs CPU "
+              f"max_abs_err={err:.3g} (tol {SMOKE_LOGIT_ATOL})")
+        assert err <= SMOKE_LOGIT_ATOL, (arch, err)
+        out[arch] = {"logits_max_abs_err": err}
+    return out
 
 
 def ring_kernels(build, decode_kv: int, decode_kv_by_r=None):
@@ -3145,6 +3728,8 @@ def main() -> int:
         gemv_rows, gemv_err = check_gemv(torch, flush, gen)
         qwen_gemv_rows, qwen_gemv_err = check_gemv(
             torch, flush, gen, QWEN_GEMV_SHAPES, (8,), ())
+        mamba_gemv_rows, mamba_gemv_err = check_gemv(
+            torch, flush, gen, MAMBA_GEMV_SHAPES, (8, 128), ())
         dec_rows, dec_err, dec_exact = check_paged_decode(torch, flush, gen,
                                                           gemma)
         flash_rows, flash_err = check_flash(torch, flush, gen, gemma)
@@ -3185,6 +3770,16 @@ def main() -> int:
                   "requests, through the packed session"):
         engine, qwen_metrics = serve_qwen(torch, args.seed)
         del engine
+
+    with phase(10, "serve falcon-mamba-7b (published widths) through the "
+                   "packed session, then prefix-cached"):
+        engine, falcon_metrics = serve_falcon(torch, args.seed)
+        del engine
+        gc_collect(torch)
+
+    with phase(11, "moonshot, arctic and jamba (smoke widths, fp32) served "
+                   "on the card vs the CPU; embeddings frontends"):
+        family_metrics = families_agree(torch, args.seed)
 
     decode_m8 = [r for r in gemv_rows if r["M"] == 8]
     layer_votes = [r for r in wbwd_rows if r["alpha"] == 0.0
@@ -3233,12 +3828,18 @@ def main() -> int:
                         and r["pool"] == pool) for pool in ("bf16", "int8")}
     q_flash = next(r for r in qwen_flash_rows if r["S"] == 1024)
     q_launch, q_routes = qwen_metrics["launches"], qwen_metrics["routes"]
+
+    def phase11(name):
+        """Phase 11's card launches of ``name`` by session (CUDA-core)."""
+        return {k: v["launches"][name] for k, v in family_metrics.items()
+                if name in v.get("launches", {})}
+
     kernels = [
         {"name": "packed_xnor_gemv", "route": "cuda",
          "source": "src/repro_torch/csrc/packed_xnor_gemv.cu",
          "replaces": "src/repro/kernels/packed_xnor.py:168",
          "launches": launches["packed_xnor_gemv"],
-         "max_abs_err": max(gemv_err, qwen_gemv_err),
+         "max_abs_err": max(gemv_err, qwen_gemv_err, mamba_gemv_err),
          "ms": sum(r["ms"] for r in decode_m8),
          "plain_ms": sum(r["plain_ms"] for r in decode_m8),
          "bound_ms": sum(r["bound_ms"] for r in decode_m8),
@@ -3255,13 +3856,24 @@ def main() -> int:
             for k in ("ms", "plain_ms", "bound_ms", "library_ms", "cc_ms")},
          "phase9_launches": q_launch["packed_xnor_gemv"],
          "phase9_routes": q_routes["packed_xnor_gemv"],
+         **{f"falcon_m{M}_{k}": sum(r[k] for r in mamba_gemv_rows
+                                   if r["M"] == M)
+            for M in (8, 128) for k in ("ms", "plain_ms", "bound_ms",
+                                        "library_ms", "cc_ms")},
+         "phase10_launches": falcon_metrics["launches"]["packed_xnor_gemv"],
+         "phase10_routes": falcon_metrics["routes"]["packed_xnor_gemv"],
+         "phase11_launches": phase11("packed_xnor_gemv"),
          "shape": "sum over one layer's wqkv, wo, wgu, wd at M=8 lanes, bf16 x "
                   "(m16_* .. m256_*: the same at 16 to 256 prefill rows); "
                   "library_ms: torch.matmul on the bf16 ±1 weight; cc_ms: "
                   "the CUDA-core kernel on the same x; tc_launches: phase 3's "
                   "launches on the tensor-core route; qwen_*: the same over "
                   "qwen2.5-14b's six projections (wq, wk, wv, wgu, wo, wd) at "
-                  "M=8, phase9_*: phase 9's launches"},
+                  "M=8, phase9_*: phase 9's launches; falcon_m8_* / "
+                  "falcon_m128_*: falcon-mamba-7b's five (in_x, in_z, x_proj, "
+                  "dt_proj, out_proj) at M=8 and 128, phase10_*: phase 10's "
+                  "launches (its serving run), phase11_launches: phase 11's "
+                  "card sessions' (fp32 x, the CUDA-core route)"},
         {"name": "paged_flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_flash_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:156",
@@ -3285,6 +3897,7 @@ def main() -> int:
          **{f"qwen_int8_{k}": q_dec["int8"][k]
             for k in ("ms", "cc_ms", "plain_ms", "bound_ms")},
          "phase9_launches": q_launch["paged_flash_decode"],
+         "phase11_launches": phase11("paged_flash_decode"),
          "phase9_launches_by_route_and_group":
              qwen_metrics["decode_group_sizes"],
          "shape": f"{local['L']} lanes, {local['KV']} KV heads x {local['R']} "
@@ -3299,7 +3912,9 @@ def main() -> int:
                   "host_us / cc_host_us: the wrapper's host time a call on "
                   "bf16 / fp32 q; qwen_* / qwen_int8_*: phase 9's shape, 8 "
                   "KV heads x 6 q heads, head_dim 128, no softcap, global, "
-                  "bf16 / int8 pool; phase9_*: phase 9's launches)"},
+                  "bf16 / int8 pool; phase9_*: phase 9's launches; "
+                  "phase11_launches: phase 11's card sessions', fp32 q on "
+                  "the CUDA-core route)"},
         {"name": "boolean_weight_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/boolean_weight_bwd.cu",
          "replaces": "src/repro/kernels/boolean_bwd.py:52",
@@ -3331,6 +3946,7 @@ def main() -> int:
          **{f"qwen_{k}": q_flash[k]
             for k in ("ms", "cc_ms", "plain_ms", "bound_ms", "library_ms")},
          "phase9_launches": q_launch["flash_attention_fwd"],
+         "phase11_launches": phase11("flash_attention_fwd"),
          "phase9_routes": q_routes["flash_attention_fwd"],
          "shape": f"one layer's cold prefill: {flash['BH']} q heads over "
                   f"{flash['KV']} KV heads, S={flash['S']}, head_dim "
@@ -3340,7 +3956,9 @@ def main() -> int:
                   "phase 3's launches by route; qwen_*: qwen2.5-14b's 1,024-"
                   "token prefill, 48 q over 8 KV heads, head_dim 128, no "
                   "softcap or window, library_ms SDPA (causal), the same "
-                  "function there; phase9_*: phase 9's launches"},
+                  "function there; phase9_*: phase 9's launches; "
+                  "phase11_launches: phase 11's card sessions' (fp32, the "
+                  "CUDA-core route)"},
         {"name": "paged_prefix_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_prefix_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:335",
@@ -3353,6 +3971,7 @@ def main() -> int:
          "int8_ms": pfx8["ms"], "int8_cc_ms": pfx8["cc_ms"],
          "int8_one_share_ms": pfx8["one_share_ms"],
          "int8_plain_ms": pfx8["plain_ms"], "int8_bound_ms": pfx8["bound_ms"],
+         "phase11_launches": phase11("paged_prefix_attention"),
          "phase7_routes": {k: v["routes"]["paged_prefix_attention"]
                            for k, v in prefix_metrics.items()},
          "shape": f"one layer's tail prefill: {pfx['H']} q heads over "
@@ -3364,7 +3983,8 @@ def main() -> int:
                   "tensor-core route with the key window in one share); "
                   "launches from phase "
                   "7 (bf16 pool), phase7_routes its launches by route over "
-                  "both pools"},
+                  "both pools; phase11_launches: phase 11's card sessions' "
+                  "(fp32, the CUDA-core route)"},
         {"name": "boolean_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/boolean_matmul.cu",
          "replaces": "src/repro/kernels/boolean_matmul.py:59",
@@ -3414,6 +4034,9 @@ def main() -> int:
                                "qwen_gemv": qwen_gemv_rows,
                                "qwen_flash_prefill": qwen_flash_rows,
                                "qwen_serve": qwen_metrics,
+                               "falcon_gemv": mamba_gemv_rows,
+                               "falcon_serve": falcon_metrics,
+                               "families": family_metrics,
                                "phase_wall_s": walls,
                                "phase_start_launch_us": launch_at,
                                "kernels": kernels}, indent=1))

@@ -166,6 +166,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.frontend == "embeddings":
+        print(f"[serve] {args.arch} uses an embeddings frontend stub; "
+              "serving decodes tokens after an embedded prompt.")
     cfg = cfg.scaled(kv_cache_quant=args.kv_quant)
     params = lm_init(cfg, torch.Generator(device=device).manual_seed(0))
     engine = ServeEngine(cfg, params, max_len=args.prompt_len + args.gen,

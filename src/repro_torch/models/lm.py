@@ -1,11 +1,14 @@
-"""Decoder LM on the dense path: block roles, init, the training forward and
+"""Decoder LM of every family: block roles, init, the training forward and
 loss, bucketed prefill (cold, or the tail of a prefix-cache hit) and the
 decode step over a contiguous or a block-table paged cache.
 
 Block parameters are stacked on a leading ``n_groups`` axis, as in the JAX
 package's ``models/lm.py``; its ``lax.scan`` over groups becomes a Python
-loop over groups that indexes each stacked leaf. The decode step updates the
-preallocated page pool in place, the counterpart of the donated scan carry.
+loop over groups that indexes each stacked leaf. A group holds
+``group_size`` blocks with static roles (gemma2's local/global pairs,
+jamba's 1:7 mamba:attention groups with MoE on odd indices). The decode
+step updates the preallocated page pool and the lane-indexed SSM state in
+place, the counterpart of the donated scan carry.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from repro_torch.kernels import flash_attention_fwd
 
 from . import attention as A
 from . import ffn as F
+from . import mamba as M
+from . import moe as MOE
 from .modules import (ModelConfig, embed_apply, embed_init, head_apply,
                       head_init, rmsnorm_apply, rmsnorm_init)
 
@@ -47,16 +52,6 @@ def block_roles(cfg: ModelConfig) -> List[Dict[str, Optional[str]]]:
     return [{"mixer": "attn", "ffn": "dense"}]
 
 
-def _dense_roles(cfg: ModelConfig):
-    roles = block_roles(cfg)
-    for r in roles:
-        if r["mixer"] == "mamba" or r["ffn"] not in ("dense", None):
-            raise NotImplementedError(
-                f"{cfg.name}: block role {r} is not ported yet (the mamba and "
-                "MoE families come in a later slice)")
-    return roles
-
-
 def index_tree(tree, i):
     """Slice every stacked leaf (tensor or PackedBool) of ``tree`` at ``i``."""
     if isinstance(tree, dict):
@@ -67,31 +62,46 @@ def index_tree(tree, i):
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
+def _block_init(gen: torch.Generator, cfg: ModelConfig, role, lead):
+    dev = gen.device
+    bp = {"norm1": rmsnorm_init(cfg.d_model, dev, lead)}
+    if role["mixer"] == "mamba":
+        bp["mamba"] = M.mamba_init(gen, cfg, lead)
+    else:
+        bp["attn"] = A.attention_init(gen, cfg, lead)
+    if role["ffn"] is not None:
+        bp["norm2"] = rmsnorm_init(cfg.d_model, dev, lead)
+        if "moe" in role["ffn"]:
+            bp["moe"] = MOE.moe_init(gen, cfg, 0, lead)
+        if "dense" in role["ffn"]:
+            bp["ffn"] = F.ffn_init(gen, cfg, cfg.dense_ff_ if role["ffn"]
+                                   != "dense" else cfg.d_ff, lead)
+    return bp
+
+
 def lm_init(cfg: ModelConfig, generator: torch.Generator):
     """Random params on ``generator``'s device, in the JAX package's tree:
     {"embed", "blocks": {"b{i}": stacked (n_groups, ...) leaves},
     "final_norm", "head"}."""
-    dev = generator.device
     lead = (cfg.n_groups,)
-    blocks = {}
-    for i, role in enumerate(_dense_roles(cfg)):
-        bp = {"norm1": rmsnorm_init(cfg.d_model, dev, lead),
-              "attn": A.attention_init(generator, cfg, lead)}
-        if role["ffn"] is not None:
-            bp["norm2"] = rmsnorm_init(cfg.d_model, dev, lead)
-            bp["ffn"] = F.ffn_init(generator, cfg, cfg.d_ff, lead)
-        blocks[f"b{i}"] = bp
+    blocks = {f"b{i}": _block_init(generator, cfg, role, lead)
+              for i, role in enumerate(block_roles(cfg))}
     return {"embed": embed_init(generator, cfg), "blocks": blocks,
-            "final_norm": rmsnorm_init(cfg.d_model, dev),
+            "final_norm": rmsnorm_init(cfg.d_model, generator.device),
             "head": head_init(generator, cfg)}
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, device):
-    """Stacked (n_groups, batch, max_len, KVp, hd) K/V cache + pos scalar:
-    the batch-1 prefill scratch of the serving session."""
-    blocks = {f"b{i}": A.attention_cache_init(cfg, batch, max_len, device,
-                                              lead=(cfg.n_groups,))
-              for i, _ in enumerate(_dense_roles(cfg))}
+    """Stacked (n_groups, batch, ...) caches + pos scalar: K/V rows
+    (n_groups, batch, max_len, KVp, hd) for attention blocks, the O(1)
+    state {"h", "conv"} for mamba blocks. The batch-1 prefill scratch of
+    the serving session, or ``generate``'s contiguous cache."""
+    lead = (cfg.n_groups,)
+    blocks = {f"b{i}": (M.mamba_cache_init(cfg, batch, device, lead)
+                        if role["mixer"] == "mamba" else
+                        A.attention_cache_init(cfg, batch, max_len, device,
+                                               lead=lead))
+              for i, role in enumerate(block_roles(cfg))}
     return {"blocks": blocks, "pos": 0}
 
 
@@ -99,28 +109,55 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int, device):
 # Blocks
 # ---------------------------------------------------------------------------
 def _ffn_residual(cfg: ModelConfig, bp, role, x):
+    """x + the block's FFN (MoE, dense or both) -> (x, MoE aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if role["ffn"] is None:
-        return x
-    return x + F.ffn_apply(cfg, bp["ffn"], rmsnorm_apply(bp["norm2"], x))
+        return x, aux
+    h = rmsnorm_apply(bp["norm2"], x)
+    out = None
+    if "moe" in role["ffn"]:
+        out, aux = MOE.moe_apply(cfg, bp["moe"], h)
+    if "dense" in role["ffn"]:
+        d = F.ffn_apply(cfg, bp["ffn"], h)
+        out = d if out is None else out + d
+    return x + out, aux
 
 
 def _apply_block_prefill(cfg: ModelConfig, bp, role, x, positions,
                          length=None, offset: int = 0, prefix_len=None,
-                         prefix_pages=None, prefix_ids=None):
-    """One block of (possibly tail-) prefill -> (x, cache entry).
+                         prefix_pages=None, prefix_ids=None, ssm_init=None,
+                         state_at=None):
+    """One block of (possibly tail-) prefill -> (x, cache entry, snap).
 
-    Cold (``prefix_pages`` None): the flash-prefill kernel over the block's
-    own rows, the q rows (batch, head) reading KV head ``h // n_rep`` in
-    place of a repeated copy. Tail: ``prefix_pages`` (the block's pool
-    leaves) and ``prefix_ids`` (the prefix's physical pages) — the queries
-    at ``offset + i`` attend over the prefix read in place from the pool
-    and the tail's own rows (``paged_prefix_attention``).
+    Attention, cold (``prefix_pages`` None): the flash-prefill kernel over
+    the block's own rows, the q rows (batch, head) reading KV head
+    ``h // n_rep`` in place of a repeated copy. Tail: ``prefix_pages`` (the
+    block's pool leaves) and ``prefix_ids`` (the prefix's physical pages) —
+    the queries at ``offset + i`` attend over the prefix read in place from
+    the pool and the tail's own rows (``paged_prefix_attention``).
+
+    Mamba: the recurrence resumes from ``ssm_init`` ({"h", "conv"}, the
+    prefix-boundary state) when given; ``snap`` is its page-boundary state
+    snapshots at ``state_at`` (None otherwise and for attention blocks).
     """
     B, S, _ = x.shape
-    local = role["mixer"] == "attn_local"
     h = rmsnorm_apply(bp["norm1"], x)
+    snap = None
+    if role["mixer"] == "mamba":
+        h0 = conv0 = None
+        if ssm_init is not None:
+            h0, conv0 = ssm_init["h"], ssm_init["conv"]
+        mix, (h_last, conv_state), *snaps = M.mamba_apply(
+            cfg, bp["mamba"], h, h0=h0, conv0=conv0, return_state=True,
+            length=length, state_at=state_at)
+        if snaps:
+            snap = snaps[0]
+        entry = {"h": h_last, "conv": conv_state.to(torch.float32)}
+        x, _ = _ffn_residual(cfg, bp, role, x + mix)
+        return x, entry, snap
+    local = role["mixer"] == "attn_local"
     q, k, v = A._qkv(cfg, bp["attn"], h, positions)
-    hp, kvp, hd = cfg.heads_padded(), cfg.kv_heads_padded(), cfg.head_dim_
+    hp, hd = cfg.heads_padded(), cfg.head_dim_
     if prefix_pages is not None:
         out = A.flash_prefix_attention_paged(
             cfg, prefix_pages, prefix_ids, q, k, v, offset, prefix_len, length,
@@ -136,20 +173,28 @@ def _apply_block_prefill(cfg: ModelConfig, bp, role, x, positions,
         out = out.reshape(B, hp, S, hd).transpose(1, 2)
     out = A._head_mask(cfg, out)
     x = x + A._wo_project(cfg, bp["attn"]["wo"], out.reshape(B, S, hp * hd))
-    return _ffn_residual(cfg, bp, role, x), A.kv_cache_entry(cfg, k, v)
+    x, _ = _ffn_residual(cfg, bp, role, x)
+    return x, A.kv_cache_entry(cfg, k, v), snap
 
 
 def _apply_block_decode(cfg: ModelConfig, bp, role, bcache, x, pos,
                         block_table):
+    """One block of a decode step; ``bcache`` (the group's views of the
+    cache) is updated in place."""
     h = rmsnorm_apply(bp["norm1"], x)
     local = role["mixer"] == "attn_local"
-    if block_table is None:
-        mix, new_c = A.attention_decode(cfg, bp["attn"], h, bcache, pos,
-                                        local=local)
+    if role["mixer"] == "mamba":
+        # O(1) state, lane-indexed directly, never paged
+        mix, new_c = M.mamba_decode(cfg, bp["mamba"], h, bcache)
+        for name, leaf in bcache.items():
+            leaf.copy_(new_c[name])
+    elif block_table is None:
+        mix, _ = A.attention_decode(cfg, bp["attn"], h, bcache, pos,
+                                    local=local)
     else:
-        mix, new_c = A.attention_decode_paged(cfg, bp["attn"], h, bcache,
-                                              block_table, pos, local=local)
-    return _ffn_residual(cfg, bp, role, x + mix), new_c
+        mix, _ = A.attention_decode_paged(cfg, bp["attn"], h, bcache,
+                                          block_table, pos, local=local)
+    return _ffn_residual(cfg, bp, role, x + mix)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -169,40 +214,54 @@ def unbind_tree(tree, n: int):
 
 
 def _apply_block(cfg: ModelConfig, bp, role, x, positions):
+    """One block of the training forward -> (x, MoE aux loss)."""
     h = rmsnorm_apply(bp["norm1"], x)
-    x = x + A.attention_apply(cfg, bp["attn"], h, positions,
-                              local=(role["mixer"] == "attn_local"))
-    return _ffn_residual(cfg, bp, role, x)
+    if role["mixer"] == "mamba":
+        mix = M.mamba_apply(cfg, bp["mamba"], h)
+    else:
+        mix = A.attention_apply(cfg, bp["attn"], h, positions,
+                                local=(role["mixer"] == "attn_local"))
+    return _ffn_residual(cfg, bp, role, x + mix)
 
 
 def _apply_group(cfg: ModelConfig, roles, gp, x, positions):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, role in enumerate(roles):
-        x = _apply_block(cfg, gp[f"b{i}"], role, x, positions)
-    return x
+        x, a = _apply_block(cfg, gp[f"b{i}"], role, x, positions)
+        aux = aux + a
+    return x, aux
+
+
+def _inputs_to_h(cfg: ModelConfig, params, batch):
+    """The first block's input: the scaled token embeddings, or with an
+    embeddings frontend (the audio/vlm stub) ``batch["embeddings"]``
+    (B, S, d_model) as given."""
+    if cfg.frontend == "embeddings":
+        return batch["embeddings"].to(cfg.dtype)
+    return embed_apply(cfg, params["embed"], batch["tokens"]).to(cfg.dtype)
 
 
 def lm_forward(cfg: ModelConfig, params, batch):
-    """-> (logits fp32 (B, S, Vp), aux_loss scalar). With ``cfg.remat`` each
-    group runs under ``torch.utils.checkpoint`` and is recomputed in the
-    backward (the JAX package's ``jax.checkpoint`` of the scanned body)."""
-    if cfg.frontend != "tokens":
-        raise NotImplementedError("embedding frontends are not ported yet")
-    tokens = batch["tokens"]
-    h = embed_apply(cfg, params["embed"], tokens).to(cfg.dtype)
-    B, S = tokens.shape
+    """-> (logits fp32 (B, S, Vp), aux loss: the MoE blocks' load-balancing
+    losses summed). With ``cfg.remat`` each group runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward (the JAX
+    package's ``jax.checkpoint`` of the scanned body)."""
+    h = _inputs_to_h(cfg, params, batch)
+    B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=h.device) \
         .expand(B, S)
-    roles = _dense_roles(cfg)
+    roles = block_roles(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for gp in unbind_tree(params["blocks"], cfg.n_groups):
         if cfg.remat:
-            h = torch.utils.checkpoint.checkpoint(
+            h, a = torch.utils.checkpoint.checkpoint(
                 _apply_group, cfg, roles, gp, h, positions,
                 use_reentrant=False)
         else:
-            h = _apply_group(cfg, roles, gp, h, positions)
+            h, a = _apply_group(cfg, roles, gp, h, positions)
+        aux = aux + a
     h = rmsnorm_apply(params["final_norm"], h)
-    logits = head_apply(cfg, params["head"], h)
-    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+    return head_apply(cfg, params["head"], h), aux
 
 
 def lm_loss(cfg: ModelConfig, params, batch):
@@ -233,62 +292,82 @@ def lm_prefill(cfg: ModelConfig, params, batch, cache=None,
                offset: Optional[int] = None, prefix=None,
                prefix_len: Optional[int] = None, prefix_pages=None,
                prefix_ids=None, ssm_init=None, state_at=None):
-    """Prefill over (B, S) ``batch["tokens"]`` -> (last-position logits
-    (B, 1, Vp) fp32, cache with the prompt's K/V rows written at 0..S-1).
+    """Prefill over (B, S) inputs (``batch["tokens"]``, or
+    ``batch["embeddings"]`` with an embeddings frontend) -> (last-position
+    logits (B, 1, Vp) fp32, cache with the prompt's K/V rows written at
+    0..S-1 and each mamba block's end state).
 
-    ``length`` marks the true prompt length when the tokens are right-
-    padded to a bucket: logits come from position ``length - 1``. Rows at
-    and past ``length`` are causally invisible to the rows before it; the
-    caller masks them out of the pool (``commit_prefill``).
+    ``length`` marks the true prompt length when the inputs are right-
+    padded to a bucket: logits come from position ``length - 1``, and the
+    SSM recurrence freezes at and past it, so its state is the state after
+    the true prompt. Attention rows at and past ``length`` are causally
+    invisible to the rows before it; the caller masks them out of the pool
+    (``commit_prefill``).
 
-    Prefix-cache TAIL prefill: the tokens are the uncached tail of a prompt
+    Prefix-cache TAIL prefill: the inputs are the uncached tail of a prompt
     whose first ``offset`` tokens already live in pool pages. ``offset``
-    shifts the positions (RoPE is absolute); ``prefix_pages`` ({"b{i}": the
-    block's pool leaves, stacked (n_groups, ...)}) and ``prefix_ids``
-    ((npp,) int32 physical pages on the pool's device, rows valid below
-    ``prefix_len``) let the tail's queries attend over the cached rows read
-    in place. All None is exactly the cold prefill. The JAX package's
-    gathered ``prefix=`` route (its gather fallback) is the plain version of
-    ``paged_prefix_attention`` here; ``ssm_init``/``state_at`` come with the
-    mamba slice.
+    shifts the positions (RoPE is absolute); ``prefix_pages`` ({"b{i}": an
+    attention block's pool leaves, stacked (n_groups, ...)}) and
+    ``prefix_ids`` ((npp,) int32 physical pages on the pool's device, rows
+    valid below ``prefix_len``) let the tail's queries attend over the
+    cached rows read in place; ``ssm_init`` ({"b{i}": {"h", "conv"}},
+    leading n_groups) resumes each mamba recurrence from the prefix-
+    boundary state. ``state_at`` (positions, tail-relative) also returns
+    the mamba snapshots there as a third result {"b{i}": {"h": (n_groups,
+    B, len, DI, N), "conv": ...}}: the page-boundary states a finished
+    request donates to the prefix index. All None is exactly the cold
+    prefill. The JAX package's gathered ``prefix=`` route (its gather
+    fallback) is the plain version of ``paged_prefix_attention`` here.
     """
-    if cfg.frontend != "tokens":
-        raise NotImplementedError("embedding frontends are not ported yet")
     if prefix is not None:
         raise NotImplementedError(
             "the gathered prefix= route is the plain version of "
             "paged_prefix_attention in the port; pass prefix_pages= and "
             "prefix_ids=")
-    if ssm_init is not None or state_at is not None:
-        raise NotImplementedError("ssm_init/state_at (mamba prefix state) "
-                                  "come with the mamba slice")
     tail = prefix_pages is not None
     if tail and (prefix_ids is None or prefix_len is None or offset is None):
         raise ValueError("a tail prefill needs offset, prefix_len, "
                          "prefix_pages and prefix_ids")
-    tokens = batch["tokens"]
-    h = embed_apply(cfg, params["embed"], tokens).to(cfg.dtype)
-    B, S = tokens.shape
+    h = _inputs_to_h(cfg, params, batch)
+    B, S = h.shape[:2]
     if cache is None:
         cache = cache_init(cfg, B, max_len or S, h.device)
     off = 0 if offset is None else int(offset)
     positions = (torch.arange(S, dtype=torch.int32, device=h.device) + off) \
         .expand(B, S)
-    roles = _dense_roles(cfg)
+    roles = block_roles(cfg)
+    snaps: Dict[str, Dict[str, list]] = {}
     for g in range(cfg.n_groups):
         gp = index_tree(params["blocks"], g)
         for i, role in enumerate(roles):
-            pages = index_tree(prefix_pages[f"b{i}"], g) if tail else None
-            h, c = _apply_block_prefill(
-                cfg, gp[f"b{i}"], role, h, positions, length=length,
-                offset=off, prefix_len=prefix_len, prefix_pages=pages,
-                prefix_ids=prefix_ids)
+            bi = f"b{i}"
+            pages = None
+            if tail and bi in prefix_pages:
+                pages = index_tree(prefix_pages[bi], g)
+            init = None
+            if ssm_init is not None and bi in ssm_init:
+                init = index_tree(ssm_init[bi], g)
+            h, c, snap = _apply_block_prefill(
+                cfg, gp[bi], role, h, positions, length=length, offset=off,
+                prefix_len=prefix_len, prefix_pages=pages,
+                prefix_ids=prefix_ids, ssm_init=init, state_at=state_at)
             for name, rows in c.items():
-                cache["blocks"][f"b{i}"][name][g, :, :S] = rows
+                if role["mixer"] == "mamba":
+                    cache["blocks"][bi][name][g] = rows
+                else:
+                    cache["blocks"][bi][name][g, :, :S] = rows
+            if snap is not None:
+                for name, t in snap.items():
+                    snaps.setdefault(bi, {}).setdefault(name, []).append(t)
     h = rmsnorm_apply(params["final_norm"], h)
     last = S if length is None else int(length)
     logits = head_apply(cfg, params["head"], h[:, last - 1:last])
-    return logits, {"blocks": cache["blocks"], "pos": last + off}
+    new_cache = {"blocks": cache["blocks"], "pos": last + off}
+    if state_at is not None:
+        return logits, new_cache, {
+            bi: {name: torch.stack(ts) for name, ts in leaves.items()}
+            for bi, leaves in snaps.items()}
+    return logits, new_cache
 
 
 def lm_decode_step(cfg: ModelConfig, params, cache, tokens):
@@ -300,13 +379,13 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens):
     block_table = cache.get("block_table")
     pos = cache["pos"]
     h = embed_apply(cfg, params["embed"], tokens).to(cfg.dtype)
-    roles = _dense_roles(cfg)
+    roles = block_roles(cfg)
     for g in range(cfg.n_groups):
         gp = index_tree(params["blocks"], g)
         for i, role in enumerate(roles):
             gcache = index_tree(cache["blocks"][f"b{i}"], g)
-            h, _ = _apply_block_decode(cfg, gp[f"b{i}"], role, gcache, h, pos,
-                                       block_table)
+            h = _apply_block_decode(cfg, gp[f"b{i}"], role, gcache, h, pos,
+                                    block_table)
     h = rmsnorm_apply(params["final_norm"], h)
     logits = head_apply(cfg, params["head"], h)
     new_cache = {"blocks": cache["blocks"], "pos": pos + 1}
@@ -317,7 +396,8 @@ def lm_decode_step(cfg: ModelConfig, params, cache, tokens):
 
 def lm_decode_step_paged(cfg: ModelConfig, params, cache, tokens):
     """One decode step over L scheduler lanes with a block-table paged
-    cache. Every lane sits at its own position; the lane count L is the
-    stable batch shape — admission and eviction only rewrite the block
-    table and the pos vector."""
+    cache. Every lane sits at its own position (attention reads and writes
+    go through the block table, mamba state is lane-indexed); the lane
+    count L is the stable batch shape — admission and eviction only
+    rewrite the block table and the pos vector."""
     return lm_decode_step(cfg, params, cache, tokens)

@@ -46,9 +46,23 @@ class ModelConfig:
     final_logit_softcap: float = 0.0
     rope_theta: float = 10_000.0
 
-    # MoE (block roles only; the MoE blocks are not ported yet)
+    # MoE
     n_experts: int = 0
-    moe_dense_residual: bool = False
+    top_k: int = 0
+    moe_dense_residual: bool = False   # arctic: dense FFN beside the MoE
+    moe_every: int = 1
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    moe_impl: str = "einsum"       # einsum (GShard dispatch) | scatter
+    dense_ff: int = 0              # width of the non-MoE dense FFN
+    moe_groups: int = 1            # routing groups (capacity is per group)
+
+    # SSM (mamba-1)
+    ssm_state: int = 0
+    d_inner: int = 0               # 0 -> 2 * d_model
+    conv_width: int = 4
+    dt_rank: int = 0               # 0 -> d_model // 16
+    ssm_chunk: int = 128           # selective-scan chunk (prefill)
 
     # hybrid (jamba)
     group_size: int = 1            # layers per stacked group
@@ -61,12 +75,13 @@ class ModelConfig:
     bwd_norm: bool = True          # App-C.4 variance normalization
 
     # frontend
-    frontend: str = "tokens"
+    frontend: str = "tokens"       # tokens | embeddings (audio/vlm stub)
 
     # numerics / memory
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True             # recompute each group in the backward
     remat_policy: str = "full"     # "save_block_outs": multi-device slice
+    long_context: bool = False     # eligible for long_500k (ssm/hybrid)
     attn_chunk: int = 1024         # flash-attention KV chunk
     decode_chunk: int = 2048       # contiguous flash-decode KV chunk
     kv_cache_quant: bool = False   # int8 KV cache (kv-quant slice)
@@ -99,6 +114,18 @@ class ModelConfig:
     @property
     def vocab_padded(self) -> int:
         return -(-self.vocab_size // 256) * 256
+
+    @property
+    def d_inner_(self) -> int:
+        return self.d_inner or 2 * self.d_model
+
+    @property
+    def dt_rank_(self) -> int:
+        return self.dt_rank or max(self.d_model // 16, 1)
+
+    @property
+    def dense_ff_(self) -> int:
+        return self.dense_ff or self.d_ff
 
     @property
     def n_groups(self) -> int:

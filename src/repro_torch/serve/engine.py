@@ -26,8 +26,9 @@ import torch
 
 from repro_torch.core import PackedBool
 from repro_torch.kernels import pack_bits
-from repro_torch.models import (ModelConfig, cache_init, lm_decode_step,
-                                lm_decode_step_paged, lm_prefill)
+from repro_torch.models import (ModelConfig, block_roles, cache_init,
+                                lm_decode_step, lm_decode_step_paged,
+                                lm_prefill)
 
 from .paged_cache import CachePool, commit_prefill, paged_pool_init
 from .sampling import sample_tokens
@@ -88,9 +89,12 @@ def pack_weights(params, *, consume: bool = False):
     q/k/v (and FFN gate/up) projections sharing an input dim fuse into one
     packed leaf (``wqkv`` / ``wgu``, columns [q|k|v] and [g|u]), so a
     decode token makes one pass per block over activations and packed
-    words; a bias keeps its projection apart (the qwens' q/k/v). FP leaves
-    (embed, head, norms, biases) and packed leaves pass through untouched.
-    Each leaf packs one stacked group slice at a time.
+    words; a bias keeps its projection apart (the qwens' q/k/v). A mamba
+    block's in_x and in_z stay apart, as the JAX package keeps them. FP
+    leaves (embed, head, norms, biases, routers, the SSM parameters),
+    packed leaves and MoE expert tensors (stacked arrays, not ``{"w": ...}``
+    projections) pass through untouched. Each leaf packs one stacked group
+    slice at a time.
 
     ``consume=True`` hands the tree over: each int8 leaf leaves ``params``
     (its dict is emptied as the walk goes) once it is packed, so its memory
@@ -161,35 +165,66 @@ class ServeEngine:
                     "found to pack (FP baseline model?)")
         self.params = params
 
-    def init_pool(self, n_pages: int, page_size: int):
-        """A zeroed page pool for one session on the engine's device."""
-        return paged_pool_init(self.cfg, n_pages, page_size, self.device)
+    def init_pool(self, n_pages: int, page_size: int, lanes: int):
+        """A zeroed page pool (and lane-indexed SSM state) for one session
+        on the engine's device."""
+        return paged_pool_init(self.cfg, n_pages, page_size, self.device,
+                               lanes=lanes)
+
+    def _role_ids(self, mamba: bool):
+        """The "b{i}" keys of the mamba blocks (``mamba``) or the others."""
+        return [f"b{i}" for i, r in enumerate(block_roles(self.cfg))
+                if (r["mixer"] == "mamba") == mamba]
+
+    def _inputs(self, tokens: torch.Tensor):
+        """The prefill's inputs: the tokens, or with an embeddings frontend
+        (the audio/vlm stub) their unscaled embedding-table rows, as the
+        JAX package's engine feeds it."""
+        if self.cfg.frontend == "embeddings":
+            table = self.params["embed"]["table"]
+            return {"embeddings": table[tokens.long()].to(self.cfg.dtype)}
+        return {"tokens": tokens}
 
     def prefill_commit(self, pool, prompt: np.ndarray, length: int,
                        page_ids: np.ndarray, page_size: int, *,
                        offset: int = 0,
                        prefix_ids: Optional[np.ndarray] = None,
-                       lane: int = 0):
+                       lane: int = 0, ssm_init=None, snapshots: bool = False):
         """Batch-1 prefill of a bucket-padded prompt with its true
         ``length``, then the masked scatter of its K/V rows into the pool
         pages ``page_ids`` (entries past the request's pages point at the
-        garbage page). With ``prefix_ids`` (the physical pages of the first
-        ``offset`` cached tokens) the prompt is the uncached TAIL: it
-        prefills at positions ``offset + i`` over the prefix rows read in
-        place from ``pool``. Returns the (1, 1, Vp) fp32 last-position
-        logits."""
+        garbage page) and of its mamba end state into lane ``lane``. With
+        ``prefix_ids`` (the physical pages of the first ``offset`` cached
+        tokens) the prompt is the uncached TAIL: it prefills at positions
+        ``offset + i`` over the prefix rows read in place from ``pool``,
+        each mamba recurrence resumed from ``ssm_init`` ({"b{i}": {"h",
+        "conv"}}, the prefix-boundary state).
+
+        Returns (the (1, 1, Vp) fp32 last-position logits, the mamba end
+        state {"b{i}": {"h", "conv"}} with leaves (n_groups, 1, ...), the
+        page-boundary snapshots {"b{i}": {"h", "conv"}} with leaves
+        (n_groups, 1, n_boundaries, ...) when ``snapshots``, else {}): what
+        a finish donates to the prefix index."""
         tokens = torch.from_numpy(prompt[None]).to(self.device)
-        scratch = cache_init(self.cfg, 1, prompt.shape[0], self.device)
+        S = prompt.shape[0]
+        scratch = cache_init(self.cfg, 1, S, self.device)
         kw = {}
         if prefix_ids is not None:
-            kw = dict(offset=offset, prefix_len=offset, prefix_pages=pool,
+            kw = dict(offset=offset, prefix_len=offset, ssm_init=ssm_init,
+                      prefix_pages={bi: pool[bi]
+                                    for bi in self._role_ids(False)},
                       prefix_ids=torch.from_numpy(prefix_ids).to(self.device))
-        logits, pcache = lm_prefill(self.cfg, self.params, {"tokens": tokens},
-                                    cache=scratch, length=length, **kw)
+        boundaries = tuple(range(page_size, S + 1, page_size))
+        if snapshots and boundaries and self._role_ids(True):
+            kw["state_at"] = boundaries
+        logits, pcache, *snaps = lm_prefill(
+            self.cfg, self.params, self._inputs(tokens), cache=scratch,
+            length=length, **kw)
         commit_prefill(self.cfg, pool, pcache["blocks"],
                        torch.from_numpy(page_ids), page_size, length=length,
                        lane=lane)
-        return logits
+        end_ssm = {bi: pcache["blocks"][bi] for bi in self._role_ids(True)}
+        return logits, end_ssm, (snaps[0] if snaps else {})
 
     def decode_step(self, cache, tokens):
         """One paged decode step over every lane (pool updated in place)."""
@@ -206,7 +241,7 @@ class ServeEngine:
             raise ValueError(f"{S}+{n_tokens} tokens exceeds max_len="
                              f"{self.max_len}")
         tokens = torch.as_tensor(np.asarray(prompts, np.int32)).to(self.device)
-        logits, cache = lm_prefill(self.cfg, self.params, {"tokens": tokens},
+        logits, cache = lm_prefill(self.cfg, self.params, self._inputs(tokens),
                                    cache=cache)
         tok = sample_tokens(self.cfg, logits[:, -1], temperature, key, 0)
         out = []

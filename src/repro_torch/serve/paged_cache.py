@@ -6,9 +6,10 @@ logical cache rows to physical pages. Layout, as in the JAX package's
 ``serve/paged_cache.py``: attention roles hold ``k``/``v`` pools
 (n_groups, n_pages, page, KVp, hd), plus fp32 per-(token, head)
 ``k_scale``/``v_scale`` pools (n_groups, n_pages, page, KVp) under
-cfg.kv_cache_quant; physical page 0 is RESERVED as the garbage page — idle
-and overrun lanes point at it, so their writes never touch pages owned by
-live requests.
+cfg.kv_cache_quant; mamba roles hold lane-indexed O(1) state (n_groups,
+lanes, ...), never paged, since it does not grow with the context;
+physical page 0 is RESERVED as the garbage page — idle and overrun lanes
+point at it, so their writes never touch pages owned by live requests.
 
 ``CachePool`` is the host-side pool of preallocated cache trees that the
 engine reuses across calls (the contiguous caches of ``generate``, keyed by
@@ -19,11 +20,13 @@ pool, and FIFO eviction bounds the device memory it holds.
 from __future__ import annotations
 
 from collections import deque
+from typing import Optional
 
 import torch
 
 from repro_torch.models import ModelConfig, block_roles
 from repro_torch.models import attention as A
+from repro_torch.models import mamba as M
 
 
 def pages_for(prompt_len: int, n_tokens: int, page_size: int) -> int:
@@ -36,16 +39,23 @@ def pages_for(prompt_len: int, n_tokens: int, page_size: int) -> int:
     return -(-(prompt_len + n_tokens - 1) // page_size)
 
 
-def paged_pool_init(cfg: ModelConfig, n_pages: int, page_size: int, device):
-    """One zeroed pool tree for all lanes: {"b{i}": {"k", "v"}}. A page pool
-    IS an attention cache with batch = n_pages rows of length page_size."""
+def paged_pool_init(cfg: ModelConfig, n_pages: int, page_size: int, device,
+                    lanes: Optional[int] = None):
+    """One zeroed pool tree for all lanes: {"b{i}": role pool}. A page pool
+    IS an attention cache with batch = n_pages rows of length page_size; a
+    mamba block's pool is its state at batch = ``lanes`` (required when
+    the model has one)."""
     blocks = {}
     for i, role in enumerate(block_roles(cfg)):
         if role["mixer"] == "mamba":
-            raise NotImplementedError("lane-indexed SSM state comes with the "
-                                      "mamba slice")
-        blocks[f"b{i}"] = A.attention_cache_init(cfg, n_pages, page_size,
-                                                 device, lead=(cfg.n_groups,))
+            if lanes is None:
+                raise ValueError(f"{cfg.name}: a mamba block's lane-indexed "
+                                 "state needs the lane count")
+            blocks[f"b{i}"] = M.mamba_cache_init(cfg, lanes, device,
+                                                 lead=(cfg.n_groups,))
+        else:
+            blocks[f"b{i}"] = A.attention_cache_init(
+                cfg, n_pages, page_size, device, lead=(cfg.n_groups,))
     return blocks
 
 
@@ -55,11 +65,9 @@ def commit_prefill(cfg: ModelConfig, pool, prefill_blocks,
     """Scatter a batch-1 prefilled contiguous cache into the pool, in place.
 
     prefill_blocks: ``lm_prefill``'s cache["blocks"] at batch 1 (leaves
-    (n_groups, 1, S, ...)); page_ids: (npp,) physical pages receiving the
-    request's logical pages 0..; ``lane``: the scheduler lane, the slot of
-    a mamba block's lane-indexed state in the JAX package's layout (an
-    attention block's rows go to its pages alone, so the dense family
-    only checks it).
+    (n_groups, 1, S, ...) for attention, (n_groups, 1, ...) for mamba);
+    page_ids: (npp,) physical pages receiving the request's logical pages
+    0..; ``lane``: the scheduler lane, the slot of a mamba block's state.
     ``length``: the true prompt length when the prefill was right-padded to
     a bucket. Rows at and past it are zeroed before the scatter — the pool
     bytes equal an unpadded commit — and ``page_ids`` entries past the
@@ -69,10 +77,13 @@ def commit_prefill(cfg: ModelConfig, pool, prefill_blocks,
     if lane < 0:
         raise ValueError(f"commit_prefill: lane {lane} < 0")
     npp = page_ids.shape[0]
-    idx = page_ids.to(device=next(iter(pool.values()))["k"].device,
-                      dtype=torch.long)
-    for i, _ in enumerate(block_roles(cfg)):
+    for i, role in enumerate(block_roles(cfg)):
+        if role["mixer"] == "mamba":
+            M.mamba_cache_lane_write(pool[f"b{i}"], prefill_blocks[f"b{i}"],
+                                     lane)
+            continue
         for name, full in pool[f"b{i}"].items():
+            idx = page_ids.to(device=full.device, dtype=torch.long)
             new = prefill_blocks[f"b{i}"][name]
             G, S = new.shape[0], new.shape[2]
             rows = torch.zeros((G, npp * page_size) + tuple(new.shape[3:]),
@@ -85,11 +96,14 @@ def commit_prefill(cfg: ModelConfig, pool, prefill_blocks,
 
 def fork_page(cfg: ModelConfig, pool, src: int, dst: int):
     """Copy-on-write fork, in place: copy physical page ``src`` onto page
-    ``dst`` in every attention pool leaf (k/v rows and quant scales). A
-    request admitted off a cached prompt whose partly filled boundary page
-    it must write into gets a private byte-identical copy instead of
-    dirtying the shared page."""
-    for i, _ in enumerate(block_roles(cfg)):
+    ``dst`` in every attention pool leaf (k/v rows and quant scales); mamba
+    blocks (lane-indexed, never paged) are left as they are. A request
+    admitted off a cached prompt whose partly filled boundary page it must
+    write into gets a private byte-identical copy instead of dirtying the
+    shared page."""
+    for i, role in enumerate(block_roles(cfg)):
+        if role["mixer"] == "mamba":
+            continue
         for leaf in pool[f"b{i}"].values():
             leaf[:, dst] = leaf[:, src]
     return pool

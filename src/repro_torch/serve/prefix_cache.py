@@ -9,10 +9,14 @@ frees, LRU evictions and reclaim order.
     it at the page boundary; the node keeps its identity as the tail so
     live pins (parent-chain walks) stay consistent;
   * EXACT RECORDS keyed by the full prompt: the partially-filled boundary
-    page (if any) and the end-of-prompt logits. An identical prompt
-    re-admits with ZERO prefill — the first token from the stored logits,
-    decode reading the very same page bytes — so a cache-hit stream is
-    bit-identical to the cold run;
+    page (if any), the mamba end state and the end-of-prompt logits. An
+    identical prompt re-admits with ZERO prefill — the first token from the
+    stored logits, the lane's SSM state restored, decode reading the very
+    same page bytes — so a cache-hit stream is bit-identical to the cold
+    run;
+  * PAGE-BOUNDARY SSM SNAPSHOTS: each node keeps, per page, the mamba state
+    after that page's last token, so a partial hit resumes the recurrence
+    at the hit boundary (``Hit.ssm``);
   * PER-PAGE REFERENCE COUNTS (``paged_cache.PageAllocator``): the index
     owns one ref on every cached page; each live request using a shared
     page holds one more;
@@ -29,9 +33,7 @@ queries attend over the prefix rows AS STORED (dequantised under
 kv_cache_quant), so a partial hit follows serve-over-cache semantics
 rather than being bit-equal to a cold full prefill.
 
-The mamba boundary states of the JAX package's nodes and records (``snaps``,
-``end_ssm``) come with the mamba slice; the host swap tier's demotion and
-promotion (``_demote_*``, ``promote``, ``demote_back``, ``demote_all``)
+The host swap tier's demotion and promotion (``_demote_*``, ``promote``, ``demote_back``, ``demote_all``)
 with the tiered-memory slice. Without a swap tier the JAX package frees
 where it would demote, which is what this index does.
 """
@@ -59,14 +61,16 @@ class _Node:
     out-of-band mutation is detectable before the node's pages are served.
     """
 
-    __slots__ = ("parent", "children", "key", "pages", "ref", "tick", "csum")
+    __slots__ = ("parent", "children", "key", "pages", "snaps", "ref",
+                 "tick", "csum")
 
-    def __init__(self, parent, key: np.ndarray, pages: List[int], tick: int,
-                 ref: int = 0):
+    def __init__(self, parent, key: np.ndarray, pages: List[int],
+                 snaps: List[Any], tick: int, ref: int = 0):
         self.parent = parent
         self.children: Dict[bytes, "_Node"] = {}
         self.key = key                  # int32 tokens, len == pages * P
         self.pages = pages              # physical page ids, logical order
+        self.snaps = snaps              # per-page boundary SSM state (|None)
         self.ref = ref                  # pass-through pins (requests+records)
         self.tick = tick
         self.seal()
@@ -85,10 +89,11 @@ class _Node:
 
 @dataclasses.dataclass
 class _Record:
-    """Exact full-prompt entry: boundary page + end logits."""
+    """Exact full-prompt entry: boundary page + end state + end logits."""
     node: _Node                         # deepest full-page node of the path
     page: Optional[int]                 # partially-filled boundary page
     logits: Any                         # (1, 1, Vp) device tensor
+    end_ssm: Any                        # {bi: {"h", "conv"}} device tree
     n_tokens: int
     tick: int
 
@@ -100,6 +105,7 @@ class Hit:
     hit_len: int                        # tokens covered by shared pages
     node: _Node                         # deepest node on the path
     pages: List[int]                    # shared pages, logical order
+    ssm: Any                            # boundary state at hit_len (partial)
     record: Optional[_Record]           # exact hits only
 
 
@@ -110,7 +116,7 @@ class PrefixCache:
         # PAGE-pressure reclaim never sees, so the record map is
         # count-bounded with its own LRU
         self.max_records = max_records
-        self.root = _Node(None, np.zeros((0,), np.int32), [], 0)
+        self.root = _Node(None, np.zeros((0,), np.int32), [], [], 0)
         self.records: Dict[bytes, _Record] = {}
         self._tick = 0
         self.quarantined = False
@@ -151,12 +157,13 @@ class PrefixCache:
         ``node`` keeps its identity as the tail, so ``head.ref`` starts at
         ``node.ref``."""
         P = self.page_size
-        head = _Node(node.parent, node.key[:j * P], node.pages[:j], node.tick,
-                     ref=node.ref)
+        head = _Node(node.parent, node.key[:j * P], node.pages[:j],
+                     node.snaps[:j], node.tick, ref=node.ref)
         node.parent.children[node.key[:P].tobytes()] = head
         head.children[node.key[j * P:(j + 1) * P].tobytes()] = node
         node.key = node.key[j * P:]
         node.pages = node.pages[j:]
+        node.snaps = node.snaps[j:]
         node.parent = head
         node.seal()                     # legitimate mutation: re-checksum
         return head
@@ -206,13 +213,14 @@ class PrefixCache:
                     raise IndexCorruption(
                         "record path node failed its checksum")
             return Hit(exact=True, hit_len=int(tokens.size), node=rec.node,
-                       pages=self.path_pages(rec.node), record=rec)
+                       pages=self.path_pages(rec.node), ssm=None, record=rec)
         node, pages, m = self._walk(tokens, (tokens.size - 1)
                                     // self.page_size)
         if m == 0:
             return None
         return Hit(exact=False, hit_len=m * self.page_size, node=node,
-                   pages=pages, record=None)
+                   pages=pages, ssm=node.snaps[-1] if node.snaps else None,
+                   record=None)
 
     def commit_hit(self, hit: Optional[Hit], n_tokens: int) -> None:
         """Fold an ADMITTED request's lookup into stats + LRU ticks."""
@@ -266,8 +274,14 @@ class PrefixCache:
         consumed = set()
         self._tick += 1
         if m < n_full:
+            # logical page j's physical id is req.pages[j]; the snapshots
+            # are relative to the request's prefill offset o: page j's
+            # boundary (j+1)*P is snapshot (j+1) - o/P - 1
+            o = ex["offset"]
             new_pages = [req.pages[j] for j in range(m, n_full)]
-            child = _Node(node, tokens[m * P:n_full * P], new_pages,
+            snaps = [self._slice_snap(ex["snaps"], (j + 1) - o // P - 1)
+                     for j in range(m, n_full)]
+            child = _Node(node, tokens[m * P:n_full * P], new_pages, snaps,
                           self._tick)
             node.children[tokens[m * P:(m + 1) * P].tobytes()] = child
             consumed.update(new_pages)
@@ -282,7 +296,8 @@ class PrefixCache:
                 consumed.add(bpage)
                 self.stats["inserted_pages"] += 1
             self.records[kb] = _Record(node=node, page=bpage,
-                                       logits=ex["logits"], n_tokens=S,
+                                       logits=ex["logits"],
+                                       end_ssm=ex["end_ssm"], n_tokens=S,
                                        tick=self._tick)
             self.pin(node)              # the record pins its path
         self._touch(node)
@@ -301,6 +316,17 @@ class PrefixCache:
     def _evict_lru_record(self, alloc) -> None:
         kb = min(self.records, key=lambda k: self.records[k].tick)
         self._evict_record(kb, alloc)
+
+    @staticmethod
+    def _slice_snap(snaps, idx: int):
+        """Boundary ``idx`` of a prefill's snapshots {bi: {"h", "conv"}}
+        (leaves (n_groups, 1, n_boundaries, ...)) -> copies (n_groups, 1,
+        ...), so the other boundaries' memory frees; None without
+        snapshots (no mamba block)."""
+        if not snaps:
+            return None
+        return {bi: {name: t[:, :, idx].clone() for name, t in leaves.items()}
+                for bi, leaves in snaps.items()}
 
     # -- reclaim -------------------------------------------------------------
     def _reclaimable(self, alloc) -> int:

@@ -20,9 +20,12 @@ smallest power-of-two bucket >= their length (or to an explicit
 With ``prefix_cache=True`` admission goes through the radix prefix index
 (serve/prefix_cache.py): an exact repeat of a finished prompt admits with
 ZERO prefill (the first token from the stored end logits, a copy-on-write
-fork of a partly filled boundary page), a prompt sharing cached full pages
-prefills only its uncached tail over the prefix pages read in place, and a
-finishing request donates its prompt pages to the index.
+fork of a partly filled boundary page, the stored mamba end state written
+into its lane), a prompt sharing cached full pages prefills only its
+uncached tail over the prefix pages read in place, its mamba recurrences
+resumed from the boundary state stored with the hit's last page, and a
+finishing request donates its prompt pages, end state and page-boundary
+states to the index.
 
 Sampling state rides per lane, as in the JAX package: a request with
 temperature > 0 draws from its own stream, ``PRNGKey(seed)`` when its
@@ -44,6 +47,8 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.models.mamba import mamba_cache_lane_write
 
 from .paged_cache import fork_page, pages_for
 from .prefix_cache import PrefixCache
@@ -174,6 +179,7 @@ class ServeSession:
         if prefix_cache is None:
             prefix_cache = engine.prefix_cache
         self.prefix = PrefixCache(page_size) if prefix_cache else None
+        self._ssm_ids = engine._role_ids(True)
         self.sched = Scheduler(lanes, n_pages, page_size,
                                prefix_cache=self.prefix)
         self.buckets = tuple(sorted(int(b) for b in buckets)) \
@@ -316,9 +322,10 @@ class ServeSession:
         """Exact-record admission: ZERO prefill. Shared full pages enter
         the block table as they are; a partly filled boundary page is
         copy-on-write forked onto the request's first private page (its
-        decode rows land there). The first token comes from the record's
-        stored end logits, the very tensor the cold run sampled from, so
-        with decode re-reading identical page bytes the stream is
+        decode rows land there); the stored mamba end state is written into
+        the request's lane. The first token comes from the record's stored
+        end logits, the very tensor the cold run sampled from, so with
+        decode re-reading identical page bytes and state the stream is
         bit-identical to the cold run."""
         rec = req.hit.record
         if rec.page is not None:
@@ -326,6 +333,8 @@ class ServeSession:
             # page order puts first among the request's private pages
             fork_page(self.cfg, self._pool, rec.page, req.private_pages[0])
             self.prefix.stats["cow_forks"] += 1
+        for bi in self._ssm_ids:
+            mamba_cache_lane_write(self._pool[bi], rec.end_ssm[bi], req.lane)
         req.cache_extras = None         # the index already holds this prompt
         self.stats["exact_admits"] += 1
         return rec.logits
@@ -334,9 +343,11 @@ class ServeSession:
         """Cold / partial-hit admission: prefill ONLY the uncached tail
         through its length bucket (the true length masks the commit),
         scatter its rows into the request's tail pages and, with the
-        prefix index on, keep what a finish donates to it. A partial hit
-        prefills at position offset o over the o cached rows read in place
-        from the request's shared pages."""
+        prefix index on, keep what a finish donates to it (end logits,
+        mamba end state, page-boundary states). A partial hit prefills at
+        position offset o over the o cached rows read in place from the
+        request's shared pages, each mamba recurrence resumed from the
+        hit's boundary state."""
         o = req.hit.hit_len if req.hit is not None else 0
         T = S - o
         o_pages = o // self.page_size
@@ -351,14 +362,16 @@ class ServeSession:
             prefix_ids = np.zeros((self._prefix_page_bucket(o_pages),),
                                   np.int32)
             prefix_ids[:o_pages] = req.pages[:o_pages]
-        logits = self.engine.prefill_commit(
+        logits, end_ssm, snaps = self.engine.prefill_commit(
             self._pool, padded, T, page_ids, self.page_size, offset=o,
-            prefix_ids=prefix_ids, lane=req.lane)
+            prefix_ids=prefix_ids, lane=req.lane,
+            ssm_init=req.hit.ssm if o and self._ssm_ids else None,
+            snapshots=self.prefix is not None)
         self.stats["tail_prefills" if o else "prefills"][bucket] += 1
         if self.prefix is not None:
             req.cache_extras = {
                 "tokens": np.array(eff, np.int32), "offset": o,
-                "logits": logits,
+                "logits": logits, "end_ssm": end_ssm, "snaps": snaps,
                 # an exact record promises bit-identity with a COLD run; a
                 # kv-quant tail computes over DEQUANTISED prefix rows, so it
                 # donates its tail pages but never an exact record
@@ -371,7 +384,8 @@ class ServeSession:
         record read), arm its lane mirrors and emit its first token."""
         admitted = self.sched.admit()
         if admitted and self._pool is None:
-            self._pool = self.engine.init_pool(self.n_pages, self.page_size)
+            self._pool = self.engine.init_pool(self.n_pages, self.page_size,
+                                               self.lanes)
         for req in admitted:
             req.admitted_at = time.perf_counter()
             eff = req.effective_prompt
