@@ -191,8 +191,46 @@ wall seconds, each on a line of its own:
               mixed traffic identical but for counted near-ties, every
               launch on the CUDA-core routes and counted as the model's
               packed leaves and attention layers imply; jamba also
-              prefix-cached; musicgen-medium's and internvl2-26b's
-              lm_forward logits on embeddings within phase 4's tolerance.
+              prefix-cached, and one jamba request preempted and
+              swap-resumed (ssm_swap_check: the lane's mamba state
+              captured and restored bit for bit, streams card vs CPU);
+              musicgen-medium's and internvl2-26b's lm_forward logits on
+              embeddings within phase 4's tolerance.
+12. moonshot -- moonshot-v1-16b-a3b at its published widths (48 layers,
+              d_model 2048, 16 q / 16 KV heads of 128, 64 experts top-6,
+              d_ff 1408, vocab 163840, bf16): lm_init on a seeded
+              generator, packed (pack_weights(consume=True); the int8
+              experts stay the plain torch products of models/moe.py),
+              served through ServeEngine(packed=True, max_len=1024).session:
+              8 lanes, greedy, phase 3's first 8 prompt lengths, 32 tokens
+              each. Launch counts equal the printed formula (2 x 48 GEMV a
+              decode step and a prefill of <= 256 rows, 48 paged decode a
+              step, 48 flash a prefill), every launch on the tensor-core
+              routes; init + pack peak, resident memory, decode step,
+              tokens/s, TTFT, device time by group for an admission round
+              and an 8-step segment; moe_block_check (two MoE layers,
+              teacher-forced: the router's top-6 against an fp64
+              recompute outside near-ties, the output against the same
+              function with fp64 expert products, the einsum and scatter
+              dispatches against each other and timed);
+13. overload -- gemma2-2b at published widths on a 192-page pool, bf16 and
+              int8: swap_roundtrip_check (every byte of every leaf back on
+              other page ids; d2h and h2d GB/s in chunks of 1, 8, 64
+              pages); 24 fixed requests of 200 to 900 tokens over two
+              tenants with page quotas, two priorities, three deadlines on
+              an injected clock, a bounded queue and a host swap tier of
+              150 pages, the audit clean after every step, every request
+              terminal with the reference's reasons, swap-resumed and
+              never-preempted streams token-identical to the same
+              requests served without preemption, recompute-resumed ones
+              read; four repeats of a 512-token prompt, close() and a
+              session adopting the demoted index (promoted exact hit
+              identical, tail_route_check on a partial hit over promoted
+              pages); on the bf16 pool soak_session on
+              FaultSchedule.random(0, DEFAULT_RATES, horizon=64), ok, with
+              never-recomputed DONE streams equal to the fault-free run.
+              Launches by route of the four serving kernels, all on the
+              tensor cores.
 
 The last lines are one JSON object of kernel results, the card's name and
 power limit as nvidia-smi reports them, and the result object.
@@ -577,7 +615,8 @@ def check_paged_decode(torch, flush, gen, cfg):
     timed = [("phase 3", KV, R, hd, softcap,
               (("global", 0), ("local", cfg.sliding_window),
                ("window-100", 100))),
-             ("phase 9", q_KV, q_R, q_hd, q_cap, (("global", 0),))]
+             ("phase 9", q_KV, q_R, q_hd, q_cap, (("global", 0),)),
+             MOON_DECODE]
     for phase, KV_, R_, hd_, cap, windows in timed:
         q, bt, pos, pools = decode_inputs(torch, gen, KV_, R_, hd_, page,
                                             DECODE_POS)
@@ -1375,7 +1414,7 @@ def serve(torch, seed: int):
 
     profile = profile_segment(torch, engine, prompts[:8], n_tok)
 
-    stats = sess.stats
+    stats = sess.work
     d_steps = stats["decode_steps"]
     gemv_prefills = sum(c for b, c in stats["prefills"].items() if b <= 256)
     per_layer = 4 * cfg.n_layers
@@ -1472,11 +1511,11 @@ def prefix_traffic(torch, engine, prompts, repeats, n_tok, *, lanes, page,
         while True:
             sync()
             t = time.perf_counter()
-            steps0 = sess.stats["decode_steps"]
+            steps0 = sess.work["decode_steps"]
             if not sess.step():
                 return
             sync()
-            if sess.stats["decode_steps"] > steps0:
+            if sess.work["decode_steps"] > steps0:
                 step_ms.append((time.perf_counter() - t) * 1e3 / segment)
             note_kinds()
 
@@ -1501,13 +1540,13 @@ def prefix_traffic(torch, engine, prompts, repeats, n_tok, *, lanes, page,
     assert sess.prefix.owned_pages + alloc.n_free == alloc.n_pages - 1
     audit = sess.audit()
     index = sess.prefix
-    stats = {"decode_steps": sess.stats["decode_steps"],
-             "prefills": sum(sess.stats["prefills"].values()),
-             "tail_prefills": sum(sess.stats["tail_prefills"].values()),
-             "buckets": {str(b): c for b, c in (sess.stats["prefills"]
-                                                + sess.stats["tail_prefills"])
+    stats = {"decode_steps": sess.work["decode_steps"],
+             "prefills": sum(sess.work["prefills"].values()),
+             "tail_prefills": sum(sess.work["tail_prefills"].values()),
+             "buckets": {str(b): c for b, c in (sess.work["prefills"]
+                                                + sess.work["tail_prefills"])
                          .items()},
-             "exact_admits": sess.stats["exact_admits"],
+             "exact_admits": sess.work["exact_admits"],
              "prefix": dict(sess.prefix.stats)}
     sess.close()
     ttft, admit = {}, {}
@@ -2972,7 +3011,7 @@ def serve_qwen(torch, seed: int):
     launches = {k.__name__: k.launches for k in KERNELS}
     routes = route_counts()
     peak = torch.cuda.max_memory_allocated()
-    stats = sess.stats
+    stats = sess.work
     d_steps = stats["decode_steps"]
     gemv_prefills = sum(c for b, c in stats["prefills"].items() if b <= 256)
     want = {"packed_xnor_gemv": 6 * cfg.n_layers * (d_steps + gemv_prefills),
@@ -3388,7 +3427,7 @@ def serve_falcon(torch, seed: int):
     launches = {k.__name__: k.launches for k in KERNELS}
     routes = route_counts()
     peak = torch.cuda.max_memory_allocated()
-    stats = sess.stats
+    stats = sess.work
     d_steps = stats["decode_steps"]
     gemv_prefills = sum(c for b, c in stats["prefills"].items() if b <= 256)
     want = {k: 0 for k in launches}
@@ -3475,6 +3514,61 @@ def family_launches(cfg, params, decode_steps: int, buckets, n_prefills: int,
             "paged_prefix_attention": n_attn * n_tails}
 
 
+def ssm_swap_check(torch, cfg, params, prompts, mixed, lane_draw):
+    """A hybrid (attention + mamba) session with the host swap tier, on the
+    card and on the CPU: request 0 is preempted after 4 tokens, its page
+    bytes and its lanes' mamba (h, conv) state captured to host, and
+    swap-resumed. The captured state equals the lane's state at the
+    preemption bit for bit, and is back in the resumed lane bit for bit;
+    the streams agree card vs CPU (phase 4's near-tie rule), and on each
+    device the preempted stream is read against the same request served
+    without preemption."""
+    from repro_torch.serve import ServeEngine
+
+    outs, plain, state = [], [], {}
+    for d in ("cuda", "cpu"):
+        eng = ServeEngine(cfg, params, max_len=128, packed=True, device=d)
+        with eng.session(lanes=2, page_size=16, segment=2, audit=True,
+                         host_page_budget=32) as s:
+            hs = [s.submit(p, mixed(i)) for i, p in enumerate(prompts)]
+            while hs[0].tokens_ready < 4:
+                s.step()
+            req, lane = hs[0]._req, hs[0]._req.lane
+            mamba = s.swap_mgr._mamba
+            before = {(bi, n): s._pool[bi][n][:, lane].cpu()
+                      for bi in mamba for n in s._pool[bi]}
+            assert s.preempt(hs[0])
+            rec = req.swap
+            assert rec is not None and mamba, "no swap capture"
+            for (bi, n), t in before.items():
+                assert torch.equal(rec.ssm[bi][n], t), ("captured", d, bi, n)
+            while req.lane < 0:
+                s.step()
+            for (bi, n), t in before.items():
+                assert torch.equal(s._pool[bi][n][:, req.lane].cpu(), t), \
+                    ("restored", d, bi, n)
+            s.run_until_idle()
+            assert req.preempt_swap == 1 and req.preempt_recompute == 0
+            outs.append([h.tokens_so_far() for h in hs])
+        with eng.session(lanes=2, page_size=16, segment=2) as s:
+            hs = [s.submit(p, mixed(i)) for i, p in enumerate(prompts)]
+            s.run_until_idle()
+            plain.append([h.tokens_so_far() for h in hs])
+        state[d] = len(before)
+    engines = [ServeEngine(cfg, params, max_len=128, packed=True, device=d)
+               for d in ("cuda", "cpu")]
+    same, ties = streams_agree(torch, engines, outs, prompts, lane_draw)
+    uninterrupted = [o == p for o, p in zip(outs, plain)]
+    print(f"  {cfg.name} swap: request 0 preempted after 4 tokens and "
+          f"swap-resumed; {state['cuda']} mamba leaves of its lane captured "
+          f"and restored bit for bit on the card and the CPU; {same}/"
+          f"{len(prompts)} streams identical card vs CPU, {ties} near-ties; "
+          f"streams identical to the unpreempted run (card, CPU) "
+          f"{uninterrupted}")
+    return {"identical": same, "near_ties": ties,
+            "state_leaves": state["cuda"],
+            "identical_to_unpreempted": uninterrupted}
+
 def families_agree(torch, seed: int):
     """Phase 11: moonshot-v1-16b-a3b, arctic-480b and jamba-1.5-large-398b
     at smoke widths (head_dim 64, as phase 4) in fp32, served packed and
@@ -3530,7 +3624,7 @@ def families_agree(torch, seed: int):
                     s.run_until_idle()
                     outs.append([h.tokens_so_far() for h in hs])
                     if card_stats is None:
-                        card_stats = dict(s.stats)
+                        card_stats = dict(s.work)
                         routes = route_counts()
             same, ties = streams_agree(torch, engines, outs, prompts, lane_draw)
             want = family_launches(
@@ -3574,6 +3668,8 @@ def families_agree(torch, seed: int):
             assert got == want, (got, want)
             assert all(r["tensor_cores"] == 0 for r in res[0]["routes"].values())
             out[f"{arch} prefix"] = {"kinds": want_kinds, "launches": got}
+            out[f"{arch} swap"] = ssm_swap_check(
+                torch, cfg, params, pfx_prompts[:2], mixed, lane_draw)
     for arch in EMBED_SMOKE:
         cfg = get_smoke(arch).scaled(dtype=torch.float32)
         params = lm_init(cfg, torch.Generator().manual_seed(seed))
@@ -3656,6 +3752,721 @@ def ring_kernels(build, decode_kv: int, decode_kv_by_r=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. moonshot-v1-16b-a3b at published widths
+# ---------------------------------------------------------------------------
+# its two packed projections a block (16 q and 16 KV heads of 128: wqkv's N
+# = 3 x 2048) at M = 8 lanes, phase 2; its decode shape (R 1 over 16 KV
+# heads, hd 128) and its largest prefill (1,024 rows, n_rep 1)
+MOON_GEMV_SHAPES = (("wqkv", 2048, 6144), ("wo", 2048, 2048))
+MOON_DECODE = ("phase 12", 16, 1, 128, 0.0, (("global", 0),))
+MOON_FLASH_CASES = (("global", 1024, 0, "bf16", 128),)
+MOON_TOKENS, MOON_REQUESTS = 32, 8          # phase 3's first 8 lengths
+MOON_KERNEL_GROUPS = (
+    ("packed_xnor_gemv", ("xnor_gemv",)),
+    ("paged_flash_decode", ("paged_decode", "decode_tc")),
+    ("flash_attention", ("flash_tc", "flash_fwd")),
+    ("expert products (fp32 GEMMs)", ("sgemm", "f32f32", "gemm_f32",
+                                      "s1688gemm", "gemmsn")),
+    ("bf16 GEMMs (head, dispatch einsums, projections of > 256 rows)",
+     ("gemm", "sm90_", "cutlass", "nvjet")),
+    ("int8 -> fp32 widening and other copies", ("copy",)),
+    ("dispatch (one_hot, cumsum, topk, softmax, scatter)",
+     ("one_hot", "cumsum", "scan", "topk", "softmax", "sort", "index",
+      "scatter", "gather")))
+MOON_REST = "other elementwise (norms, rope, activations, sampling)"
+MOE_TOL = 1e-2      # relative RMS of a block output against its recompute
+MOE_CHECK_LEN = 512  # the prefill width of moe_block_check and its timings
+
+
+def _rel_rms(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+
+def moe_block_check(torch, eng, prompt, layers=(0, 24)):
+    """One MoE layer at published widths on the card, teacher-forced: each
+    checked layer takes the input its MoE received in a prefill of
+    ``prompt`` through the served weights. (1) The router's top-6 equals a
+    float64 recompute of the fp32 router on the same input, outside
+    near-ties (a gap under 2^-20 between the 6th and 7th probability); (2)
+    the block output (bf16 activations, the int8 experts widened to fp32
+    and summed in fp32) lies within MOE_TOL relative RMS of the same
+    function with the expert products summed in float64; (3) the einsum
+    and scatter dispatches agree within MOE_TOL, each timed at this
+    prefill width; the whole block in fp32 activations is read beside it
+    (not held: sign() flips near the threshold). The expert products of a
+    decode step (64 experts at capacity 8) are timed alone, and beside
+    them the same products on a bf16 ±1 operand (fp32 accumulation), the
+    reading a later change would need."""
+    import repro_torch.models.moe as MOE
+    from repro_torch.models import lm_prefill
+
+    cfg = eng.cfg
+    seen = []
+    apply = MOE.moe_apply
+
+    def keep(c, p, x):
+        seen.append((p, x.detach().clone()))
+        return apply(c, p, x)
+
+    MOE.moe_apply = keep
+    try:
+        with torch.no_grad():
+            lm_prefill(cfg, eng.params, {"tokens": torch.from_numpy(
+                prompt[None]).cuda()})
+    finally:
+        MOE.moe_apply = apply
+    assert len(seen) == cfg.n_layers, len(seen)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = {}
+    bmm = MOE._bmm_f32
+    for n in layers:
+        p, x = seen[n]
+        xf = x.reshape(-1, cfg.d_model)
+        with torch.no_grad():
+            probs = torch.softmax(xf.double() @ p["router"].double(), -1)
+            _, experts, _ = MOE._route(cfg, p, xf)
+            ref_top = torch.topk(probs, cfg.top_k + 1, dim=-1)
+            gap = ref_top.values[:, cfg.top_k - 1] - ref_top.values[:, cfg.top_k]
+            tie = gap < 2.0 ** -20
+            same = (experts.sort(-1).values
+                    == ref_top.indices[:, :cfg.top_k].sort(-1).values).all(-1)
+            y = apply(cfg, p, x)[0]
+            MOE._bmm_f32 = lambda a, w: torch.matmul(
+                a.double(), w.double()).float()
+            try:
+                y64 = apply(cfg, p, x)[0]
+            finally:
+                MOE._bmm_f32 = bmm
+            y32 = apply(cfg.scaled(dtype=torch.float32), p, x.float())[0]
+            ysc = apply(cfg.scaled(moe_impl="scatter"), p, x)[0]
+        torch.cuda.synchronize()
+        r = {"tokens": xf.shape[0], "router_agree": int(same.sum()),
+             "router_near_ties": int(tie.sum()),
+             "router_disagree_outside_ties": int((~same & ~tie).sum()),
+             "rel_rms_vs_f64_products": _rel_rms(y, y64),
+             "max_abs_vs_f64_products": (y.float() - y64).abs().max().item(),
+             "rel_rms_fp32_block": _rel_rms(y, y32),
+             "rel_rms_scatter_vs_einsum": _rel_rms(ysc, y),
+             "einsum_ms": time_ms(torch, lambda: apply(cfg, p, x), flush, 5),
+             "scatter_ms": time_ms(torch, lambda: apply(
+                 cfg.scaled(moe_impl="scatter"), p, x), flush, 5)}
+        print(f"    moe layer {n} ({r['tokens']} tokens): router top-"
+              f"{cfg.top_k} equal to the fp64 recompute on "
+              f"{r['router_agree']}, near-ties {r['router_near_ties']}, "
+              f"other disagreements {r['router_disagree_outside_ties']}; "
+              f"output rel RMS vs fp64 products "
+              f"{r['rel_rms_vs_f64_products']:.3g} (tol {MOE_TOL}, max abs "
+              f"{r['max_abs_vs_f64_products']:.3g}), vs the fp32 block "
+              f"{r['rel_rms_fp32_block']:.3g} (read); scatter vs einsum "
+              f"{r['rel_rms_scatter_vs_einsum']:.3g} (tol {MOE_TOL}); einsum "
+              f"{r['einsum_ms']:.3f} ms, scatter {r['scatter_ms']:.3f} ms")
+        assert r["router_disagree_outside_ties"] == 0, r
+        assert r["rel_rms_vs_f64_products"] <= MOE_TOL, r
+        assert r["rel_rms_scatter_vs_einsum"] <= MOE_TOL, r
+        assert bool(torch.isfinite(y).all())
+        out[f"layer {n}"] = r
+    p = seen[0][0]
+    E, D = cfg.n_experts, cfg.d_model
+    xin = torch.randn((E, 8, D), device="cuda").to(torch.bfloat16)
+    wb = {k: p[k].to(torch.bfloat16) for k in ("wg", "wu", "wd")}
+    ms = time_ms(torch, lambda: MOE._expert_mlp(cfg, p, xin), flush, 5)
+
+    def bf16_products():
+        g = torch.matmul(xin, wb["wg"])
+        u = torch.matmul(xin, wb["wu"])
+        return torch.matmul(g * u, wb["wd"])
+
+    bf_ms = time_ms(torch, bf16_products, flush, 5)
+    del wb
+    w_bytes = sum(p[k].numel() for k in ("wg", "wu", "wd"))
+    b_ms, b_by = bound(w_bytes + xin.numel() * 4, 2.0 * 8 * w_bytes, "bf16")
+    out["decode_expert_products"] = {
+        "ms_a_layer": ms, "bf16_operand_ms_a_layer": bf_ms,
+        "int8_expert_bytes_a_layer": w_bytes, "bound_ms_a_layer": b_ms,
+        "bound_by": b_by}
+    print(f"    expert products of one decode step's layer (64 experts x "
+          f"capacity 8): {ms:.3f} ms as served (int8 widened to fp32), "
+          f"{bf_ms:.3f} ms on a bf16 +-1 operand (read), bound {b_ms:.3f} ms "
+          f"({b_by}: the {w_bytes / 1e6:.0f} MB of int8 experts once)")
+    del flush
+    return out
+
+
+def serve_moonshot(torch, seed: int):
+    """Phase 12: moonshot-v1-16b-a3b at its published widths (48 layers,
+    d_model 2048, 16 q / 16 KV heads of 128, 64 experts top-6, d_ff 1408,
+    vocab 163,840, bf16), packed (its wqkv and wo; the experts stay int8
+    and go through the plain torch products of models/moe.py, as the JAX
+    package leaves them to XLA), through ServeEngine.session: 8 lanes,
+    greedy, phase 3's first 8 prompt lengths, 32 tokens each. Launch
+    counts equal to the printed formula, every launch on the tensor-core
+    routes; init + pack peak, resident memory, decode step, tokens/s,
+    TTFT, device time by group for an admission round and an 8-step
+    segment; moe_block_check."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import lm_init
+    from repro_torch.serve import (RequestStatus, SamplingParams, ServeEngine,
+                                   pack_weights)
+
+    cfg = get_config("moonshot-v1-16b-a3b")
+    L = cfg.n_layers
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(seed + 12))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, pack_weights(params, consume=True), max_len=1024,
+                         packed=True)
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    card = smi_line()
+    print(f"  moonshot-v1-16b-a3b {L} layers d_model {cfg.d_model} heads "
+          f"{cfg.heads_padded()}/{cfg.kv_heads_padded()} x {cfg.head_dim_} "
+          f"experts {cfg.n_experts} top-{cfg.top_k} d_ff {cfg.d_ff} vocab "
+          f"{cfg.vocab_size} {cfg.dtype}: init {init_s:.1f} s, init + pack "
+          f"{setup_s:.1f} s, peak memory of init + pack {setup_peak / 1e9:.2f} "
+          f"GB ({base / 1e9:.2f} GB held before), resident after "
+          f"{resident / 1e9:.2f} GB ({card})")
+    assert setup_peak < 80e9, f"init + pack peaked at {setup_peak} bytes"
+
+    rng = np.random.default_rng(seed + 12)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in QWEN_LENS[:MOON_REQUESTS]]
+    greedy = SamplingParams(max_tokens=MOON_TOKENS)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    submitted, first_at, handles = {}, {}, []
+    sess = engine.session(lanes=8, page_size=16, segment=8)
+    t_serve = time.perf_counter()
+    for i, p in enumerate(prompts):
+        submitted[i] = time.perf_counter()
+        handles.append(sess.submit(p, greedy))
+    while sess.step():
+        now = time.perf_counter()
+        for h in handles:
+            if h.rid not in first_at and h.tokens_ready:
+                first_at[h.rid] = now
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t_serve
+    launches = {k.__name__: k.launches for k in KERNELS}
+    routes = route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    work = sess.work
+    d_steps = work["decode_steps"]
+    n_prefills = sum(work["prefills"].values())
+    gemv_prefills = sum(c for b, c in work["prefills"].items() if b <= 256)
+    want = {k: 0 for k in launches}
+    want["packed_xnor_gemv"] = 2 * L * (d_steps + gemv_prefills)
+    want["paged_flash_decode"] = L * d_steps
+    want["flash_attention_fwd"] = L * n_prefills
+    print(f"  served {len(handles)} greedy requests in {serve_s:.2f} s: "
+          f"{d_steps} decode steps, prefill buckets {dict(work['prefills'])}")
+    print(f"  launches {launches}, expected {want}: GEMV 2 packed projections "
+          f"x {L} layers x ({d_steps} decode steps + {gemv_prefills} prefills "
+          f"of <= 256 rows), paged decode {L} x {d_steps} decode steps, flash "
+          f"{L} x {n_prefills} prefills")
+    assert launches == want, (launches, want)
+    print(f"  launches by route {routes}")
+    for name in ("packed_xnor_gemv", "paged_flash_decode", "flash_attention_fwd"):
+        assert want[name] > 0 and routes[name] == {
+            "tensor_cores": want[name], "cuda_cores": 0}, (name, routes[name])
+    for h in handles:
+        toks = h.tokens_so_far()
+        assert h.status is RequestStatus.DONE and len(toks) == MOON_TOKENS \
+            and all(0 <= t < cfg.vocab_size for t in toks), (h.rid, h.status)
+    ttft = [1e3 * (first_at[r] - submitted[r]) for r in first_at]
+    sess.close()
+
+    seg_ms, decode_tokens, decode_s = timed_segments(
+        torch, engine, prompts, None, lambda i: greedy, MOON_TOKENS)
+    profile = profile_segment(torch, engine, prompts, MOON_TOKENS,
+                              kernel_groups=MOON_KERNEL_GROUPS, rest=MOON_REST)
+    moe = moe_block_check(torch, engine, rng.integers(
+        0, cfg.vocab_size, (MOE_CHECK_LEN,)).astype(np.int32))
+    metrics = {
+        "model": cfg.name, "requests": len(handles), "decode_steps": d_steps,
+        "prefill_buckets": {str(b): c for b, c in work["prefills"].items()},
+        "serve_s": serve_s, "init_s": init_s, "setup_s": setup_s,
+        "setup_peak_bytes": setup_peak, "resident_bytes": resident,
+        "ttft_ms_median": statistics.median(ttft), "ttft_ms_max": max(ttft),
+        "step_ms_median": statistics.median(seg_ms),
+        "decode_tokens_per_s": decode_tokens / decode_s,
+        "max_memory_allocated_bytes": peak, "launches": launches,
+        "expected_launches": want, "routes": routes,
+        "profiled_segment": profile, "moe_block_check": moe, "device": card}
+    print(f"  decode {metrics['decode_tokens_per_s']:.1f} tokens/s at 8 lanes, "
+          f"median step {metrics['step_ms_median']:.2f} ms, TTFT median "
+          f"{metrics['ttft_ms_median']:.1f} ms max {metrics['ttft_ms_max']:.1f} "
+          f"ms, max_memory_allocated {peak / 1e9:.2f} GB while serving ({card})")
+    return metrics
+
+
+# ---------------------------------------------------------------------------
+# 13. overload, the host swap tier, faults and chaos: gemma2-2b at published
+#     widths
+# ---------------------------------------------------------------------------
+# The traffic, fixed: 24 requests of 200 to 900 tokens, 48 tokens each, two
+# tenants (even and odd request ids) under page quotas, 16 at priority 0
+# (4 at once, the other 12 two a step once the high-priority ones are in)
+# and 8 at priority 1 arriving together after two decode segments, three
+# with deadlines on an injected clock that advances OVL_MS_A_STEP a step. The device pool holds 192 pages (three
+# lanes of max_len), far below the offered load; the host tier holds
+# OVL_HOST_PAGES, so the first preemptions swap and later ones recompute.
+OVL_LENS = (880, 610, 420, 760, 300, 530, 900, 250, 690, 370, 820, 460, 220,
+            640, 350, 780, 260, 200, 310, 240, 280, 230, 330, 210)
+OVL_LOW, OVL_FIRST, OVL_PER_STEP = 16, 4, 2
+OVL_TOKENS, OVL_POOL_PAGES, OVL_HOST_PAGES = 48, 193, 150
+OVL_MAX_PENDING, OVL_TENANT_PAGES = 7, 200
+OVL_DEADLINES = {3: 30.0, 9: 250.0, 19: 40.0}   # request id -> deadline_ms
+OVL_MS_A_STEP = 10.0
+# the prefix round: four repeats of a shared 512-token prompt and a partial
+# hit, close(), then a session adopting the demoted index: a promoted exact
+# hit and a partial hit over promoted pages
+OVL_SHARED, OVL_PFX_TAILS, OVL_PFX_TOKENS, OVL_PFX_HOST = 512, (100, 37), 32, 96
+# one seeded soak (bf16 pool): FaultSchedule.random(0, DEFAULT_RATES,
+# horizon=64) over 12 requests, the swap tier on, a preemption every 3 steps
+OVL_SOAK_LENS = (200, 260, 310, 230, 350, 280, 220, 400, 330, 240, 290, 210)
+OVL_SOAK_TOKENS, OVL_SOAK_HOST, OVL_SOAK_SEGMENT = 16, 64, 2
+SWAP_CHUNKS, SWAP_PAGES, SWAP_REPEATS = (1, 8, 64), 64, 3
+
+
+def _work_launches(cfg, work, per_layer_gemv: int):
+    """The launches a session's work implies for the four kernels of the
+    serving path (gemma2-2b: 4 packed projections a layer)."""
+    L = cfg.n_layers
+    pre, tails = work["prefills"], work["tail_prefills"]
+    small = sum(c for b, c in list(pre.items()) + list(tails.items())
+                if b <= 256)
+    return {"packed_xnor_gemv": per_layer_gemv * L
+            * (work["decode_steps"] + small),
+            "paged_flash_decode": L * work["decode_steps"],
+            "flash_attention_fwd": L * sum(pre.values()),
+            "paged_prefix_attention": L * sum(tails.values())}
+
+
+def _check_launches(cfg, work, totals, label):
+    """Hold every kernel's launches since the counts were set to 0 to what
+    a session's ``work`` implies (the other kernels at 0), every one on the
+    tensor-core route, and add them to ``totals``."""
+    from repro_torch.kernels import KERNELS
+
+    launches = {k.__name__: k.launches for k in KERNELS}
+    routes = route_counts()
+    want = {k: 0 for k in launches}
+    want.update(_work_launches(cfg, work, 4))
+    assert launches == want, (label, launches, want)
+    assert all(r["cuda_cores"] == 0 for r in routes.values()), (label, routes)
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def _counted(torch, cfg, run, totals, label):
+    """Run ``run()`` -> session work with the counts at 0 before, and
+    ``_check_launches`` it."""
+    zero_counts()
+    work = run()
+    _check_launches(cfg, work, totals, label)
+    return work
+
+
+def swap_roundtrip_check(torch, cfg, gen):
+    """swap_out then swap_in onto other page ids returns every byte of every
+    attention leaf (k/v rows; under kv-quant the int8 pools and their fp32
+    scale pools), on a pool of phase 13's geometry filled at random; then
+    device->host and host->device rates in GB/s for 64 pages moved in
+    chunks of 1, 8 and 64 pages (each chunk size warmed once, then the
+    median of SWAP_REPEATS round trips, host clock around a synchronize;
+    swap_out returns with its bytes on the host)."""
+    from repro_torch.serve import paged_pool_init
+    from repro_torch.serve.swap import SwapManager
+
+    pool = paged_pool_init(cfg, OVL_POOL_PAGES, 16, "cuda")
+    for blk in pool.values():
+        for leaf in blk.values():
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen,
+                                         device="cuda", dtype=torch.int8))
+            else:
+                leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                       device="cuda").to(leaf.dtype))
+    mgr = SwapManager(cfg, host_pages=SWAP_PAGES)
+    perm = torch.randperm(OVL_POOL_PAGES - 1, generator=torch.Generator()
+                          .manual_seed(5)) + 1
+    src, dst = perm[:SWAP_PAGES].tolist(), perm[SWAP_PAGES:2 * SWAP_PAGES].tolist()
+    before = {(bi, n): leaf[:, src].clone() for bi, blk in pool.items()
+              for n, leaf in blk.items()}
+    out = {"leaves": sorted({n for _, n in before}), "rates": {}}
+    slots = mgr.swap_out(pool, src)                # shapes the pinned buffers
+    mgr.swap_in(pool, slots, dst)
+    torch.cuda.synchronize()
+    for (bi, n), b in before.items():
+        assert torch.equal(pool[bi][n][:, dst], b), (bi, n)
+    nbytes = mgr.page_bytes * SWAP_PAGES
+    for chunk in SWAP_CHUNKS:
+        mgr.chunk = chunk
+        times = []
+        for _ in range(SWAP_REPEATS + 1):      # the first warms the chunk
+            for bi, blk in pool.items():
+                for leaf in blk.values():
+                    leaf[:, dst] = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            slots = mgr.swap_out(pool, src)
+            d2h = time.perf_counter() - t
+            t = time.perf_counter()
+            mgr.swap_in(pool, slots, dst)
+            torch.cuda.synchronize()
+            times.append((d2h, time.perf_counter() - t))
+            for (bi, n), b in before.items():
+                assert torch.equal(pool[bi][n][:, dst], b), (chunk, bi, n)
+        d2h, h2d = (statistics.median(x) for x in zip(*times[1:]))
+        out["rates"][chunk] = {"d2h_GBps": nbytes / d2h / 1e9,
+                               "h2d_GBps": nbytes / h2d / 1e9}
+    out.update(page_bytes=mgr.page_bytes, pages=SWAP_PAGES)
+    print(f"    swap round trip of {SWAP_PAGES} pages ({mgr.page_bytes / 1e6:.2f} "
+          f"MB a page over {len(out['leaves'])} leaf kinds {out['leaves']}): "
+          "every byte back onto other page ids; "
+          + ", ".join(f"chunk {c}: d2h {r['d2h_GBps']:.2f} GB/s, h2d "
+                      f"{r['h2d_GBps']:.2f} GB/s"
+                      for c, r in out["rates"].items()))
+    del pool, mgr
+    return out
+
+
+def overload_traffic(torch, eng, prompts, sync=lambda: None):
+    """Drive OVL's traffic through one session of the overload knobs with
+    the audit after every step; returns what happened, per request and
+    per step, with each admission's kind (cold, swap-resumed,
+    recompute-resumed) and its admission-to-token time."""
+    from repro_torch.serve import (TERMINAL, RequestStatus, SamplingParams,
+                                   ShedError)
+
+    now = [0.0]
+    sess = eng.session(lanes=8, page_size=16, segment=8,
+                       n_pages=OVL_POOL_PAGES, max_pending=OVL_MAX_PENDING,
+                       tenant_page_quota=OVL_TENANT_PAGES,
+                       host_page_budget=OVL_HOST_PAGES, audit=True,
+                       clock=lambda: now[0])
+
+    def params(i):
+        return SamplingParams(max_tokens=OVL_TOKENS, priority=int(i >= OVL_LOW),
+                              tenant="ab"[i % 2],
+                              deadline_ms=OVL_DEADLINES.get(i))
+
+    reqs, shed_at_submit = {}, {}
+
+    def submit(i):
+        try:
+            reqs[i] = sess.submit(prompts[i], params(i))._req
+        except ShedError as e:
+            shed_at_submit[i] = e.reason
+
+    for i in range(OVL_FIRST):
+        submit(i)
+    nxt, high_in = OVL_FIRST, False
+    steps, step_ms, admits, pending_tok = 0, [], [], {}
+    max_slots, t0 = 0, time.perf_counter()
+    while True:
+        if not high_in and sess.work["decode_steps"] >= 2 * sess.segment:
+            for i in range(OVL_LOW, len(prompts)):
+                submit(i)
+            high_in = True
+        for _ in range(OVL_PER_STEP if high_in else 0):
+            if nxt < OVL_LOW:
+                submit(nxt)
+                nxt += 1
+        if sess.idle and nxt >= OVL_LOW and high_in:
+            break
+        before = {i: (r.status, len(r.emitted), r.swap is not None,
+                      r.preempt_swap) for i, r in reqs.items()}
+        d0 = sess.work["decode_steps"]
+        t = time.perf_counter()
+        sess.step()
+        sync()
+        t1 = time.perf_counter()
+        now[0] += OVL_MS_A_STEP
+        steps += 1
+        if sess.work["decode_steps"] > d0:
+            step_ms.append((t1 - t) * 1e3 / sess.segment)
+        max_slots = max(max_slots, sess.swap_mgr.n_used)
+        for i, r in reqs.items():
+            st, n_em, had_swap, n_swap = before[i]
+            if st in (RequestStatus.QUEUED, RequestStatus.PREEMPTED) \
+                    and r.lane >= 0:
+                kind = "cold" if n_em == 0 else (
+                    "swap" if had_swap and r.preempt_swap == n_swap
+                    else "recompute")
+                pending_tok[i] = (kind, t)
+            if i in pending_tok and len(r.emitted) > n_em:
+                kind, ta = pending_tok.pop(i)
+                admits.append((i, kind, (t1 - ta) * 1e3))
+    serve_s = time.perf_counter() - t0
+    for r in reqs.values():
+        assert r.status in TERMINAL, r
+    return {"sess": sess, "reqs": reqs, "shed_at_submit": shed_at_submit,
+            "steps": steps, "step_ms": step_ms, "admits": admits,
+            "serve_s": serve_s, "max_slots_used": max_slots}
+
+
+def overload_round(torch, eng, prompts, totals, label):
+    """One pool's overload run, its checks and its uninterrupted twin."""
+    from repro_torch.serve import RequestStatus, SamplingParams
+
+    zero_counts()
+    res = overload_traffic(torch, eng, prompts, torch.cuda.synchronize)
+    sess, reqs = res["sess"], res["reqs"]
+    got = {}
+    _check_launches(eng.cfg, sess.work, got, label)
+    for k, v in got.items():
+        totals[k] = totals.get(k, 0) + v
+    st = sess.stats()
+    outcome = {i: (r.status.name, r.fail_reason) for i, r in reqs.items()}
+    shed_reasons = sorted(set(res["shed_at_submit"].values()) | {
+        r.fail_reason for r in reqs.values() if r.status is RequestStatus.SHED})
+    expired = sorted(i for i, r in reqs.items()
+                     if r.status is RequestStatus.EXPIRED)
+    for i, r in reqs.items():
+        if r.status in (RequestStatus.SHED, RequestStatus.EXPIRED,
+                        RequestStatus.FAILED):
+            assert r.fail_reason in ("queue-full", "tenant-quota",
+                                     "host-budget", "deadline"), (i, r)
+        if r.status is RequestStatus.EXPIRED:
+            assert r.fail_reason == "deadline" and i in OVL_DEADLINES
+    swapped = [i for i, r in reqs.items() if r.preempt_swap and
+               not r.preempt_recompute and r.status is RequestStatus.DONE]
+    recomputed = [i for i, r in reqs.items() if r.preempt_recompute
+                  and r.status is RequestStatus.DONE]
+    untouched = [i for i, r in reqs.items() if not r.preemptions
+                 and r.status is RequestStatus.DONE]
+    print(f"  {label}: {res['steps']} steps in {res['serve_s']:.2f} s; "
+          f"outcomes {dict(sorted(outcome.items()))}; shed at submit "
+          f"{res['shed_at_submit']}; reasons {shed_reasons}; expired "
+          f"{expired}; sched {st['sched']}; swap {st['swap']}")
+    assert st["sched"]["preempt_swap"] > 0 and st["sched"]["preempt_recompute"] > 0, \
+        st["sched"]
+    assert swapped, "no swap-resumed request finished"
+    assert "deadline" in shed_reasons or expired, (shed_reasons, expired)
+    # the same requests served without preemption, on the same card
+    ids = swapped + recomputed + untouched
+    twin = eng.session(lanes=8, page_size=16, segment=8)
+    hs = {i: twin.submit(prompts[i], SamplingParams(max_tokens=OVL_TOKENS))
+          for i in ids}
+    twin.run_until_idle()
+    twin.close()
+    alone = {i: h.tokens_so_far() for i, h in hs.items()}
+    parting = {i: next((t for t, (a, b) in enumerate(zip(
+        reqs[i].emitted, alone[i])) if a != b), None) for i in recomputed}
+    same_swap = [i for i in swapped if reqs[i].emitted == alone[i]]
+    same_untouched = [i for i in untouched if reqs[i].emitted == alone[i]]
+    print(f"  {label}: swap-resumed streams identical to the same request "
+          f"served without preemption: {len(same_swap)}/{len(swapped)} "
+          f"{swapped}; never-preempted {len(same_untouched)}/{len(untouched)}; "
+          f"recompute-resumed {recomputed}, first parting token (None: "
+          f"identical) {parting}")
+    assert same_swap == swapped, (swapped, same_swap)
+    assert same_untouched == untouched, (untouched, same_untouched)
+    by_kind = {}
+    for _, kind, ms in res["admits"]:
+        by_kind.setdefault(kind, []).append(ms)
+    ttft = {k: statistics.median(v) for k, v in by_kind.items()}
+    decode_tokens = sum(len(r.emitted) for r in reqs.values())
+    out = {"steps": res["steps"], "serve_s": res["serve_s"],
+           "step_ms_median": statistics.median(res["step_ms"]),
+           "tokens": decode_tokens,
+           "tokens_per_s": decode_tokens / res["serve_s"],
+           "admit_to_token_ms_median": ttft,
+           "admissions_by_kind": {k: len(v) for k, v in by_kind.items()},
+           "outcomes": outcome, "shed_at_submit": res["shed_at_submit"],
+           "sched": st["sched"], "swap": st["swap"],
+           "host_pinned_bytes": sess.swap_mgr.host_bytes,
+           "peak_host_bytes_used": res["max_slots_used"]
+           * sess.swap_mgr.page_bytes,
+           "swap_resumed": swapped, "recompute_resumed": recomputed,
+           "recompute_first_parting_token": parting,
+           "launches": got}
+    print(f"  {label}: decode step median {out['step_ms_median']:.2f} ms under "
+          f"overload, {out['tokens_per_s']:.1f} tokens/s over the run; "
+          f"admission-to-token median by kind "
+          + ", ".join(f"{k} {v:.1f} ms ({len(by_kind[k])})"
+                      for k, v in ttft.items())
+          + f"; host pinned {out['host_pinned_bytes'] / 1e6:.0f} MB, peak in "
+          f"use {out['peak_host_bytes_used'] / 1e6:.0f} MB")
+    sess.close()
+    return out
+
+
+def prefix_demotion(torch, eng, rng, totals, label):
+    """Four repeats of a shared prompt and a partial hit, close() (the index
+    demoted whole to host and parked), then a session of the same geometry
+    adopting it: the promoted exact hit's stream identical to the first
+    session's, a partial hit over promoted pages read, tail_route_check on
+    its prompt."""
+    import numpy as np
+    from repro_torch.serve import SamplingParams
+
+    V = eng.cfg.vocab_size
+    shared = rng.integers(0, V, (OVL_SHARED,)).astype(np.int32)
+    partial = [np.concatenate([shared, rng.integers(0, V, (n,)).astype(
+        np.int32)]) for n in OVL_PFX_TAILS]
+    eng._prefix_store.clear()
+
+    def session():
+        return eng.session(lanes=8, page_size=16, segment=8,
+                           n_pages=OVL_POOL_PAGES, prefix_cache=True,
+                           host_page_budget=OVL_PFX_HOST, audit=True)
+
+    P = SamplingParams(max_tokens=OVL_PFX_TOKENS)
+    first = {}
+
+    def run_a():
+        s = session()
+        h0 = s.submit(shared, P)
+        s.run_until_idle()
+        hs = [s.submit(shared, P) for _ in range(3)] + [s.submit(partial[0], P)]
+        s.run_until_idle()
+        first["cold"] = h0.tokens_so_far()
+        first["repeats"] = [h.tokens_so_far() for h in hs[:3]]
+        first["stats"] = dict(s.prefix.stats)
+        work = s.work
+        s.close()
+        return work
+
+    work_a = _counted(torch, eng.cfg, run_a, totals, label + " prefix A")
+    assert eng._prefix_store, "close() parked no index"
+    assert first["repeats"] == [first["cold"]] * 3, first
+    second = {}
+
+    def run_b():
+        s = session()
+        second["adopted_host_pages"] = s.prefix.host_resident_pages
+        h = s.submit(shared, P)
+        s.run_until_idle()
+        hp = s.submit(partial[1], P)
+        s.run_until_idle()
+        second.update(exact=h.tokens_so_far(), partial=hp.tokens_so_far(),
+                      exact_admit_ms=h.admit_ms, partial_admit_ms=hp.admit_ms,
+                      stats=dict(s.prefix.stats), audit=s.audit())
+        work = s.work
+        s.close()
+        return work
+
+    work_b = _counted(torch, eng.cfg, run_b, totals, label + " prefix B")
+    eng._prefix_store.clear()
+    st = second["stats"]
+    print(f"  {label} prefix: first session {first['stats']}; adopted "
+          f"{second['adopted_host_pages']} host-resident pages; second session "
+          f"{st}; promoted exact hit admitted in {second['exact_admit_ms']:.1f} "
+          f"ms, partial hit over promoted pages in "
+          f"{second['partial_admit_ms']:.1f} ms")
+    assert second["adopted_host_pages"] > 0 and st["promoted_pages"] > 0, st
+    assert st["exact_hits"] >= 1 and st["partial_hits"] >= 1, st
+    assert work_b["exact_admits"] == 1 and sum(work_b["tail_prefills"].values()) == 1
+    assert second["exact"] == first["cold"], (second["exact"], first["cold"])
+    route = tail_route_check(torch, eng, partial[1], OVL_SHARED, 16)
+    return {"first": first["stats"], "second": st,
+            "adopted_host_pages": second["adopted_host_pages"],
+            "promoted_exact_identical": True,
+            "promoted_admit_ms": second["exact_admit_ms"],
+            "partial_admit_ms": second["partial_admit_ms"],
+            "work": [work_a["decode_steps"], work_b["decode_steps"]],
+            "tail_route": route}
+
+
+def seeded_soak(torch, eng, rng, totals):
+    """soak_session on FaultSchedule.random(0, DEFAULT_RATES, horizon=64):
+    every handle terminal, typed reasons, the audit clean, and every DONE
+    greedy stream that was never recomputed identical to the fault-free
+    run of the same requests on the card."""
+    import numpy as np
+    from repro_torch.serve import (DEFAULT_RATES, FaultSchedule,
+                                   SamplingParams, soak_session)
+
+    V = eng.cfg.vocab_size
+    prompts = [rng.integers(0, V, (n,)).astype(np.int32) for n in OVL_SOAK_LENS]
+    P = SamplingParams(max_tokens=OVL_SOAK_TOKENS)
+    with eng.session(lanes=8, page_size=16, segment=OVL_SOAK_SEGMENT) as s:
+        hs = [s.submit(p, P) for p in prompts]
+        s.run_until_idle()
+        oracle = [h.tokens_so_far() for h in hs]
+    schedule = FaultSchedule.random(0, DEFAULT_RATES, horizon=64)
+    made = []
+
+    def make(inj):
+        made.append(eng.session(lanes=8, page_size=16,
+                                segment=OVL_SOAK_SEGMENT, audit=True,
+                                faults=inj, prefix_cache=True,
+                                host_page_budget=OVL_SOAK_HOST))
+        return made[-1]
+
+    zero_counts()
+    rep = soak_session(make, prompts, schedule, params_for=lambda i: P,
+                       oracle=lambda i: oracle[i], preempt_period=3,
+                       max_steps=500)
+    print(f"  soak {rep.summary()}; fired {rep.fired}; "
+          f"redispatched segments {made[0].work['redispatched_segments']}")
+    assert rep.ok, rep.failures
+    assert rep.identity_checked > 0 and rep.fired, rep.summary()
+    assert len(made) == 1
+    _check_launches(eng.cfg, made[0].work, totals, "soak")
+    return {"summary": rep.summary(), "fired": rep.fired,
+            "outcomes": {str(k): v for k, v in rep.outcomes.items()},
+            "identity_checked": rep.identity_checked,
+            "schedule": schedule.to_json(),
+            "redispatched_segments": made[0].work["redispatched_segments"]}
+
+
+def overload(torch, seed: int):
+    """Phase 13: overload on gemma2-2b at its published widths (26 layers,
+    d_model 2304, bf16, packed, max_len 1024, 8 lanes, page 16), once on a
+    bf16 pool and once on an int8 pool: swap_roundtrip_check; OVL's
+    traffic with the audit after every step, every request terminal, sheds
+    and expiries with the reference's reason strings, swap-resumed (and
+    never-preempted) greedy streams identical to the same requests served
+    without preemption, recompute-resumed ones read with their first
+    parting token; the prefix demotion round; on the bf16 pool one seeded
+    soak. Launch counts by route for the four kernels the phase runs, all
+    on the tensor-core routes."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm_init
+    from repro_torch.serve import ServeEngine, pack_weights
+
+    cfg = get_config("gemma2-2b")
+    gc_collect(torch)
+    params = pack_weights(lm_init(cfg, torch.Generator(device="cuda")
+                                  .manual_seed(seed + 13)), consume=True)
+    rng = np.random.default_rng(seed + 13)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in OVL_LENS]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    card = smi_line()
+    out, totals = {"device": card}, {}
+    for quant in (False, True):
+        label = "int8 pool" if quant else "bf16 pool"
+        eng = ServeEngine(cfg.scaled(kv_cache_quant=quant), params,
+                          max_len=1024, packed=True)
+        r = {"swap_roundtrip": swap_roundtrip_check(torch, eng.cfg, gen)}
+        r["overload"] = overload_round(torch, eng, prompts, totals, label)
+        r["prefix"] = prefix_demotion(torch, eng, rng, totals, label)
+        if not quant:
+            r["soak"] = seeded_soak(torch, eng, rng, totals)
+        out[label] = r
+        del eng
+        gc_collect(torch)
+    out["launches"] = totals
+    print(f"  phase 13 launches on the tensor-core routes {totals} ({card})")
+    return out
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -3707,6 +4518,7 @@ def main() -> int:
         print(f"  phase {n} wall {walls[n]:.1f} s")
 
     gemma, qwen = get_config("gemma2-2b"), get_config("qwen2.5-14b")
+    moon = get_config("moonshot-v1-16b-a3b")
     with phase(1, "build"):
         t0 = time.perf_counter()
         secs = build.build_all()
@@ -3730,11 +4542,15 @@ def main() -> int:
             torch, flush, gen, QWEN_GEMV_SHAPES, (8,), ())
         mamba_gemv_rows, mamba_gemv_err = check_gemv(
             torch, flush, gen, MAMBA_GEMV_SHAPES, (8, 128), ())
+        moon_gemv_rows, moon_gemv_err = check_gemv(
+            torch, flush, gen, MOON_GEMV_SHAPES, (8,), ())
         dec_rows, dec_err, dec_exact = check_paged_decode(torch, flush, gen,
                                                           gemma)
         flash_rows, flash_err = check_flash(torch, flush, gen, gemma)
         qwen_flash_rows, qwen_flash_err = check_flash(
             torch, flush, gen, qwen, QWEN_FLASH_CASES)
+        moon_flash_rows, moon_flash_err = check_flash(
+            torch, flush, gen, moon, MOON_FLASH_CASES)
         pfx_rows, pfx_err = check_prefix(torch, flush, gen, gemma)
         uniform = check_uniform(torch, gen, gemma)
         wbwd_rows, wbwd_err = check_weight_bwd(torch, flush, gen)
@@ -3780,6 +4596,16 @@ def main() -> int:
     with phase(11, "moonshot, arctic and jamba (smoke widths, fp32) served "
                    "on the card vs the CPU; embeddings frontends"):
         family_metrics = families_agree(torch, args.seed)
+
+    with phase(12, "serve moonshot-v1-16b-a3b (published widths) through the "
+                   "packed session"):
+        moon_metrics = serve_moonshot(torch, args.seed)
+        gc_collect(torch)
+
+    with phase(13, "overload, the host swap tier, faults and chaos on "
+                   "gemma2-2b (published widths), bf16 and int8 KV pools"):
+        overload_metrics = overload(torch, args.seed)
+        gc_collect(torch)
 
     decode_m8 = [r for r in gemv_rows if r["M"] == 8]
     layer_votes = [r for r in wbwd_rows if r["alpha"] == 0.0
@@ -3827,6 +4653,11 @@ def main() -> int:
     q_dec = {pool: next(r for r in dec_rows if r.get("phase") == "phase 9"
                         and r["pool"] == pool) for pool in ("bf16", "int8")}
     q_flash = next(r for r in qwen_flash_rows if r["S"] == 1024)
+    m_dec = next(r for r in dec_rows if r.get("phase") == "phase 12"
+                 and r["pool"] == "bf16")
+    m_flash = moon_flash_rows[0]
+    m_launch, m_routes = moon_metrics["launches"], moon_metrics["routes"]
+    o_launch = overload_metrics["launches"]
     q_launch, q_routes = qwen_metrics["launches"], qwen_metrics["routes"]
 
     def phase11(name):
@@ -3839,7 +4670,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/packed_xnor_gemv.cu",
          "replaces": "src/repro/kernels/packed_xnor.py:168",
          "launches": launches["packed_xnor_gemv"],
-         "max_abs_err": max(gemv_err, qwen_gemv_err, mamba_gemv_err),
+         "max_abs_err": max(gemv_err, qwen_gemv_err, mamba_gemv_err,
+                            moon_gemv_err),
          "ms": sum(r["ms"] for r in decode_m8),
          "plain_ms": sum(r["plain_ms"] for r in decode_m8),
          "bound_ms": sum(r["bound_ms"] for r in decode_m8),
@@ -3863,6 +4695,11 @@ def main() -> int:
          "phase10_launches": falcon_metrics["launches"]["packed_xnor_gemv"],
          "phase10_routes": falcon_metrics["routes"]["packed_xnor_gemv"],
          "phase11_launches": phase11("packed_xnor_gemv"),
+         **{f"moonshot_{k}": sum(r[k] for r in moon_gemv_rows)
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "cc_ms")},
+         "phase12_launches": m_launch["packed_xnor_gemv"],
+         "phase12_routes": m_routes["packed_xnor_gemv"],
+         "phase13_launches": o_launch["packed_xnor_gemv"],
          "shape": "sum over one layer's wqkv, wo, wgu, wd at M=8 lanes, bf16 x "
                   "(m16_* .. m256_*: the same at 16 to 256 prefill rows); "
                   "library_ms: torch.matmul on the bf16 ±1 weight; cc_ms: "
@@ -3873,7 +4710,10 @@ def main() -> int:
                   "falcon_m128_*: falcon-mamba-7b's five (in_x, in_z, x_proj, "
                   "dt_proj, out_proj) at M=8 and 128, phase10_*: phase 10's "
                   "launches (its serving run), phase11_launches: phase 11's "
-                  "card sessions' (fp32 x, the CUDA-core route)"},
+                  "card sessions' (fp32 x, the CUDA-core route); moonshot_*: "
+                  "moonshot-v1-16b-a3b's wqkv and wo at M=8, phase12_*: "
+                  "phase 12's launches; phase13_launches: phase 13's (both "
+                  "pools, tensor cores)"},
         {"name": "paged_flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_flash_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:156",
@@ -3898,6 +4738,11 @@ def main() -> int:
             for k in ("ms", "cc_ms", "plain_ms", "bound_ms")},
          "phase9_launches": q_launch["paged_flash_decode"],
          "phase11_launches": phase11("paged_flash_decode"),
+         **{f"moonshot_{k}": m_dec[k]
+            for k in ("ms", "cc_ms", "plain_ms", "bound_ms", "rows")},
+         "phase12_launches": m_launch["paged_flash_decode"],
+         "phase12_routes": m_routes["paged_flash_decode"],
+         "phase13_launches": o_launch["paged_flash_decode"],
          "phase9_launches_by_route_and_group":
              qwen_metrics["decode_group_sizes"],
          "shape": f"{local['L']} lanes, {local['KV']} KV heads x {local['R']} "
@@ -3914,10 +4759,15 @@ def main() -> int:
                   "KV heads x 6 q heads, head_dim 128, no softcap, global, "
                   "bf16 / int8 pool; phase9_*: phase 9's launches; "
                   "phase11_launches: phase 11's card sessions', fp32 q on "
-                  "the CUDA-core route)"},
+                  "the CUDA-core route; moonshot_*: phase 12's shape, 16 KV "
+                  "heads x 1 q head, head_dim 128, global, bf16 pool; "
+                  "phase12_* / phase13_launches: phases 12 and 13's "
+                  "launches)"},
         {"name": "boolean_weight_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/boolean_weight_bwd.cu",
          "replaces": "src/repro/kernels/boolean_bwd.py:52",
+         "phase12_launches": m_launch["boolean_weight_bwd"],
+         "phase13_launches": o_launch["boolean_weight_bwd"],
          "launches": train_launches["boolean_weight_bwd"],
          "tc_launches": train_metrics["weight_bwd_routes"]["tensor_cores"],
          "kernel_route": "tensor_cores",
@@ -3936,7 +4786,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:87",
          "launches": p7["flash_attention_fwd"],
-         "max_abs_err": max(flash_err, qwen_flash_err),
+         "max_abs_err": max(flash_err, qwen_flash_err, moon_flash_err),
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": None, "kernel_route": flash["route"],
@@ -3948,6 +4798,11 @@ def main() -> int:
          "phase9_launches": q_launch["flash_attention_fwd"],
          "phase11_launches": phase11("flash_attention_fwd"),
          "phase9_routes": q_routes["flash_attention_fwd"],
+         **{f"moonshot_{k}": m_flash[k]
+            for k in ("ms", "cc_ms", "plain_ms", "bound_ms", "library_ms")},
+         "phase12_launches": m_launch["flash_attention_fwd"],
+         "phase12_routes": m_routes["flash_attention_fwd"],
+         "phase13_launches": o_launch["flash_attention_fwd"],
          "shape": f"one layer's cold prefill: {flash['BH']} q heads over "
                   f"{flash['KV']} KV heads, S={flash['S']}, head_dim "
                   f"{flash['hd']}, bf16, softcap 50, window {flash['window']} "
@@ -3958,7 +4813,10 @@ def main() -> int:
                   "softcap or window, library_ms SDPA (causal), the same "
                   "function there; phase9_*: phase 9's launches; "
                   "phase11_launches: phase 11's card sessions' (fp32, the "
-                  "CUDA-core route)"},
+                  "CUDA-core route); moonshot_*: its 1,024-token prefill, "
+                  "16 q over 16 KV heads, head_dim 128, library_ms SDPA "
+                  "(causal); phase12_* / phase13_launches: phases 12 and "
+                  "13's launches"},
         {"name": "paged_prefix_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_prefix_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:335",
@@ -3972,6 +4830,8 @@ def main() -> int:
          "int8_one_share_ms": pfx8["one_share_ms"],
          "int8_plain_ms": pfx8["plain_ms"], "int8_bound_ms": pfx8["bound_ms"],
          "phase11_launches": phase11("paged_prefix_attention"),
+         "phase12_launches": m_launch["paged_prefix_attention"],
+         "phase13_launches": o_launch["paged_prefix_attention"],
          "phase7_routes": {k: v["routes"]["paged_prefix_attention"]
                            for k, v in prefix_metrics.items()},
          "shape": f"one layer's tail prefill: {pfx['H']} q heads over "
@@ -3988,6 +4848,8 @@ def main() -> int:
         {"name": "boolean_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/boolean_matmul.cu",
          "replaces": "src/repro/kernels/boolean_matmul.py:59",
+         "phase12_launches": m_launch["boolean_matmul"],
+         "phase13_launches": o_launch["boolean_matmul"],
          **gemm_row("boolean_matmul counts", "boolean_matmul"),
          "kernel_route": "tensor_cores",
          "operands_ms": sum(r["operands_ms"] for r in fused),
@@ -4004,6 +4866,8 @@ def main() -> int:
         {"name": "packed_xnor_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/packed_xnor_matmul.cu",
          "replaces": "src/repro/kernels/packed_xnor.py:239",
+         "phase12_launches": m_launch["packed_xnor_matmul"],
+         "phase13_launches": o_launch["packed_xnor_matmul"],
          **gemm_row("packed_xnor_matmul", "packed_xnor_matmul"),
          "kernel_route": "tensor_cores",
          "b1_ops_per_s": tc_rates["b1"], "int8_ops_per_s": tc_rates["int8"],
@@ -4037,6 +4901,10 @@ def main() -> int:
                                "falcon_gemv": mamba_gemv_rows,
                                "falcon_serve": falcon_metrics,
                                "families": family_metrics,
+                               "moonshot_gemv": moon_gemv_rows,
+                               "moonshot_flash_prefill": moon_flash_rows,
+                               "moonshot_serve": moon_metrics,
+                               "overload": overload_metrics,
                                "phase_wall_s": walls,
                                "phase_start_launch_us": launch_at,
                                "kernels": kernels}, indent=1))

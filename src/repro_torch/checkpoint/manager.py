@@ -184,12 +184,15 @@ def _from_numpy(raw: np.ndarray, entry) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore_pytree(template, directory, step: Optional[int] = None):
+def restore_pytree(template, directory, step: Optional[int] = None,
+                   faults=None):
     """Restore into the structure of ``template``, each leaf on its template
     leaf's device. Every leaf's raw bytes are checksum-verified against the
     manifest before ``np.load`` reads them; a mismatch raises
-    ``CheckpointCorruption`` naming the step, leaf and file. (The JAX
-    package's ``faults=`` ckpt-corrupt drill comes with the faults slice.)
+    ``CheckpointCorruption`` naming the step, leaf and file. ``faults`` (a
+    ``serve.FaultInjector``) arms the ``ckpt_corrupt`` drill: when it fires
+    for a leaf, one byte of the stream read is flipped before the verify,
+    so the checksum walk must turn it into the typed error.
     -> (tree, step)."""
     directory = Path(directory)
     if step is None:
@@ -205,6 +208,12 @@ def restore_pytree(template, directory, step: Optional[int] = None):
         if key not in flat_tpl:
             continue
         raw_bytes = (src / entry["file"]).read_bytes()
+        if faults is not None and faults.should_fire("ckpt_corrupt"):
+            # flip one payload byte past the .npy header: bit rot or a torn
+            # copy of the file
+            pos = min(len(raw_bytes) - 1, 128)
+            raw_bytes = (raw_bytes[:pos] + bytes([raw_bytes[pos] ^ 0x01])
+                         + raw_bytes[pos + 1:])
         want = entry.get("crc32")
         if want is not None:
             got = zlib.crc32(raw_bytes) & 0xFFFFFFFF
@@ -244,8 +253,8 @@ class CheckpointManager:
             self._inflight.join()
             self._inflight = None
 
-    def restore_latest(self, template):
-        return restore_pytree(template, self.directory)
+    def restore_latest(self, template, faults=None):
+        return restore_pytree(template, self.directory, faults=faults)
 
     def latest_step(self):
         return latest_step(self.directory)

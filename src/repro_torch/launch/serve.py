@@ -10,14 +10,25 @@ printed as decode segments complete) and prefix caching:
     ... --continuous --requests 8 --lanes 4 --gen 16
     ... --stream --requests 8 --lanes 4 --gen 16 [--prefix-cache]
 
+Overload control (a bounded queue, deadlines, the post-step invariant
+audit, the host swap tier; sheds print with their typed reason, the audit
+and swap counters at drain; ``REPRO_FAULTS=site@idx,...`` in the
+environment arms fault injection) and chaos soaks (N seeded random fault
+schedules run to drain against fresh sessions; a failing seed replays with
+``--chaos-soak 1 --chaos-seed SEED``):
+
+    ... --stream --requests 8 --lanes 4 --gen 16 \
+        --max-pending 4 --deadline-ms 5000 --audit [--host-pages 32]
+    ... --chaos-soak 25 --requests 6 --lanes 2 --gen 8 [--chaos-rate 0.1]
+
 Builds ``lm_init`` on a seeded generator and a ``ServeEngine`` (``--packed``:
 bit-packed weights; ``--kv-quant``: int8 KV cache). Without ``--continuous``
 or ``--stream`` it serves one fixed batch through ``generate`` (or the
 per-token ``generate_eager`` with ``--eager``). ``--device`` defaults to
 ``cuda`` and raises on a host without a card; ``--device cpu`` runs the
-kernels' plain versions. The JAX launcher's overload, fault, gateway, chaos
-and mesh flags are accepted and refused: they come with the port's
-overload-and-faults, gateway and multi-device slices.
+kernels' plain versions. The JAX launcher's gateway and mesh flags are
+accepted and refused: they come with the port's gateway and multi-device
+slices.
 """
 from __future__ import annotations
 
@@ -25,13 +36,7 @@ import argparse
 import time
 
 # the JAX launcher's flags of later slices: flag -> the slice that ports it
-_LATER = {"audit": "overload and faults", "max_pending": "overload and faults",
-          "deadline_ms": "overload and faults",
-          "host_pages": "overload and faults (the host swap tier)",
-          "chaos_soak": "overload and faults (chaos)",
-          "chaos_seed": "overload and faults (chaos)",
-          "chaos_rate": "overload and faults (chaos)",
-          "http": "gateway", "metrics_tenants": "gateway",
+_LATER = {"http": "gateway", "metrics_tenants": "gateway",
           "watchdog_timeout": "gateway", "host": "gateway",
           "shards": "multi-device"}
 
@@ -68,14 +73,35 @@ def _parser():
                     help="(--stream) radix-indexed prompt-page sharing: "
                          "requests share a system prompt; cache hits "
                          "prefill only their unique tail")
+    ap.add_argument("--audit", action="store_true",
+                    help="(--stream) run the allocator/prefix-index "
+                         "invariant audit after every step and print the "
+                         "robustness stats at drain")
+    ap.add_argument("--max-pending", type=int, default=None,
+                    help="(--stream) bounded submit queue: overflow sheds "
+                         "with a typed ShedError")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="(--stream) per-request deadline budget in wall "
+                         "ms: unmeetable at admission sheds, passing it "
+                         "mid-flight expires the request")
+    ap.add_argument("--host-pages", type=int, default=None,
+                    help="(--stream) host swap tier budget in pages: "
+                         "preempted lanes and cold prefix pages move to "
+                         "pinned host buffers and come back bit-identical")
+    ap.add_argument("--chaos-soak", type=int, default=0, metavar="N",
+                    help="run N seeded random fault schedules against "
+                         "fresh sessions instead of serving; exits nonzero "
+                         "if any containment check fails")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="(--chaos-soak) base seed: schedule i uses seed+i")
+    ap.add_argument("--chaos-rate", type=float, default=None,
+                    help="(--chaos-soak) override every default per-site "
+                         "firing probability with one value in [0,1]")
     ap.add_argument("--device", default="cuda")
-    for flag in ("--audit",):
-        ap.add_argument(flag, action="store_true", help="a later slice")
-    for flag in ("--max-pending", "--host-pages", "--metrics-tenants",
-                 "--http", "--chaos-soak", "--chaos-seed", "--shards"):
+    for flag in ("--metrics-tenants", "--http", "--shards"):
         ap.add_argument(flag, type=int, default=None, help="a later slice")
-    for flag in ("--deadline-ms", "--watchdog-timeout", "--chaos-rate"):
-        ap.add_argument(flag, type=float, default=None, help="a later slice")
+    ap.add_argument("--watchdog-timeout", type=float, default=None,
+                    help="a later slice")
     ap.add_argument("--host", default=None, help="a later slice")
     return ap
 
@@ -104,28 +130,80 @@ def _prompts(args, vocab: int):
     return prompts, gens
 
 
+def _chaos(engine, args, vocab: int) -> None:
+    """``--chaos-soak N``: N seeded random fault schedules, each run to drain
+    against a fresh audited session (serve/chaos.py); the JAX launcher's
+    request pool and reports."""
+    import numpy as np
+
+    from repro_torch.serve import (DEFAULT_RATES, FaultSchedule,
+                                   SamplingParams, soak_session)
+
+    rates = dict(DEFAULT_RATES) if args.chaos_rate is None else \
+        {s: args.chaos_rate for s in DEFAULT_RATES}
+    rng = np.random.default_rng(12345)
+    prompts = [rng.integers(0, vocab, (int(rng.integers(
+        4, args.prompt_len + 1)),)).astype(np.int32)
+        for _ in range(args.requests)]
+
+    def make(inj):
+        return engine.session(lanes=args.lanes, page_size=args.page_size,
+                              segment=args.segment,
+                              prefix_cache=args.prefix_cache, audit=True,
+                              faults=inj)
+
+    failed = 0
+    for i in range(args.chaos_soak):
+        seed = args.chaos_seed + i
+        sched = FaultSchedule.random(seed, rates)
+        rep = soak_session(
+            make, prompts, sched,
+            params_for=lambda i: SamplingParams(max_tokens=args.gen),
+            preempt_period=7)
+        print(f"[chaos] {rep.summary()}")
+        if not rep.ok:
+            failed += 1
+            print(f"[chaos] FAILING SCHEDULE seed={seed} — replay with "
+                  f"--chaos-soak 1 --chaos-seed {seed}")
+            print(f"[chaos] plan: {sched.to_json()}")
+            for f in rep.failures:
+                print(f"[chaos]   {f}")
+    if failed:
+        raise SystemExit(f"[chaos] {failed}/{args.chaos_soak} schedules FAILED")
+    print(f"[chaos] {args.chaos_soak} schedules drained clean "
+          "(audit, terminal statuses, bit-identity)")
+
+
 def _stream(engine, args, prompts, gens):
-    from repro_torch.serve import SamplingParams
+    from repro_torch.serve import SamplingParams, ShedError
 
     with engine.session(lanes=args.lanes, page_size=args.page_size,
                         segment=args.segment,
-                        prefix_cache=args.prefix_cache) as sess:
+                        prefix_cache=args.prefix_cache,
+                        max_pending=args.max_pending, audit=args.audit,
+                        host_page_budget=args.host_pages) as sess:
+        def submit(p, g):
+            try:
+                return sess.submit(p, SamplingParams(
+                    max_tokens=g, deadline_ms=args.deadline_ms))
+            except ShedError as e:
+                print(f"[serve] shed rid={e.rid} ({e.reason}): {e}")
+                return None
+
         # half up front, the rest one a step, mid-flight
         half = args.requests // 2
-        handles = [sess.submit(p, SamplingParams(max_tokens=g))
-                   for p, g in zip(prompts[:half], gens[:half])]
+        handles = [submit(p, g) for p, g in zip(prompts[:half], gens[:half])]
         printed = [0] * args.requests
         t0 = time.time()
         ttft = None
         injected = half
         while not sess.idle or injected < args.requests:
             if injected < args.requests:
-                handles.append(sess.submit(prompts[injected], SamplingParams(
-                    max_tokens=gens[injected])))
+                handles.append(submit(prompts[injected], gens[injected]))
                 injected += 1
             sess.step()
             for i, h in enumerate(handles):
-                if h.tokens_ready > printed[i]:
+                if h is not None and h.tokens_ready > printed[i]:
                     if ttft is None:
                         ttft = time.time() - t0
                     new = h.tokens_so_far()[printed[i]:]
@@ -133,7 +211,20 @@ def _stream(engine, args, prompts, gens):
                           f"{gens[i]} {h.status.name.lower()})")
                     printed[i] = h.tokens_ready
         dt = time.time() - t0
-        total = sum(h.tokens_ready for h in handles)
+        total = sum(h.tokens_ready for h in handles if h is not None)
+        for i, h in enumerate(handles):
+            if h is not None and h.error is not None:
+                print(f"[serve] req{i} left abnormally: "
+                      f"{h.status.name} ({h.error})")
+        if args.audit:
+            a = sess.audit()
+            st = sess.sched.stats
+            print(f"[serve] audit clean at drain: "
+                  f"{a['alloc']['n_owned']} pages owned / "
+                  f"{a['alloc']['n_free']} free; "
+                  f"admitted={st['admitted']} shed={st['shed']} "
+                  f"expired={st['expired']} failed={st['failed']} "
+                  f"preemptions={st['preemptions']}")
         if args.prefix_cache:
             st = sess.prefix.stats
             print(f"[serve] prefix cache: {st['exact_hits']} exact + "
@@ -141,10 +232,19 @@ def _stream(engine, args, prompts, gens):
                   f"lookups, {st['hit_tokens']} prompt tokens served from "
                   f"cache, {st['cow_forks']} CoW forks, "
                   f"{st['evicted_pages']} pages LRU-evicted")
+        if args.host_pages is not None:
+            sw = sess.swap_mgr.stats_dict()
+            st = sess.sched.stats
+            print(f"[serve] swap tier: {sw['swap_outs']} captures / "
+                  f"{sw['swap_ins']} restores ({sw['swap_out_bytes']}B out, "
+                  f"{sw['swap_in_bytes']}B in; {sw['host_used']}/"
+                  f"{sw['host_pages']} host pages used; preempt "
+                  f"swap={st['preempt_swap']} "
+                  f"recompute={st['preempt_recompute']})")
     print(f"[serve] stream: {args.requests} requests over {args.lanes} lanes "
           f"in {dt:.2f}s ({total / dt:.1f} tok/s aggregate, first tokens "
           f"after {ttft:.2f}s)")
-    return [h.tokens_so_far() for h in handles]
+    return [h.tokens_so_far() if h is not None else None for h in handles]
 
 
 def main(argv=None):
@@ -175,6 +275,8 @@ def main(argv=None):
                          packed=args.packed, device=device)
     del params
 
+    if args.chaos_soak:
+        return _chaos(engine, args, cfg.vocab_size)
     if args.stream or args.continuous:
         prompts, gens = _prompts(args, cfg.vocab_size)
     if args.stream:

@@ -156,6 +156,10 @@ class ServeEngine:
         self.packed = packed
         self.prefix_cache = prefix_cache
         self._caches = CachePool()
+        # prefix indexes parked by closed sessions with a swap tier (host-
+        # resident, keyed by page size and host budget): the next session
+        # of the same geometry adopts one
+        self._prefix_store = {}
         params = tree_to(params, self.device)
         if packed:
             params = pack_weights(params, consume=True)
@@ -282,13 +286,19 @@ class ServeEngine:
     def session(self, *, lanes: int = 4, page_size: int = 16,
                 n_pages: Optional[int] = None, segment: int = 1, key=None,
                 buckets: Optional[Sequence[int]] = None,
-                prefix_cache: Optional[bool] = None) -> ServeSession:
+                prefix_cache: Optional[bool] = None,
+                **robustness) -> ServeSession:
         """Open a streaming serve session (serve/session.py). ``key``: the
         session's raw (2,) uint32 key (``PRNGKey(0)`` by default);
-        ``prefix_cache`` overrides the engine default."""
+        ``prefix_cache`` overrides the engine default; ``**robustness``
+        passes the overload and fault knobs through (``max_pending``,
+        ``tenant_page_quota``, ``tenant_lane_quota``, ``faults``,
+        ``audit``, ``clock``, ``hit_first``, ``host_page_budget``; see
+        ``ServeSession``)."""
         return ServeSession(self, lanes=lanes, page_size=page_size,
                             n_pages=n_pages, segment=segment, key=key,
-                            buckets=buckets, prefix_cache=prefix_cache)
+                            buckets=buckets, prefix_cache=prefix_cache,
+                            **robustness)
 
     def generate_batch(self, prompts: Sequence,
                        n_tokens: Union[int, Sequence[int]],

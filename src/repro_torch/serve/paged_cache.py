@@ -28,6 +28,8 @@ from repro_torch.models import ModelConfig, block_roles
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 
+from .faults import InjectedFault
+
 
 def pages_for(prompt_len: int, n_tokens: int, page_size: int) -> int:
     """Pages a request must own: ceil((prompt + n - 1) / page).
@@ -118,12 +120,18 @@ class PageAllocator:
     the JAX package's allocator, so both hand out the same page ids. A page
     shared through the prefix cache carries one ref for the index and one
     for each live request using it (``incref``).
+
+    ``faults`` (serve/faults.py) arms the ``page_alloc`` site: ``alloc``
+    raises ``InjectedFault`` BEFORE the free list moves, so an injected
+    failure leaves no partial grant to unwind. ``audit`` cross-checks the
+    counts against a census from the holders' own books.
     """
 
-    def __init__(self, n_pages: int):
+    def __init__(self, n_pages: int, faults=None):
         if n_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the garbage page)")
         self.n_pages = n_pages
+        self.faults = faults
         self.refs = [0] * n_pages
         self.refs[0] = 1                       # garbage page: never freed
         self._free = deque(range(1, n_pages))
@@ -139,7 +147,10 @@ class PageAllocator:
 
     def alloc(self, n: int):
         """Take ``n`` fresh pages at refcount 1 (FIFO order). Atomic: an
-        over-ask raises before the free list moves."""
+        injected fault or an over-ask raises before the free list moves."""
+        if self.faults is not None and n > 0 \
+                and self.faults.should_fire("page_alloc"):
+            raise InjectedFault("page_alloc", f"alloc({n})")
         if n > len(self._free):
             raise ValueError(f"alloc({n}) with only {len(self._free)} free")
         pages = [self._free.popleft() for _ in range(n)]
@@ -187,7 +198,8 @@ class PageAllocator:
             if holds is not None and self.refs[p] != holds.get(p, 0):
                 raise RuntimeError(
                     f"audit: page {p} refcount {self.refs[p]} != "
-                    f"{holds.get(p, 0)} holders claimed")
+                    f"{holds.get(p, 0)} holders claimed "
+                    f"({'leaked' if holds.get(p, 0) == 0 else 'miscounted'})")
         return {"n_pages": self.n_pages, "n_free": len(free),
                 "n_owned": self.n_pages - 1 - len(free)}
 

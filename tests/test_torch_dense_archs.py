@@ -367,8 +367,8 @@ def test_launcher_modes_on_cpu(mode):
 
 
 def test_launcher_refuses_later_slices_flags():
-    for flags in (["--http", "8080"], ["--shards", "2"], ["--audit"],
-                  ["--max-pending", "4"], ["--chaos-soak", "3"]):
+    for flags in (["--http", "8080"], ["--shards", "2"],
+                  ["--metrics-tenants", "4"], ["--watchdog-timeout", "5"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             launcher.main(["--arch", "qwen2.5-14b", "--smoke", "--device",
                            "cpu", *flags])

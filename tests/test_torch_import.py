@@ -53,7 +53,9 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.launch.serve", "repro_torch.serve.sampling",
             "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.qwen1_5_32b",
             "repro_torch.configs.qwen1_5_110b",
-            "repro_torch.configs.bold_bert"} <= set(SUBMODULES)
+            "repro_torch.configs.bold_bert", "repro_torch.serve.faults",
+            "repro_torch.serve.swap", "repro_torch.serve.chaos"} \
+        <= set(SUBMODULES)
 
 
 IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|repro)(?!\w)", re.M)

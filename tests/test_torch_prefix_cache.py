@@ -310,7 +310,7 @@ def test_session_streams_identical_to_jax_prefix_session(weights, quant):
         got = _drive(s, lambda n: SamplingParams(max_tokens=n), prompts)
         s.audit()
         _conserved(s)
-        assert s.stats["prefix"] is s.prefix.stats
+        assert s.work["prefix"] is s.prefix.stats
     assert got[0] == want[0]
     assert got[1] == want[1] == [1, 0]            # fork only when unaligned
     assert got[2] == want[2]
@@ -342,9 +342,9 @@ def test_exact_hit_runs_no_prefill(weights):
             del teng.prefill_commit
         assert calls == []
         assert h.ttft_ms >= h.admit_ms >= 0.0
-        assert s.stats["exact_admits"] == 1
-        assert sum(s.stats["prefills"].values()) == 1
-        assert not s.stats["tail_prefills"]
+        assert s.work["exact_admits"] == 1
+        assert sum(s.work["prefills"].values()) == 1
+        assert not s.work["tail_prefills"]
         assert torch.equal(s._pool["b0"]["k"][:, rec_page], before)
         _conserved(s)
     np.testing.assert_array_equal(hit, cold)
