@@ -231,6 +231,37 @@ wall seconds, each on a line of its own:
               never-recomputed DONE streams equal to the fault-free run.
               Launches by route of the four serving kernels, all on the
               tensor cores.
+14. gateway -- gemma2-2b at published widths (packed, bf16, max_len 1024)
+              served over real HTTP on 127.0.0.1 through
+              Gateway(engine, lanes=8, page_size=16, segment=8) and
+              GatewayHTTP: phase 3's 16 prompts, 32 greedy tokens each, 8
+              POSTed at once from client threads (http.client) and 8 once
+              each of those has its first token event, plus one
+              "stream": false request. Every SSE stream 32 token events
+              and one end, token-identical to the same prompts served in
+              process by engine.session(lanes=8, page_size=16, segment=8)
+              (a differing stream fails with its first divergent step and
+              logit margin); launches of the GEMV, decode and flash kernels
+              equal the formula of phase 3 for the session's work, all on
+              the tensor-core routes; /metrics' TTFT histogram counts every
+              served request. Then: malformed bodies are 400s, a client
+              that disconnects mid-stream is cancelled with its lane and
+              pages freed, /healthz 200 then 503 draining after
+              begin_drain() while the stream in flight ends with end; a
+              second gateway of one lane and max_pending 2 sheds a 429
+              queue-full with the live Retry-After; python -m
+              repro_torch.launch.serve --arch gemma2-2b --packed --http
+              PORT --lanes 8 --segment 8 as a process of its own (its
+              kernel-build seconds, /healthz, two streams, SIGTERM, a drain
+              and exit 0); a soak under FaultSchedule.random(seed,
+              DEFAULT_RATES, horizon=48) with the prefix cache, the audit
+              and a queue of 8 (a 512-token prompt, then seven sharing it:
+              paged_prefix_attention on the partial hits), every stream
+              ended typed and echoing its request_id, the audit clean.
+              Prints TTFT over HTTP (client: POST to first token event)
+              beside the in-process TTFT, the step thread's decode step
+              beside the in-process one, tokens/s and the server's
+              inter-token histogram.
 
 The last lines are one JSON object of kernel results, the card's name and
 power limit as nvidia-smi reports them, and the result object.
@@ -4467,6 +4498,578 @@ def overload(torch, seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. the gateway: gemma2-2b served over HTTP
+# ---------------------------------------------------------------------------
+GW_TOKENS, GW_FIRST = 32, 8         # phase 3's 16 prompts, 8 sent at once
+GW_LONG = 400                       # a disconnected or lane-holding request
+GW_LAUNCH_TOKENS = 16               # the launcher's default --gen
+GW_SOAK_TAILS = (40, 25, 60, 33, 17, 48, 70)   # after one 512-token cold run
+GW_SOAK_TOKENS, GW_SOAK_HORIZON = 16, 48
+GW_WAIT_S = 300.0                   # bound on any one wait of the phase
+
+
+def _wait_for(cond, what: str, timeout: float = GW_WAIT_S):
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"timed out after {timeout:.0f} s waiting "
+                                 f"for {what}")
+        time.sleep(0.005)
+
+
+def _http(host, port, method, path, body=None, timeout=60.0):
+    """(status, headers, text) of one request on its own connection."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request(method, path, None if body is None else (
+            body if isinstance(body, str) else json.dumps(body)),
+            {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read().decode()
+    finally:
+        conn.close()
+
+
+class SSEClient:
+    """One POST /v1/generate read as it arrives: the client's clock at the
+    POST and at the first ``token`` event, the tokens, the one terminal
+    event. ``disconnect_after`` tokens, it drops the connection instead."""
+
+    def __init__(self, host, port, body, disconnect_after=None):
+        import threading
+
+        self.body = body
+        self.first = threading.Event()
+        self.status = self.headers = self.t_post = self.t_first = None
+        self.tokens, self.terminals, self.error = [], [], None
+        self._args = (host, port, disconnect_after)
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        import http.client
+
+        host, port, cut = self._args
+        conn = http.client.HTTPConnection(host, port, timeout=GW_WAIT_S)
+        try:
+            self.t_post = time.perf_counter()
+            conn.request("POST", "/v1/generate", json.dumps(self.body),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            self.status, self.headers = resp.status, dict(resp.getheaders())
+            if self.headers.get("Content-Type") != "text/event-stream":
+                self.terminals.append(("json", json.loads(resp.read())))
+                return
+            event = None
+            while True:
+                line = resp.fp.readline().decode()
+                if not line:
+                    return
+                line = line.rstrip("\n")
+                if line.startswith("event: "):
+                    event = line[7:]
+                elif line.startswith("data: ") and event == "token":
+                    if self.t_first is None:
+                        self.t_first = time.perf_counter()
+                        self.first.set()
+                    self.tokens.append(int(line[6:]))
+                    if cut is not None and len(self.tokens) >= cut:
+                        resp.fp.close()
+                        return
+                elif line.startswith("data: "):
+                    self.terminals.append((event, json.loads(line[6:])))
+        except Exception as e:                          # noqa: BLE001
+            self.error = repr(e)
+        finally:
+            self.first.set()
+            conn.close()
+
+    def join(self):
+        self.thread.join(GW_WAIT_S)
+        assert not self.thread.is_alive(), ("hung SSE client", self.body)
+        assert self.error is None, self.error
+        return self
+
+
+def _step_walls(sess, walls):
+    """Record the wall ms a decode step of every decode round of ``sess``
+    (each ends in the token harvest, a device synchronisation)."""
+    step = sess.step
+
+    def timed():
+        d0 = sess.work["decode_steps"]
+        t = time.perf_counter()
+        out = step()
+        if sess.work["decode_steps"] > d0:
+            walls.append((time.perf_counter() - t) * 1e3 / sess.segment)
+        return out
+
+    sess.step = timed
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def _first_divergence(torch, engine, prompt, got, want):
+    """The first step where ``got`` parts from ``want`` and the margin of
+    the served model's logits there (top-1 minus top-2, from a prefill of
+    the prompt and the common tokens)."""
+    import numpy as np
+    from repro_torch.models import lm_prefill
+
+    i = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+    ctx = np.concatenate([prompt, np.asarray(want[:i], np.int32)])
+    logits, _ = lm_prefill(engine.cfg, engine.params, {
+        "tokens": torch.from_numpy(ctx[None]).cuda()})
+    top = torch.topk(logits[0, -1, :engine.cfg.vocab_size].float(), 2).values
+    return i, float(top[0] - top[1])
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def gateway_traffic(torch, engine, prompts, ref):
+    """Phase 14's main path: the 16 prompts over HTTP, 8 at once, 8 more
+    once each of the first 8 has its first token, and one ``"stream":
+    false`` request (prompt 0 again), through Gateway(engine, lanes=8,
+    page_size=16, segment=8). Every stream 32 token events and one ``end``,
+    token-identical to the in-process session's (``ref``)."""
+    from repro_torch.gateway import Gateway, GatewayHTTP
+    from repro_torch.kernels import KERNELS
+
+    gw = Gateway(engine, lanes=8, page_size=16, segment=8)
+    step_ms = []
+    _step_walls(gw.session, step_ms)
+    # when each request reached Gateway.submit (on the event-loop thread)
+    # and when it held the gateway lock: {rid: (called, returned)}
+    stamps = {}
+    submit = gw.submit
+
+    def stamped(prompt, params, request_id=None):
+        t = time.perf_counter()
+        h = submit(prompt, params, request_id)
+        stamps[h.rid] = (t, time.perf_counter())
+        return h
+
+    gw.submit = stamped
+    srv = GatewayHTTP(gw)
+    host, port = srv.start_background()
+    try:
+        body = [{"prompt": p.tolist(), "max_tokens": GW_TOKENS}
+                for p in prompts]
+        t0 = time.perf_counter()
+        clients = [SSEClient(host, port, b) for b in body[:GW_FIRST]]
+        for c in clients:
+            assert c.first.wait(GW_WAIT_S), "no first token"
+        clients += [SSEClient(host, port, b) for b in body[GW_FIRST:]]
+        clients.append(SSEClient(host, port, dict(body[0], stream=False)))
+        for c in clients:
+            c.join()
+        _wait_for(lambda: not gw._tracked and gw.session.idle,
+                  "the gateway to go idle")
+        traffic_s = time.perf_counter() - t0
+        work = {k: (dict(v) if isinstance(v, dict) else v)
+                for k, v in gw.session.work.items()}
+        launches = {k.__name__: k.launches for k in KERNELS}
+        routes = route_counts()
+        # every launch since the counts were set to 0 is this traffic's,
+        # each on the tensor-core route, as the session's work implies
+        _check_launches(engine.cfg, gw.session.work, {}, "gateway")
+        for name in ("packed_xnor_gemv", "paged_flash_decode",
+                     "flash_attention_fwd"):
+            assert launches[name] > 0, launches
+        for i, c in enumerate(clients[:-1]):
+            assert c.status == 200 and c.headers["Content-Type"] == \
+                "text/event-stream", (i, c.status, c.headers)
+            assert c.terminals == [("end", {
+                "status": "done", "tokens": GW_TOKENS, "preempted": 0,
+                "preempted_swap": 0, "preempted_recompute": 0})], \
+                (i, c.terminals)
+            if c.tokens != ref[i]:
+                step, margin = _first_divergence(torch, engine, prompts[i],
+                                                 c.tokens, ref[i])
+                raise AssertionError(
+                    f"request {i}: SSE stream parts from the in-process "
+                    f"session at step {step}, logit margin {margin:.4g}")
+        (kind, obj), = clients[-1].terminals
+        assert clients[-1].status == 200 and kind == "json", clients[-1].status
+        assert (obj["event"], obj["status"], obj["tokens"]) == \
+            ("end", "done", ref[0]), obj
+        _, _, text = _http(host, port, "GET", "/metrics")
+        m = {n: float(v) for n, v in (ln.rsplit(" ", 1)
+                                     for ln in text.splitlines()
+                                     if ln and not ln.startswith("#"))}
+        n = len(clients)
+        assert m["gateway_ttft_seconds_count"] == n, m
+        assert m["serve_sched_admitted_total"] == n
+        assert m['gateway_streams_total{outcome="done"}'] == n
+        assert m["gateway_tokens_streamed_total"] == n * GW_TOKENS
+        assert m['gateway_http_requests_total{code="200",'
+                 'path="/v1/generate"}'] == n
+        assert not any(k.startswith("serve_work") for k in m)
+        ttft = [1e3 * (c.t_first - c.t_post) for c in clients[:-1]]
+        marks = [stamps[int(c.headers["X-Request-Id"])] + (c.t_post,)
+                 for c in clients[:-1]]
+        to_gw = [1e3 * (called - post) for called, _, post in marks]
+        lock = [1e3 * (held - called) for called, held, _ in marks]
+        itl = gw.metrics.inter_token
+        out = {"requests": n, "traffic_s": traffic_s, "work": work,
+               "launches": launches, "routes": routes,
+               "http_ttft_ms_median": statistics.median(ttft),
+               "http_ttft_ms_p90": _pct(ttft, 0.9),
+               "step_ms_median": statistics.median(step_ms),
+               "step_ms": step_ms,
+               "post_to_submit_ms": {"median": statistics.median(to_gw),
+                                     "max": max(to_gw)},
+               "submit_lock_wait_ms": {"median": statistics.median(lock),
+                                       "max": max(lock)},
+               "tokens_per_s": n * GW_TOKENS / traffic_s,
+               "server_inter_token_s": {
+                   "count": itl.n, "p50": itl.quantile(0.5),
+                   "p90": itl.quantile(0.9), "mean": itl.sum / max(itl.n, 1)},
+               "server_ttft_s": {"count": gw.metrics.ttft.n,
+                                 "p50": gw.metrics.ttft.quantile(0.5),
+                                 "p90": gw.metrics.ttft.quantile(0.9)}}
+        out["protocol"] = gateway_protocol(gw, host, port, prompts, ref)
+        return out
+    finally:
+        srv.stop()
+        gw.close()
+
+
+def gateway_no_http(engine, prompts, ref):
+    """The main traffic through a Gateway's step thread with in-process
+    submits and no HTTP (no event loop, no client threads): the median
+    decode step there, between the plain session's and the one over HTTP,
+    says which side of the gateway the step's extra host time is on."""
+    from repro_torch.gateway import Gateway
+    from repro_torch.serve import SamplingParams
+
+    gw = Gateway(engine, lanes=8, page_size=16, segment=8)
+    ms = []
+    _step_walls(gw.session, ms)
+    try:
+        P = SamplingParams(max_tokens=GW_TOKENS)
+        hs = [gw.submit(p, P) for p in prompts[:GW_FIRST]]
+        _wait_for(lambda: all(h.tokens_ready for h in hs), "first tokens")
+        hs += [gw.submit(p, P) for p in prompts[GW_FIRST:] + prompts[:1]]
+        _wait_for(lambda: not gw._tracked and gw.session.idle,
+                  "the gateway to go idle")
+        assert [h.tokens_so_far() for h in hs] == ref + ref[:1]
+        return statistics.median(ms)
+    finally:
+        gw.close()
+
+
+def gateway_protocol(gw, host, port, prompts, ref):
+    """On the main path's gateway, after its traffic: a malformed body is a
+    400; a client that disconnects mid-stream is cancelled and its lane and
+    pages freed; /healthz is 200, then 503 ``draining`` after begin_drain(),
+    new work is refused with 503 + Retry-After, and the stream in flight
+    still ends with ``end``, identical to the in-process one."""
+    out = {}
+    for bad in ({"prompt": "text"}, "not json{",
+                {"prompt": [1], "bogus": 1}):
+        status, _, text = _http(host, port, "POST", "/v1/generate", bad)
+        assert status == 400 and json.loads(text)["error"] == \
+            "bad-request", (bad, status, text)
+    out["malformed"] = 400
+    cut = SSEClient(host, port, {"prompt": prompts[5].tolist(),
+                                 "max_tokens": GW_LONG}, disconnect_after=1)
+    cut.join()
+    _wait_for(lambda: not gw._tracked and gw.session.idle,
+              "the disconnected request to be cancelled")
+    st = gw.session.stats()
+    assert st["active"] == st["pending"] == 0, st
+    assert st["pool"]["n_owned"] == 0 and \
+        st["pool"]["n_free"] == st["pool"]["n_pages"] - 1, st["pool"]
+    _, _, text = _http(host, port, "GET", "/metrics")
+    assert 'gateway_streams_total{outcome="cancelled"} 1' in text
+    out["disconnect"] = {"pool": st["pool"], "cancelled": 1}
+    status, _, text = _http(host, port, "GET", "/healthz")
+    assert (status, json.loads(text)) == (200, {"status": "ok"})
+    live = SSEClient(host, port, {"prompt": prompts[1].tolist(),
+                                  "max_tokens": GW_TOKENS})
+    assert live.first.wait(GW_WAIT_S)
+    gw.begin_drain()
+    status, _, text = _http(host, port, "GET", "/healthz")
+    assert (status, json.loads(text)) == (503, {"status": "draining"})
+    status, headers, text = _http(host, port, "POST", "/v1/generate",
+                                  {"prompt": [1, 2], "max_tokens": 2})
+    assert (status, headers.get("Retry-After"), json.loads(text)) == \
+        (503, "1", {"error": "draining"}), (status, headers, text)
+    live.join()
+    assert live.terminals[0][0] == "end" and live.tokens == ref[1]
+    _wait_for(lambda: gw.drained, "the gateway to drain")
+    out["drain"] = {"healthz": [200, 503], "in_flight": "end"}
+    return out
+
+
+def gateway_queue_full(torch, engine, prompts):
+    """A second gateway with one lane and max_pending=2: a request holds
+    the lane and two wait; the next POST is a 429 ``queue-full`` whose
+    Retry-After is the live depth, ceil((2 + 1) / 1) = 3 rounds."""
+    from repro_torch.gateway import Gateway, GatewayHTTP
+    from repro_torch.serve import SamplingParams
+
+    gw = Gateway(engine, lanes=1, page_size=16, segment=8, max_pending=2)
+    srv = GatewayHTTP(gw)
+    host, port = srv.start_background()
+    try:
+        P = SamplingParams(max_tokens=GW_LONG)
+        hs = [gw.submit(prompts[2], P)]
+        _wait_for(lambda: gw.session.stats()["active"] == 1, "a busy lane")
+        hs += [gw.submit(prompts[i], P) for i in (3, 4)]
+        status, headers, text = _http(host, port, "POST", "/v1/generate",
+                                      {"prompt": prompts[0].tolist(),
+                                       "max_tokens": 8})
+        obj = json.loads(text)
+        assert (status, headers.get("Retry-After"), obj["error"]) == \
+            (429, "3", "queue-full"), (status, headers, obj)
+        for h in hs:
+            gw.cancel(h)
+        return {"status": status, "retry_after": headers["Retry-After"]}
+    finally:
+        srv.stop()
+        gw.close()
+
+
+def gateway_launcher(seed: int, prompts, ref):
+    """``python -m repro_torch.launch.serve --arch gemma2-2b --packed --http
+    PORT --lanes 8 --segment 8`` as a process of its own: /healthz 200
+    within a bound, two streams, SIGTERM, a drain and exit 0 within a bound.
+    The launcher draws its weights from seed 0, so at ``--seed 0`` its
+    streams are the in-process session's first 16 tokens."""
+    import os
+    import signal
+
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gemma2-2b", "--packed", "--http", str(port), "--lanes", "8",
+         "--segment", "8"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        def listening():
+            assert proc.poll() is None, proc.communicate()[0]
+            try:
+                return _http("127.0.0.1", port, "GET", "/healthz",
+                             timeout=5)[0] == 200
+            except OSError:
+                return False
+
+        _wait_for(listening, "the launcher's /healthz")
+        ready_s = time.perf_counter() - t0
+        picks = (0, 7)                      # 16- and 20-token prompts
+        clients = [SSEClient("127.0.0.1", port,
+                             {"prompt": prompts[i].tolist(),
+                              "max_tokens": GW_LAUNCH_TOKENS})
+                   for i in picks]
+        for c in clients:
+            c.join()
+            assert c.status == 200 and c.terminals[0][0] == "end" and \
+                len(c.tokens) == GW_LAUNCH_TOKENS, (c.status, c.terminals)
+        same = [c.tokens == ref[i][:GW_LAUNCH_TOKENS]
+                for c, i in zip(clients, picks)]
+        if seed == 0:
+            assert all(same), ("launcher streams differ from the in-process "
+                               "session's", same)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        text, _ = proc.communicate(timeout=120)
+        drain_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, (proc.returncode, text)
+    lines = [ln for ln in text.splitlines() if ln.startswith("[serve]")]
+    built = next(ln for ln in lines if "kernels built in" in ln)
+    assert lines[-1] == "[serve] gateway drained; exiting", lines
+    build_s = float(built.split("kernels built in ")[1].split("s")[0])
+    print(f"  launcher: {built[8:]}; /healthz 200 {ready_s:.1f} s after "
+          f"start; two streams of {GW_LAUNCH_TOKENS} identical to the "
+          f"in-process session's: {same}; SIGTERM drained and exited 0 in "
+          f"{drain_s:.1f} s")
+    return {"ready_s": ready_s, "kernel_build_s": build_s,
+            "drain_s": drain_s, "identical": same, "exit_code": 0,
+            "lines": lines}
+
+
+def gateway_soak(torch, engine, rng, seed: int, totals):
+    """The gateway under FaultSchedule.random(seed, DEFAULT_RATES,
+    horizon=48), prefix cache, audit and a queue of 8: one 512-token prompt
+    alone, then seven sharing it with other tails at once (partial hits,
+    the tail prefill through paged_prefix_attention). Every stream ends in
+    ``end`` or a typed ``error`` echoing its request_id (a shed is a typed
+    429/503); after the drain the audit is clean and nothing is tracked;
+    the launches equal what the session's work implies."""
+    import numpy as np
+    from repro_torch.gateway import Gateway, GatewayHTTP
+    from repro_torch.kernels import KERNELS
+    from repro_torch.serve import DEFAULT_RATES, FaultSchedule, reasons
+
+    V = engine.cfg.vocab_size
+    shared = rng.integers(0, V, (OVL_SHARED,)).astype(np.int32)
+    prompts = [shared] + [np.concatenate([shared, rng.integers(
+        0, V, (t,)).astype(np.int32)]) for t in GW_SOAK_TAILS]
+    schedule = FaultSchedule.random(seed, DEFAULT_RATES,
+                                    horizon=GW_SOAK_HORIZON)
+    zero_counts()
+    gw = Gateway(engine, lanes=8, page_size=16, segment=8, prefix_cache=True,
+                 audit=True, faults=schedule.injector(), max_pending=8)
+    srv = GatewayHTTP(gw)
+    host, port = srv.start_background()
+    try:
+        def body(i):
+            return {"prompt": prompts[i].tolist(),
+                    "max_tokens": GW_SOAK_TOKENS, "request_id": f"soak-{i}"}
+
+        clients = [SSEClient(host, port, body(0)).join()]
+        clients += [SSEClient(host, port, body(i))
+                    for i in range(1, len(prompts))]
+        for c in clients[1:]:
+            c.join()
+        _wait_for(lambda: not gw._tracked, "the soak to drain")
+        with gw.lock:
+            audit = gw.session.audit()
+            work = gw.session.work
+            fired = list(gw.session.faults.fired)
+            _check_launches(engine.cfg, work, totals, "gateway soak")
+        outcomes = {}
+        for i, c in enumerate(clients):
+            if c.status != 200:
+                (_, obj), = c.terminals
+                assert c.status in (429, 503) and obj["error"] in \
+                    reasons.SHED_REASONS, (i, c.status, obj)
+                outcomes[f"http {c.status}"] = \
+                    outcomes.get(f"http {c.status}", 0) + 1
+                continue
+            (ev, payload), = c.terminals
+            assert payload["request_id"] == f"soak-{i}", payload
+            if ev == "error":
+                assert reasons.base_reason(payload["reason"]) in \
+                    reasons.ALL_REASONS, payload
+            else:
+                assert ev == "end", ev
+            outcomes[payload["status"]] = outcomes.get(payload["status"], 0) + 1
+        assert work["tail_prefills"], ("no partial hit ran the prefix kernel",
+                                       dict(work["prefills"]))
+        out = {"schedule": schedule.to_json(), "fired": fired,
+               "outcomes": outcomes,
+               "prefills": dict(work["prefills"]),
+               "tail_prefills": dict(work["tail_prefills"]),
+               "audit_owned": audit["alloc"]["n_owned"],
+               "launches": {k.__name__: k.launches for k in KERNELS}}
+        print(f"  soak: fired {fired}; outcomes {outcomes}; prefills "
+              f"{out['prefills']}, tail prefills {out['tail_prefills']}; "
+              f"audit clean, nothing tracked")
+        return out
+    finally:
+        srv.stop()
+        gw.close()
+
+
+def serve_gateway(torch, seed: int):
+    """Phase 14: gemma2-2b at its published widths served through the
+    gateway over real HTTP on the card: the in-process reference, the main
+    traffic (launches counted, every stream identical), the protocol, a
+    lane-holding second gateway's live 429, the launcher as a process of
+    its own, and a soak under a fault storm."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm_init
+    from repro_torch.serve import SamplingParams, ServeEngine
+
+    cfg = get_config("gemma2-2b")
+    gc_collect(torch)
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, lm_init(cfg, torch.Generator(device="cuda")
+                                      .manual_seed(seed)),
+                         max_len=1024, packed=True)
+    torch.cuda.synchronize()
+    print(f"  gemma2-2b {cfg.n_layers} layers d_model {cfg.d_model} vocab "
+          f"{cfg.vocab_size} {cfg.dtype}: init + pack "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in QWEN_LENS]             # phase 3's prompts
+
+    # the in-process reference: the same submission pattern, no HTTP
+    ref_ms = []
+    sess = engine.session(lanes=8, page_size=16, segment=8)
+    _step_walls(sess, ref_ms)
+    P = SamplingParams(max_tokens=GW_TOKENS)
+    hs = [sess.submit(p, P) for p in prompts[:GW_FIRST]]
+    while not all(h.tokens_ready for h in hs):
+        sess.step()
+    hs += [sess.submit(p, P) for p in prompts[GW_FIRST:]]
+    sess.run_until_idle()
+    ref = [h.tokens_so_far() for h in hs]
+    ref_ttft = [h.ttft_ms for h in hs]
+    sess.close()
+    assert all(len(r) == GW_TOKENS for r in ref)
+    no_http_ms = gateway_no_http(engine, prompts, ref)
+
+    zero_counts()
+    out = gateway_traffic(torch, engine, prompts, ref)
+    out["no_http_step_ms_median"] = no_http_ms
+    out["inproc_ttft_ms_median"] = statistics.median(ref_ttft)
+    out["inproc_ttft_ms_p90"] = _pct(ref_ttft, 0.9)
+    out["inproc_step_ms_median"] = statistics.median(ref_ms)
+    card = smi_line()
+    out["device"] = card
+    print(f"  {out['requests']} requests over HTTP (8 at once, 8 after their "
+          f"first tokens, one non-streamed): every SSE stream {GW_TOKENS} "
+          f"tokens + end, identical to the in-process session's; launches "
+          f"{out['launches']} as the session's work implies, all on the "
+          f"tensor-core routes")
+    print(f"  TTFT over HTTP median {out['http_ttft_ms_median']:.1f} ms, p90 "
+          f"{out['http_ttft_ms_p90']:.1f} ms (in-process: "
+          f"{out['inproc_ttft_ms_median']:.1f} / "
+          f"{out['inproc_ttft_ms_p90']:.1f} ms); decode step under the "
+          f"gateway median {out['step_ms_median']:.2f} ms (in-process "
+          f"{out['inproc_step_ms_median']:.2f} ms, the step thread without "
+          f"HTTP {no_http_ms:.2f} ms); "
+          f"{out['tokens_per_s']:.1f} tokens/s over {out['traffic_s']:.2f} s; "
+          f"server inter-token p50 "
+          f"{1e3 * out['server_inter_token_s']['p50']:.2f} ms, p90 "
+          f"{1e3 * out['server_inter_token_s']['p90']:.2f} ms over "
+          f"{out['server_inter_token_s']['count']} tokens ({card})")
+    print(f"  a POST reached Gateway.submit a median "
+          f"{out['post_to_submit_ms']['median']:.1f} ms (max "
+          f"{out['post_to_submit_ms']['max']:.1f}) after it was sent and waited "
+          f"{out['submit_lock_wait_ms']['median']:.1f} ms (max "
+          f"{out['submit_lock_wait_ms']['max']:.1f}) there for the gateway "
+          f"lock; the server's TTFT histogram (from the lock) p50 "
+          f"{1e3 * out['server_ttft_s']['p50']:.0f} ms, p90 "
+          f"{1e3 * out['server_ttft_s']['p90']:.0f} ms")
+    print(f"  protocol: 400 on malformed bodies; a disconnect cancelled, pool "
+          f"{out['protocol']['disconnect']['pool']}; /healthz 200 then 503 "
+          "draining; the stream in flight ended with end")
+    out["queue_full"] = gateway_queue_full(torch, engine, prompts)
+    print(f"  a second gateway (1 lane, max_pending 2): 429 queue-full, "
+          f"Retry-After {out['queue_full']['retry_after']}")
+    out["launcher"] = gateway_launcher(seed, prompts, ref)
+    totals = {}
+    out["soak"] = gateway_soak(torch, engine, rng, seed, totals)
+    out["soak_launches"] = totals
+    del out["step_ms"]
+    return out
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -4607,6 +5210,11 @@ def main() -> int:
         overload_metrics = overload(torch, args.seed)
         gc_collect(torch)
 
+    with phase(14, "serve gemma2-2b (published widths) over HTTP through the "
+                   "gateway"):
+        gateway_metrics = serve_gateway(torch, args.seed)
+        gc_collect(torch)
+
     decode_m8 = [r for r in gemv_rows if r["M"] == 8]
     layer_votes = [r for r in wbwd_rows if r["alpha"] == 0.0
                    and r["x_dtype"] == "torch.bfloat16"
@@ -4658,6 +5266,8 @@ def main() -> int:
     m_flash = moon_flash_rows[0]
     m_launch, m_routes = moon_metrics["launches"], moon_metrics["routes"]
     o_launch = overload_metrics["launches"]
+    g_launch = gateway_metrics["launches"]
+    g_soak = gateway_metrics["soak_launches"]
     q_launch, q_routes = qwen_metrics["launches"], qwen_metrics["routes"]
 
     def phase11(name):
@@ -4700,6 +5310,8 @@ def main() -> int:
          "phase12_launches": m_launch["packed_xnor_gemv"],
          "phase12_routes": m_routes["packed_xnor_gemv"],
          "phase13_launches": o_launch["packed_xnor_gemv"],
+         "phase14_launches": g_launch["packed_xnor_gemv"],
+         "phase14_soak_launches": g_soak["packed_xnor_gemv"],
          "shape": "sum over one layer's wqkv, wo, wgu, wd at M=8 lanes, bf16 x "
                   "(m16_* .. m256_*: the same at 16 to 256 prefill rows); "
                   "library_ms: torch.matmul on the bf16 ±1 weight; cc_ms: "
@@ -4713,7 +5325,7 @@ def main() -> int:
                   "card sessions' (fp32 x, the CUDA-core route); moonshot_*: "
                   "moonshot-v1-16b-a3b's wqkv and wo at M=8, phase12_*: "
                   "phase 12's launches; phase13_launches: phase 13's (both "
-                  "pools, tensor cores)"},
+                  "pools, tensor cores); phase14_launches / phase14_soak_launches: phase 14's over HTTP, its main traffic and its soak"},
         {"name": "paged_flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_flash_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:156",
@@ -4743,6 +5355,8 @@ def main() -> int:
          "phase12_launches": m_launch["paged_flash_decode"],
          "phase12_routes": m_routes["paged_flash_decode"],
          "phase13_launches": o_launch["paged_flash_decode"],
+         "phase14_launches": g_launch["paged_flash_decode"],
+         "phase14_soak_launches": g_soak["paged_flash_decode"],
          "phase9_launches_by_route_and_group":
              qwen_metrics["decode_group_sizes"],
          "shape": f"{local['L']} lanes, {local['KV']} KV heads x {local['R']} "
@@ -4762,12 +5376,14 @@ def main() -> int:
                   "the CUDA-core route; moonshot_*: phase 12's shape, 16 KV "
                   "heads x 1 q head, head_dim 128, global, bf16 pool; "
                   "phase12_* / phase13_launches: phases 12 and 13's "
-                  "launches)"},
+                  "launches; phase14_launches / phase14_soak_launches: phase 14's over HTTP, its main traffic and its soak)"},
         {"name": "boolean_weight_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/boolean_weight_bwd.cu",
          "replaces": "src/repro/kernels/boolean_bwd.py:52",
          "phase12_launches": m_launch["boolean_weight_bwd"],
          "phase13_launches": o_launch["boolean_weight_bwd"],
+         "phase14_launches": g_launch["boolean_weight_bwd"],
+         "phase14_soak_launches": g_soak["boolean_weight_bwd"],
          "launches": train_launches["boolean_weight_bwd"],
          "tc_launches": train_metrics["weight_bwd_routes"]["tensor_cores"],
          "kernel_route": "tensor_cores",
@@ -4803,6 +5419,8 @@ def main() -> int:
          "phase12_launches": m_launch["flash_attention_fwd"],
          "phase12_routes": m_routes["flash_attention_fwd"],
          "phase13_launches": o_launch["flash_attention_fwd"],
+         "phase14_launches": g_launch["flash_attention_fwd"],
+         "phase14_soak_launches": g_soak["flash_attention_fwd"],
          "shape": f"one layer's cold prefill: {flash['BH']} q heads over "
                   f"{flash['KV']} KV heads, S={flash['S']}, head_dim "
                   f"{flash['hd']}, bf16, softcap 50, window {flash['window']} "
@@ -4816,7 +5434,7 @@ def main() -> int:
                   "CUDA-core route); moonshot_*: its 1,024-token prefill, "
                   "16 q over 16 KV heads, head_dim 128, library_ms SDPA "
                   "(causal); phase12_* / phase13_launches: phases 12 and "
-                  "13's launches"},
+                  "13's launches; phase14_launches / phase14_soak_launches: phase 14's over HTTP, its main traffic and its soak"},
         {"name": "paged_prefix_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_prefix_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:335",
@@ -4832,6 +5450,8 @@ def main() -> int:
          "phase11_launches": phase11("paged_prefix_attention"),
          "phase12_launches": m_launch["paged_prefix_attention"],
          "phase13_launches": o_launch["paged_prefix_attention"],
+         "phase14_launches": g_launch["paged_prefix_attention"],
+         "phase14_soak_launches": g_soak["paged_prefix_attention"],
          "phase7_routes": {k: v["routes"]["paged_prefix_attention"]
                            for k, v in prefix_metrics.items()},
          "shape": f"one layer's tail prefill: {pfx['H']} q heads over "
@@ -4844,12 +5464,14 @@ def main() -> int:
                   "launches from phase "
                   "7 (bf16 pool), phase7_routes its launches by route over "
                   "both pools; phase11_launches: phase 11's card sessions' "
-                  "(fp32, the CUDA-core route)"},
+                  "(fp32, the CUDA-core route); phase14_launches / phase14_soak_launches: phase 14's over HTTP, its main traffic and its soak"},
         {"name": "boolean_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/boolean_matmul.cu",
          "replaces": "src/repro/kernels/boolean_matmul.py:59",
          "phase12_launches": m_launch["boolean_matmul"],
          "phase13_launches": o_launch["boolean_matmul"],
+         "phase14_launches": g_launch["boolean_matmul"],
+         "phase14_soak_launches": g_soak["boolean_matmul"],
          **gemm_row("boolean_matmul counts", "boolean_matmul"),
          "kernel_route": "tensor_cores",
          "operands_ms": sum(r["operands_ms"] for r in fused),
@@ -4868,6 +5490,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/packed_xnor.py:239",
          "phase12_launches": m_launch["packed_xnor_matmul"],
          "phase13_launches": o_launch["packed_xnor_matmul"],
+         "phase14_launches": g_launch["packed_xnor_matmul"],
+         "phase14_soak_launches": g_soak["packed_xnor_matmul"],
          **gemm_row("packed_xnor_matmul", "packed_xnor_matmul"),
          "kernel_route": "tensor_cores",
          "b1_ops_per_s": tc_rates["b1"], "int8_ops_per_s": tc_rates["int8"],
@@ -4905,6 +5529,7 @@ def main() -> int:
                                "moonshot_flash_prefill": moon_flash_rows,
                                "moonshot_serve": moon_metrics,
                                "overload": overload_metrics,
+                               "gateway": gateway_metrics,
                                "phase_wall_s": walls,
                                "phase_start_launch_us": launch_at,
                                "kernels": kernels}, indent=1))

@@ -21,14 +21,25 @@ schedules run to drain against fresh sessions; a failing seed replays with
         --max-pending 4 --deadline-ms 5000 --audit [--host-pages 32]
     ... --chaos-soak 25 --requests 6 --lanes 2 --gen 8 [--chaos-rate 0.1]
 
+Serving over HTTP (the gateway, gateway/: POST /v1/generate streams tokens
+as SSE, GET /metrics is Prometheus text, /healthz flips to 503 at drain;
+SIGTERM drains gracefully — in-flight streams finish, new work gets 503).
+On the card every kernel is built before the gateway listens, so the step
+watchdog never times an ``nvcc`` build:
+
+    ... --http 8080 --lanes 4 --max-pending 16 --prefix-cache
+
+    curl -N localhost:8080/v1/generate \
+        -d '{"prompt": [3, 1, 4, 1, 5], "max_tokens": 8}'
+    curl localhost:8080/metrics
+
 Builds ``lm_init`` on a seeded generator and a ``ServeEngine`` (``--packed``:
 bit-packed weights; ``--kv-quant``: int8 KV cache). Without ``--continuous``
 or ``--stream`` it serves one fixed batch through ``generate`` (or the
 per-token ``generate_eager`` with ``--eager``). ``--device`` defaults to
 ``cuda`` and raises on a host without a card; ``--device cpu`` runs the
-kernels' plain versions. The JAX launcher's gateway and mesh flags are
-accepted and refused: they come with the port's gateway and multi-device
-slices.
+kernels' plain versions. The JAX launcher's mesh flag ``--shards`` is
+accepted and refused: it comes with the port's multi-device slice.
 """
 from __future__ import annotations
 
@@ -36,9 +47,7 @@ import argparse
 import time
 
 # the JAX launcher's flags of later slices: flag -> the slice that ports it
-_LATER = {"http": "gateway", "metrics_tenants": "gateway",
-          "watchdog_timeout": "gateway", "host": "gateway",
-          "shards": "multi-device"}
+_LATER = {"shards": "multi-device"}
 
 
 def _parser():
@@ -85,7 +94,7 @@ def _parser():
                          "ms: unmeetable at admission sheds, passing it "
                          "mid-flight expires the request")
     ap.add_argument("--host-pages", type=int, default=None,
-                    help="(--stream) host swap tier budget in pages: "
+                    help="(--stream/--http) host swap tier budget in pages: "
                          "preempted lanes and cold prefix pages move to "
                          "pinned host buffers and come back bit-identical")
     ap.add_argument("--chaos-soak", type=int, default=0, metavar="N",
@@ -97,12 +106,27 @@ def _parser():
     ap.add_argument("--chaos-rate", type=float, default=None,
                     help="(--chaos-soak) override every default per-site "
                          "firing probability with one value in [0,1]")
+    ap.add_argument("--metrics-tenants", type=int, default=None,
+                    help="(--http) per-tenant /metrics label budget: first "
+                         "N distinct tenants get their own label, the rest "
+                         "aggregate under tenant=\"other\"")
+    ap.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve over HTTP on this port: POST /v1/generate "
+                         "(JSON body; tokens stream back as SSE), GET "
+                         "/metrics (Prometheus text), GET /healthz. Honors "
+                         "--lanes/--page-size/--segment/--prefix-cache/"
+                         "--max-pending/--audit/--host-pages; SIGTERM "
+                         "drains gracefully")
+    ap.add_argument("--watchdog-timeout", type=float, default=300.0,
+                    help="(--http) seconds one session.step() round may "
+                         "run before the gateway watchdog declares the "
+                         "step driver stalled: /healthz flips to degraded "
+                         "and live SSE streams end with a typed 'watchdog' "
+                         "error instead of hanging")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="(--http) bind address")
     ap.add_argument("--device", default="cuda")
-    for flag in ("--metrics-tenants", "--http", "--shards"):
-        ap.add_argument(flag, type=int, default=None, help="a later slice")
-    ap.add_argument("--watchdog-timeout", type=float, default=None,
-                    help="a later slice")
-    ap.add_argument("--host", default=None, help="a later slice")
+    ap.add_argument("--shards", type=int, default=None, help="a later slice")
     return ap
 
 
@@ -172,6 +196,37 @@ def _chaos(engine, args, vocab: int) -> None:
         raise SystemExit(f"[chaos] {failed}/{args.chaos_soak} schedules FAILED")
     print(f"[chaos] {args.chaos_soak} schedules drained clean "
           "(audit, terminal statuses, bit-identity)")
+
+
+def _http(engine, args, device) -> None:
+    """``--http PORT``: the gateway over ``engine`` until SIGTERM/SIGINT,
+    then a graceful drain. On the card every kernel is built first (one
+    ``nvcc`` a source, all at once), so no step the watchdog times holds a
+    build."""
+    from repro_torch.gateway import run_gateway
+
+    if device.type == "cuda":
+        from repro_torch.kernels import build
+
+        t0 = time.perf_counter()
+        build.build_all()
+        print(f"[serve] kernels built in {time.perf_counter() - t0:.1f}s "
+              "before listening")
+    print(f"[serve] gateway listening on http://{args.host}:{args.http} "
+          f"({args.lanes} lanes, page_size={args.page_size}, "
+          f"segment={args.segment}"
+          + (", prefix-cache" if args.prefix_cache else "")
+          + (f", max_pending={args.max_pending}"
+             if args.max_pending is not None else "")
+          + ") — SIGTERM/Ctrl-C drains gracefully", flush=True)
+    run_gateway(engine, host=args.host, port=args.http,
+                lanes=args.lanes, page_size=args.page_size,
+                segment=args.segment, prefix_cache=args.prefix_cache,
+                max_pending=args.max_pending, audit=args.audit,
+                host_page_budget=args.host_pages,
+                metrics_tenants=args.metrics_tenants,
+                watchdog_timeout=args.watchdog_timeout)
+    print("[serve] gateway drained; exiting", flush=True)
 
 
 def _stream(engine, args, prompts, gens):
@@ -277,6 +332,8 @@ def main(argv=None):
 
     if args.chaos_soak:
         return _chaos(engine, args, cfg.vocab_size)
+    if args.http is not None:
+        return _http(engine, args, device)
     if args.stream or args.continuous:
         prompts, gens = _prompts(args, cfg.vocab_size)
     if args.stream:

@@ -9,10 +9,15 @@ either package. The soak cases run the JAX package's
 (gemma2-2b smoke width, fp32, bridged weights, the JAX session on its
 gather path) and hold the reports equal: fired faults, outcomes, steps,
 sheds, and every DONE never-recomputed greedy stream equal to the
-fault-free oracle. The JAX package's gateway soak
-(``test_gateway_soak_no_hung_sse_streams``) waits for the port's gateway.
+fault-free oracle. The gateway soak runs the JAX package's
+``test_gateway_soak_no_hung_sse_streams`` schedule through both packages'
+HTTP gateways and holds their SSE responses equal.
 """
 import json
+import threading
+import time
+import urllib.error
+import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +26,8 @@ import pytest
 import torch
 
 from repro.configs import get_smoke as jax_smoke
+from repro.gateway import Gateway as JGateway
+from repro.gateway import GatewayHTTP as JGatewayHTTP
 from repro.models import attention as JA
 from repro.models import lm_init as jax_lm_init
 from repro.serve import DEFAULT_RATES as J_RATES
@@ -30,6 +37,7 @@ from repro.serve import ServeEngine as JEngine
 from repro.serve import soak_session as j_soak
 from repro_torch import bridge
 from repro_torch.configs import get_smoke
+from repro_torch.gateway import Gateway, GatewayHTTP
 from repro_torch.serve import (DEFAULT_RATES, FaultInjector, FaultSchedule,
                                SamplingParams, ServeEngine, soak_session)
 
@@ -171,3 +179,108 @@ def test_soak_seed_zero_with_swap_tier(engines):
                 lambda k: refs[k], 3, host_page_budget=12)
     assert got.ok, got.failures
     assert _report(got) == _report(want)
+
+
+# ---------------------------------------------------------------------------
+# gateway under storm: zero hung SSE streams, both gateways alike
+# ---------------------------------------------------------------------------
+class _Held:
+    """The session as the gateway's step thread sees it: idle until
+    ``release()``, so all the soak's requests are queued before the first
+    admission round and both sessions meet the storm at the same steps."""
+
+    def __init__(self, session):
+        self._session = session
+        self._go = threading.Event()
+
+    def __getattr__(self, name):
+        return getattr(self._session, name)
+
+    @property
+    def idle(self):
+        return not self._go.is_set() or self._session.idle
+
+    def release(self):
+        self._go.set()
+
+
+def _gateway_soak(G, H, eng, injector, prompts):
+    """The JAX package's gateway soak: four SSE streams against a session
+    under the storm; -> ({i: (kind, text)}, tracked after the drain)."""
+    gw = G(eng, lanes=2, page_size=8, segment=2, prefix_cache=True,
+           audit=True, faults=injector, max_pending=8)
+    gw.session = _Held(gw.session)
+    http = H(gw)
+    host, port = http.start_background()
+    url = f"http://{host}:{port}/v1/generate"
+    results = {}
+
+    def stream(i):
+        body = json.dumps({"prompt": [int(t) for t in prompts[i]],
+                           "max_tokens": 6,
+                           "request_id": f"soak-{i}"}).encode()
+        req = urllib.request.Request(
+            url, data=body, headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                results[i] = ("ok", r.read().decode())
+        except urllib.error.HTTPError as e:
+            results[i] = ("http", e.code)
+
+    try:
+        threads = []
+        for i in range(len(prompts)):
+            threads.append(threading.Thread(target=stream, args=(i,)))
+            threads[-1].start()
+            t0 = time.monotonic()
+            while len(gw._tracked) < i + 1:
+                assert time.monotonic() - t0 < 60, "request never queued"
+                time.sleep(0.01)
+        gw.session.release()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive(), "hung SSE stream thread"
+        t0 = time.monotonic()
+        while gw._tracked and time.monotonic() - t0 < 5:
+            time.sleep(0.1)
+        with gw.lock:
+            gw.session.audit()
+            fired = gw.session.faults.fired
+        return results, len(gw._tracked), fired
+    finally:
+        http.stop()
+        gw.close()
+
+
+@pytest.mark.parametrize("storm", ["reference", "dense"])
+def test_gateway_soak_no_hung_sse_streams(engines, storm):
+    """The JAX package's gateway soak (``FaultSchedule.random(BASE_SEED +
+    77, DEFAULT_RATES, horizon=48)``, prefix cache, audit, a queue of 8)
+    through both gateways: every SSE stream ends in ``end`` or a typed
+    ``error`` echoing its request_id, the session's books audit clean after
+    the drain with nothing tracked, and the two gateways' responses and
+    fired faults are equal. That schedule fires nothing within this
+    traffic's polls, so a denser one (every site at rate 0.15 over 8 polls:
+    device_oom, kernel_dispatch and page_alloc fire, two streams fail and
+    two finish) runs the same checks through faults that do fire."""
+    jeng, teng = engines
+    rates, horizon = ((DEFAULT_RATES, 48) if storm == "reference" else
+                      ({s: 0.15 for s in DEFAULT_RATES}, 8))
+    schedule = FaultSchedule.random(BASE_SEED + 77, rates, horizon=horizon)
+    prompts = _prompts(teng.cfg, [9, 11, 7, 13])
+    with JA.paged_kernel_override(False):
+        want = _gateway_soak(JGateway, JGatewayHTTP, jeng, JSchedule.from_json(
+            schedule.to_json()).injector(), prompts)
+    got = _gateway_soak(Gateway, GatewayHTTP, teng, schedule.injector(),
+                        prompts)
+    assert got == want
+    results, tracked, fired = got
+    assert tracked == 0 and len(results) == len(prompts)
+    assert (fired == []) == (storm == "reference"), fired
+    for i, (kind, text) in sorted(results.items()):
+        if kind == "http":
+            assert text in (429, 503), text
+            continue
+        assert ("event: end" in text) or ("event: error" in text), \
+            f"stream {i} got no terminal event: {text!r}"
+        assert f'"request_id": "soak-{i}"' in text

@@ -367,8 +367,17 @@ def test_launcher_modes_on_cpu(mode):
 
 
 def test_launcher_refuses_later_slices_flags():
-    for flags in (["--http", "8080"], ["--shards", "2"],
-                  ["--metrics-tenants", "4"], ["--watchdog-timeout", "5"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            launcher.main(["--arch", "qwen2.5-14b", "--smoke", "--device",
-                           "cpu", *flags])
+    """Only the multi-device slice's ``--shards`` is refused; the gateway's
+    flags parse with the JAX launcher's defaults (``--http`` is served in
+    tests/test_torch_gateway_protocol.py)."""
+    with pytest.raises(SystemExit, match="not ported yet"):
+        launcher.main(["--arch", "qwen2.5-14b", "--smoke", "--device",
+                       "cpu", "--shards", "2"])
+    args = launcher._parser().parse_args(
+        ["--arch", "qwen2.5-14b", "--http", "8080", "--metrics-tenants", "4",
+         "--watchdog-timeout", "5", "--host", "0.0.0.0"])
+    assert (args.http, args.metrics_tenants, args.watchdog_timeout,
+            args.host) == (8080, 4, 5.0, "0.0.0.0")
+    args = launcher._parser().parse_args(["--arch", "qwen2.5-14b"])
+    assert (args.http, args.metrics_tenants, args.watchdog_timeout,
+            args.host) == (None, None, 300.0, "127.0.0.1")
