@@ -262,6 +262,30 @@ wall seconds, each on a line of its own:
               beside the in-process TTFT, the step thread's decode step
               beside the in-process one, tokens/s and the server's
               inter-token histogram.
+15. mesh   -- tensor-parallel serving over torch.distributed on one card:
+              make_serve_mesh(1), a one-rank NCCL world (make_serve_mesh(2)
+              refused: one card), and gemma2-2b at published widths (packed,
+              bf16, max_len 1024) through ServeEngine(mesh=): a 1,024-token
+              prefill's logits torch.equal to phase 3's unsharded engine's,
+              phase 3's traffic (16 requests, 32 greedy tokens, 8 lanes, the
+              mid-flight submits and the cancel) with every stream
+              identical to phase 3's, launches equal to phase 3's formula on
+              the tensor-core routes, the collectives counted (one token
+              check a segment; a mesh of one gathers no heads, as in the
+              JAX package) and the head gather that a rank of a larger
+              mesh issues before each wo timed over NCCL (device ms and
+              host us a call, and the op that takes most of it), the
+              decode step beside an unsharded engine's, in turns; then
+              head_local_checks: at tp 2 and 4, every rank's head slice of
+              paged_flash_decode (bf16 and int8 pools, global and windowed)
+              and of flash_attention (a 1,024-token prefill), and every
+              rank's shard-major column slice of the wqkv GEMV (M = 8 and
+              128), with the unsharded plan pinned, torch.equal to the same
+              heads or columns of the full launch, rank 0's slice timed
+              beside its bound; and python -m repro_torch.launch.serve
+              --packed --stream --shards 1 as a process of its own, its
+              streams those of the same run in process, --shards 2 exiting
+              non-zero with the oversubscription message.
 
 The last lines are one JSON object of kernel results, the card's name and
 power limit as nvidia-smi reports them, and the result object.
@@ -1365,11 +1389,118 @@ def profile_segment(torch, engine, prompts, n_tok, params_for=None, key=None,
             print(f"    {g}: {ms:.3f} ms")
     return out
 
+# phase 3's traffic, served again through the serve mesh by phase 15: 16
+# prompt lengths, 32 greedy tokens each, 10 submitted at once, the other 6
+# after the first decode segment, request 3 cancelled at the third round
+SERVE_LENS = (16, 40, 100, 200, 250, 600, 300, 20, 64, 130, 500, 33, 256, 90,
+              480, 17)
+SERVE_TOKENS, SERVE_FIRST_WAVE, SERVE_CANCEL = 32, 10, 3
+# phase 3's full-bucket prefill, whose logits phase 15's mesh engine must
+# equal bit for bit
+LOGITS_PROMPT = 1024
+
+
+def serve_traffic(torch, engine, prompts):
+    """Phase 3's traffic through ``engine.session(lanes=8, page_size=16,
+    segment=8)``, the launch counters zeroed just before. Returns (the
+    session, its handles, submit and first-token times by request, the
+    serving seconds)."""
+    from repro_torch.serve import SamplingParams
+
+    zero_counts()
+    sess = engine.session(lanes=8, page_size=16, segment=8)
+    submitted, first_at, handles = {}, {}, []
+
+    def submit(i):
+        submitted[i] = time.perf_counter()
+        handles.append(sess.submit(prompts[i],
+                                   SamplingParams(max_tokens=SERVE_TOKENS)))
+
+    def note_first_tokens():
+        now = time.perf_counter()
+        for h in handles:
+            if h.rid not in first_at and h.tokens_ready:
+                first_at[h.rid] = now
+
+    for i in range(SERVE_FIRST_WAVE):
+        submit(i)
+    steps = 0
+    t_serve = time.perf_counter()
+    while sess.step():
+        steps += 1
+        note_first_tokens()
+        if steps == 2:                       # after the first decode segment
+            for i in range(SERVE_FIRST_WAVE, len(prompts)):
+                submit(i)
+        if steps == 3:
+            assert handles[SERVE_CANCEL].cancel()
+    torch.cuda.synchronize()
+    return sess, handles, submitted, first_at, time.perf_counter() - t_serve
+
+
+def serve_launches(cfg, work):
+    """The launches phase 3's formula expects of a session's ``work``: 4
+    GEMV a layer per decode step and per prefill of <= 256 rows, a paged
+    decode a layer per decode step, a flash prefill a layer per prefill."""
+    d_steps = work["decode_steps"]
+    gemv_prefills = sum(c for b, c in work["prefills"].items() if b <= 256)
+    return {"packed_xnor_gemv": 4 * cfg.n_layers * (d_steps + gemv_prefills),
+            "paged_flash_decode": cfg.n_layers * d_steps,
+            "boolean_weight_bwd": 0,
+            "flash_attention_fwd": cfg.n_layers * sum(work["prefills"].values()),
+            "paged_prefix_attention": 0, "boolean_matmul": 0,
+            "packed_xnor_matmul": 0}
+
+
+def timed_segments_8(torch, engine, prompts):
+    """The decode step of 8 busy lanes: the first 8 prompts admitted, then
+    each later segment timed alone. Returns (ms a step by segment, decode
+    tokens, their seconds)."""
+    from repro_torch.serve import SamplingParams
+
+    seg_ms, decode_tokens, decode_s = [], 0, 0.0
+    sess = engine.session(lanes=8, page_size=16, segment=8)
+    for i in range(8):
+        sess.submit(prompts[i], SamplingParams(max_tokens=SERVE_TOKENS))
+    while sess.step():
+        if not sess.sched.pending and all(
+                len(r.emitted) for r in sess.sched.active.values()):
+            break
+    while not sess.idle:
+        before = sum(len(r.emitted) for r in sess.sched.active.values())
+        lanes_live = len(sess.sched.active)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sess.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        seg_ms.append(dt * 1e3 / sess.segment)
+        decode_tokens += min(lanes_live * sess.segment,
+                             lanes_live * SERVE_TOKENS - before)
+        decode_s += dt
+    sess.close()
+    return seg_ms, decode_tokens, decode_s
+
+
+def full_prefill_logits(torch, engine, prompt):
+    """The last-position logits of a cold prefill of ``prompt`` through
+    ``engine.prefill_commit`` (a page pool of its own, 16-row pages), on
+    the host."""
+    import numpy as np
+
+    n = len(prompt) // 16
+    pool = engine.init_pool(n + 1, 16, 1)
+    logits = engine.prefill_commit(pool, prompt, len(prompt),
+                                   np.arange(1, n + 1, dtype=np.int32), 16)[0]
+    engine.release_pool(pool)
+    return logits.cpu()
+
+
 def serve(torch, seed: int):
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS
     from repro_torch.models import lm_init
-    from repro_torch.serve import RequestStatus, SamplingParams, ServeEngine
+    from repro_torch.serve import RequestStatus, ServeEngine
 
     cfg = get_config("gemma2-2b")
     t0 = time.perf_counter()
@@ -1382,79 +1513,27 @@ def serve(torch, seed: int):
 
     import numpy as np
     rng = np.random.default_rng(seed)
-    lens = [16, 40, 100, 200, 250, 600, 300, 20, 64, 130, 500, 33, 256, 90,
-            480, 17]
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
-               for n in lens]
-    n_tok, first_wave, cancel_rid = 32, 10, 3
+               for n in SERVE_LENS]
+    n_tok, cancel_rid = SERVE_TOKENS, SERVE_CANCEL
 
     torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    sess = engine.session(lanes=8, page_size=16, segment=8)
-    submitted, first_at, handles = {}, {}, []
-
-    def submit(i):
-        submitted[i] = time.perf_counter()
-        handles.append(sess.submit(prompts[i], SamplingParams(max_tokens=n_tok)))
-
-    def note_first_tokens():
-        now = time.perf_counter()
-        for h in handles:
-            if h.rid not in first_at and h.tokens_ready:
-                first_at[h.rid] = now
-
-    for i in range(first_wave):
-        submit(i)
-    seg_ms, decode_tokens, decode_s, steps = [], 0, 0.0, 0
-    t_serve = time.perf_counter()
-    while sess.step():
-        steps += 1
-        note_first_tokens()
-        if steps == 2:                       # after the first decode segment
-            for i in range(first_wave, len(prompts)):
-                submit(i)
-        if steps == 3:
-            assert handles[cancel_rid].cancel()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t_serve
+    sess, handles, submitted, first_at, serve_s = serve_traffic(
+        torch, engine, prompts)
     launches = {k.__name__: k.launches for k in KERNELS}
     routes = route_counts()
     gemv_routes = routes["packed_xnor_gemv"]
     peak = torch.cuda.max_memory_allocated()
 
     # the same run again, timed per segment, for the step and token rates
-    sess2 = engine.session(lanes=8, page_size=16, segment=8)
-    for i in range(8):
-        sess2.submit(prompts[i], SamplingParams(max_tokens=n_tok))
-    while sess2.step():
-        if not sess2.sched.pending and all(
-                len(r.emitted) for r in sess2.sched.active.values()):
-            break
-    while not sess2.idle:
-        before = sum(len(r.emitted) for r in sess2.sched.active.values())
-        lanes_live = len(sess2.sched.active)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        sess2.step()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        seg_ms.append(dt * 1e3 / sess2.segment)
-        decode_tokens += min(lanes_live * sess2.segment,
-                             lanes_live * n_tok - before)
-        decode_s += dt
+    seg_ms, decode_tokens, decode_s = timed_segments_8(torch, engine, prompts)
 
     profile = profile_segment(torch, engine, prompts[:8], n_tok)
 
     stats = sess.work
     d_steps = stats["decode_steps"]
-    gemv_prefills = sum(c for b, c in stats["prefills"].items() if b <= 256)
     per_layer = 4 * cfg.n_layers
-    want = {"packed_xnor_gemv": per_layer * (d_steps + gemv_prefills),
-            "paged_flash_decode": cfg.n_layers * d_steps,
-            "boolean_weight_bwd": 0,
-            "flash_attention_fwd": cfg.n_layers * sum(stats["prefills"].values()),
-            "paged_prefix_attention": 0, "boolean_matmul": 0,
-            "packed_xnor_matmul": 0}
+    want = serve_launches(cfg, stats)
     print(f"  served {len(handles)} requests in {serve_s:.2f} s: "
           f"{d_steps} decode steps, prefill buckets {dict(stats['prefills'])}")
     print(f"  launches {launches}, expected {want} ({per_layer} GEMV per decode "
@@ -1500,7 +1579,15 @@ def serve(torch, seed: int):
     torch.cuda.synchronize()
     assert tuple(logits.shape) == (1, 1, cfg.vocab_padded), logits.shape
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
-    return engine, launches, metrics
+    # what phase 15's serve mesh must reproduce: every stream, and the
+    # logits of one full-bucket prefill
+    long_prompt = np.random.default_rng(seed + 15).integers(
+        0, cfg.vocab_size, (LOGITS_PROMPT,)).astype(np.int32)
+    ref = {"prompts": prompts, "streams": [h.tokens_so_far() for h in handles],
+           "long_prompt": long_prompt,
+           "logits": full_prefill_logits(torch, engine, long_prompt),
+           "step_ms_median": metrics["step_ms_median"]}
+    return engine, launches, metrics, ref
 
 
 # ---------------------------------------------------------------------------
@@ -2691,11 +2778,12 @@ def decode_group_sizes():
 @contextlib.contextmanager
 def recorded_draws(limit: int = 16):
     """Keep the first ``limit`` sampled draws of the sessions' decode
-    segments on the card: the logits, temperatures, keys and steps each
-    was given and the tokens it returned."""
-    import repro_torch.serve.session as SS
+    segments on the card (``ServeEngine.decode_segment`` draws them): the
+    logits, temperatures, keys and steps each was given and the tokens it
+    returned."""
+    import repro_torch.serve.engine as SE
 
-    draw, seen = SS.sample_tokens, []
+    draw, seen = SE.sample_tokens, []
 
     def keep(cfg, logits, temperature=0.0, key=None, step=0):
         out = draw(cfg, logits, temperature, key, step)
@@ -2705,11 +2793,11 @@ def recorded_draws(limit: int = 16):
                               (logits, temperature, key, step, out)))
         return out
 
-    SS.sample_tokens = keep
+    SE.sample_tokens = keep
     try:
         yield seen
     finally:
-        SS.sample_tokens = draw
+        SE.sample_tokens = draw
 
 
 def sampling_card_vs_cpu(torch, cfg, keys, draws):
@@ -5070,6 +5158,349 @@ def serve_gateway(torch, seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 15. the serve mesh (tensor parallelism over torch.distributed)
+# ---------------------------------------------------------------------------
+# the shard counts whose head-local launches phase 15 holds to the full
+# launch: what each card of a 2- or 4-card mesh runs
+MESH_TP = (2, 4)
+# the launcher's streaming run, in process and as a --shards 1 process
+MESH_LAUNCH_ARGS = ("--arch", "gemma2-2b", "--packed", "--stream",
+                    "--requests", "8", "--lanes", "4", "--gen", "16")
+
+
+def head_local_checks(torch, flush, gen, cfg):
+    """The launches a rank of a ``tp``-card mesh makes, at tp 2 and 4: its
+    head (or column) slice of phase 3's shapes, the unsharded launch plan
+    pinned (``plan_kv`` / ``plan_n``), must equal the same heads or columns
+    of the full launch bit for bit. paged_flash_decode on a head slice of
+    the bf16 and int8 pools (global and a 100-row window, softcap 50);
+    flash_attention on a head slice of a 1,024-token prefill; the GEMV on a
+    shard-major column slice of wqkv at 8 decode lanes and a 128-row
+    prefill. Each slice's launch is timed beside its bound (what one card
+    of the mesh would read), and whether the slice's own plan, unpinned,
+    would have matched is recorded."""
+    import numpy as np
+    from repro_torch.kernels import (flash_attention_fwd, pack_bits,
+                                     packed_xnor_gemv, paged_flash_decode)
+
+    H, KV, hd = cfg.heads_padded(), cfg.kv_heads_padded(), cfg.head_dim_
+    R, cap = H // KV, cfg.attn_logit_softcap
+    page, C = 16, 1024 // 16
+    rows = []
+    q, bt, pos, pools = decode_inputs(torch, gen, KV, R, hd, page, DECODE_POS)
+    qf = (8 * torch.randn((H, LOGITS_PROMPT, hd), generator=gen,
+                          device="cuda")).to(torch.bfloat16)
+    kf, vf = (torch.randn((KV, LOGITS_PROMPT, hd), generator=gen,
+                          device="cuda").to(torch.bfloat16) for _ in range(2))
+    K, cols = cfg.d_model, (H * hd, KV * hd, KV * hd)
+    w = [(torch.randint(0, 2, (K, n), generator=gen, device="cuda",
+                        dtype=torch.int8) * 2 - 1).to(torch.int8) for n in cols]
+    for tp in MESH_TP:
+        # the decode over each pool and window
+        for pool, (k_, v_, ks_, vs_) in pools.items():
+            for window in (0, 100):
+                kw = dict(window=window, softcap_val=cap)
+                full = paged_flash_decode(q, k_, v_, bt, pos, ks_, vs_, **kw)
+                for r in range(tp):
+                    h = slice(r * KV // tp, (r + 1) * KV // tp)
+
+                    def sl(t):
+                        return None if t is None else t[:, :, h].contiguous()
+
+                    args = (q[:, h].contiguous(), sl(k_), sl(v_), bt, pos,
+                            sl(ks_), sl(vs_))
+                    part = paged_flash_decode(*args, **kw, plan_kv=KV)
+                    same = bool(torch.equal(part, full[:, h]))
+                    assert same, ("decode head slice", tp, r, pool, window)
+                    if r or window:
+                        continue
+                    own = bool(torch.equal(paged_flash_decode(*args, **kw),
+                                           full[:, h]))
+                    ms = time_ms(torch, lambda: paged_flash_decode(
+                        *args, **kw, plan_kv=KV), flush)
+                    n_rows = decode_rows(DECODE_POS, page, C, window)
+                    row_bytes = hd * k_.element_size() + (4 if ks_ is not None
+                                                          else 0)
+                    kv_l = KV // tp
+                    b_ms, b_by = bound(args[0].numel() * (2 + 4)
+                                       + n_rows * kv_l * row_bytes * 2
+                                       + bt.numel() * 4 + pos.numel() * 4,
+                                       4.0 * n_rows * kv_l * R * hd, "bf16")
+                    rows.append({"kernel": "paged_flash_decode", "tp": tp,
+                                 "pool": pool, "KV": kv_l, "R": R,
+                                 "nsplit_pinned_from_KV": KV,
+                                 "equal": same, "unpinned_equal": own,
+                                 "ms": ms, "bound_ms": b_ms,
+                                 "bound_by": b_by})
+        # the flash prefill over a head slice
+        full = flash_attention_fwd(qf, kf, vf, causal=True, softcap=cap,
+                                   n_rep=R)
+        for r in range(tp):
+            hq = slice(r * H // tp, (r + 1) * H // tp)
+            hk = slice(r * KV // tp, (r + 1) * KV // tp)
+            a = (qf[hq].contiguous(), kf[hk].contiguous(), vf[hk].contiguous())
+            part = flash_attention_fwd(*a, causal=True, softcap=cap, n_rep=R)
+            assert torch.equal(part, full[hq]), ("flash head slice", tp, r)
+            if r:
+                continue
+            ms = time_ms(torch, lambda: flash_attention_fwd(
+                *a, causal=True, softcap=cap, n_rep=R), flush)
+            pairs = (H // tp) * _live_pairs(LOGITS_PROMPT, 0)
+            b_ms, b_by = bound((a[0].numel() * 2 + a[1].numel() * 2) * 2,
+                               4.0 * hd * pairs, "bf16")
+            rows.append({"kernel": "flash_attention", "tp": tp,
+                         "S": LOGITS_PROMPT, "BH": H // tp, "KV": KV // tp,
+                         "equal": True, "ms": ms, "bound_ms": b_ms,
+                         "bound_by": b_by})
+        # the GEMV over a shard-major column slice of wqkv
+        sm = torch.cat([x[:, s * x.shape[1] // tp:(s + 1) * x.shape[1] // tp]
+                        for s in range(tp) for x in w], dim=1)
+        wp = pack_bits(sm, axis=0)
+        N = wp.shape[1]
+        for M in (8, 128):
+            x = torch.randn((M, K), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            full = packed_xnor_gemv(x, wp, k_valid=K)
+            for r in range(tp):
+                wl = wp[:, r * N // tp:(r + 1) * N // tp].contiguous()
+                part = packed_xnor_gemv(x, wl, k_valid=K, plan_n=N)
+                same = bool(torch.equal(part, full[:, r * N // tp:
+                                                   (r + 1) * N // tp]))
+                assert same, ("gemv column slice", tp, r, M)
+                if r:
+                    continue
+                own = bool(torch.equal(packed_xnor_gemv(x, wl, k_valid=K),
+                                       full[:, :N // tp]))
+                ms = time_ms(torch, lambda: packed_xnor_gemv(
+                    x, wl, k_valid=K, plan_n=N), flush)
+                b_ms, b_by = bound(x.numel() * 2 + wl.numel() * 4
+                                   + M * (N // tp) * 4,
+                                   2.0 * M * K * (N // tp), "bf16")
+                rows.append({"kernel": "packed_xnor_gemv", "tp": tp, "M": M,
+                             "K": K, "N": N // tp, "plan_n": N,
+                             "equal": same, "unpinned_equal": own, "ms": ms,
+                             "bound_ms": b_ms, "bound_by": b_by})
+    for r in rows:
+        print(f"  tp {r['tp']} {r['kernel']} "
+              + ", ".join(f"{k} {r[k]}" for k in ("pool", "M", "S", "KV", "N")
+                          if k in r)
+              + f": rank 0's slice equal to the full launch's; "
+              + (f"unpinned plan equal {r['unpinned_equal']}; "
+                 if "unpinned_equal" in r else "")
+              + f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    return rows
+
+
+def mesh_launcher(torch, seed: int):
+    """``python -m repro_torch.launch.serve ... --shards 1 --stream`` as a
+    process of its own against the same run in this process without a
+    mesh: the same streams (the launcher draws its weights from seed 0, so
+    at ``--seed 0``); then ``--shards 2`` on one card exits non-zero with
+    the oversubscription message."""
+    import os
+
+    from repro_torch.launch import serve as launcher
+
+    import io
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = launcher.main(list(MESH_LAUNCH_ARGS))
+    inproc_s = time.perf_counter() - t0
+    gc_collect(torch)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *MESH_LAUNCH_ARGS, "--shards", "1"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=600)
+    proc_s = time.perf_counter() - t0
+    assert res.returncode == 0, res.stderr[-4000:]
+    got = {}
+    for ln in res.stdout.splitlines():
+        if ln.startswith("[serve] req") and " +[" in ln:
+            i = int(ln.split()[1][3:])
+            got.setdefault(i, []).extend(
+                json.loads(ln.split(" +", 1)[1].split(" (")[0]))
+    same = [got.get(i) == list(t) for i, t in enumerate(want)]
+    assert "[serve] tensor-parallel mesh: 1 shards over cuda" in res.stdout
+    if seed == 0:
+        assert all(same), ("--shards 1 streams differ", same)
+    bad = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *MESH_LAUNCH_ARGS, "--shards", "2"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    refused = bad.returncode != 0 and "CUDA devices are visible" in bad.stderr
+    assert refused, (bad.returncode, bad.stderr[-2000:])
+    msg = bad.stderr.strip().splitlines()[-1]
+    print(f"  launcher --shards 1 --stream as a process: exit 0 in "
+          f"{proc_s:.1f} s, {len(want)} streams identical to the in-process "
+          f"run's ({inproc_s:.1f} s): {same}; --shards 2 exit "
+          f"{bad.returncode}: {msg}")
+    return {"identical": same, "process_s": proc_s, "inproc_s": inproc_s,
+            "shards2_exit": bad.returncode, "shards2_message": msg}
+
+
+def serve_mesh(torch, seed: int, ref):
+    """Phase 15: gemma2-2b at published widths through a one-rank NCCL
+    serve mesh (``make_serve_mesh(1)``; the head gathers before every wo
+    and each segment's token check run on the card): a full-bucket
+    prefill's logits and phase 3's 16 streams identical to phase 3's
+    unsharded engine's, launches as phase 3's formula, the collectives
+    counted and timed, the step beside phase 3's; the head-local kernel
+    launches of a 2- and 4-card mesh against the full ones
+    (``head_local_checks``); ``make_serve_mesh(2)`` refused on one card;
+    the launcher's ``--shards``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import lm_init
+    from repro_torch.serve import RequestStatus, ServeEngine
+
+    cfg = get_config("gemma2-2b")
+    gc_collect(torch)
+    t0 = time.perf_counter()
+    mesh = make_serve_mesh(1)
+    mesh_s = time.perf_counter() - t0
+    try:
+        make_serve_mesh(2)
+        raise AssertionError("make_serve_mesh(2) on one card did not raise")
+    except ValueError as e:
+        refusal = str(e)
+    print(f"  make_serve_mesh(1): NCCL world of one on {mesh.device} in "
+          f"{mesh_s:.2f} s; make_serve_mesh(2) refused: {refusal}")
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, lm_init(cfg, torch.Generator(device="cuda")
+                                      .manual_seed(seed)),
+                         max_len=1024, packed=True, mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    logits = full_prefill_logits(torch, engine, ref["long_prompt"])
+    logits_equal = bool(torch.equal(logits, ref["logits"]))
+    assert logits_equal, ("mesh prefill logits differ",
+                          (logits - ref["logits"]).abs().max().item())
+    print(f"  engine on the mesh (init + pack {setup_s:.1f} s): a "
+          f"{LOGITS_PROMPT}-token prefill's logits torch.equal to phase 3's "
+          "unsharded engine's")
+
+    for k in mesh.counts:
+        mesh.counts[k] = 0
+    sess, handles, _, _, serve_s = serve_traffic(torch, engine, ref["prompts"])
+    launches = {k.__name__: k.launches for k in KERNELS}
+    routes = route_counts()
+    counts = dict(mesh.counts)
+    want = serve_launches(cfg, sess.work)
+    assert launches == want, (launches, want)
+    for name in ("packed_xnor_gemv", "flash_attention_fwd", "paged_flash_decode"):
+        assert launches[name] > 0 and routes[name] == {
+            "tensor_cores": want[name], "cuda_cores": 0}, (name, routes[name])
+    d_steps = sess.work["decode_steps"]
+    n_prefills = sum(sess.work["prefills"].values())
+    # a mesh of one is the unsharded path (no head gather), as in the JAX
+    # package; every segment checks its tokens across the ranks
+    assert counts == {"head_gathers": 0,
+                      "token_gathers": d_steps // sess.segment}, counts
+    streams = [h.tokens_so_far() for h in handles]
+    same = [a == b for a, b in zip(streams, ref["streams"])]
+    assert all(same), ("mesh streams differ from phase 3's", same)
+    for h in handles:
+        want_status = RequestStatus.CANCELLED if h.rid == SERVE_CANCEL \
+            else RequestStatus.DONE
+        assert h.status is want_status, (h.rid, h.status)
+    stats = sess.stats()["mesh"]
+    assert stats == {"shards": 1, "shard_loss_events": 0, "lost": [],
+                     "healthy": True}, stats
+    sess.close()
+    print(f"  served phase 3's {len(handles)} requests in {serve_s:.2f} s: "
+          f"every stream identical to phase 3's; launches {launches} as "
+          f"phase 3's formula, all on the tensor-core routes; collectives "
+          f"{counts} (one token check a segment; at one shard no head "
+          "gather)")
+
+    # the decode step of the mesh engine and of an unsharded one from the
+    # same seed, in turns (unsharded, mesh, mesh, unsharded): the host's
+    # cost per launch drifts within a process, so phase 3's step, read
+    # minutes earlier, is no baseline
+    plain = ServeEngine(cfg, lm_init(cfg, torch.Generator(device="cuda")
+                                     .manual_seed(seed)),
+                        max_len=1024, packed=True)
+    steps, decode_tokens, decode_s = {"unsharded": [], "mesh": []}, 0, 0.0
+    for label, eng in (("unsharded", plain), ("mesh", engine),
+                       ("mesh", engine), ("unsharded", plain)):
+        seg_ms, toks_n, secs = timed_segments_8(torch, eng, ref["prompts"])
+        steps[label].append(statistics.median(seg_ms))
+        if label == "mesh":
+            decode_tokens, decode_s = decode_tokens + toks_n, decode_s + secs
+    del plain
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    H, hd = cfg.heads_padded(), cfg.head_dim_
+    x_dec = torch.randn((8, 1, H, hd), device="cuda").to(torch.bfloat16)
+    x_pre = torch.randn((1, LOGITS_PROMPT, H, hd),
+                        device="cuda").to(torch.bfloat16)
+    toks = torch.zeros((8, 8), dtype=torch.int64, device="cuda")
+    # the head gather a rank of a larger mesh issues before every wo: here
+    # over NCCL at one rank, where it returns its input
+    assert torch.equal(mesh.all_gather_heads(x_dec, 2), x_dec)
+    gather_dec = time_ms(torch, lambda: mesh.all_gather_heads(x_dec, 2), flush)
+    gather_pre = time_ms(torch, lambda: mesh.all_gather_heads(x_pre, 2), flush)
+    agree_ms = time_ms(torch, lambda: mesh.agree(toks), flush)
+    n = 200
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        mesh.all_gather_heads(x_dec, 2)
+    gather_host_us = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    # where that host time goes: the op of the most self CPU time
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(50):
+            mesh.all_gather_heads(x_dec, 2)
+        torch.cuda.synchronize()
+    top = max(prof.key_averages(), key=lambda e: e.self_cpu_time_total)
+    gather_top = {"op": top.key,
+                  "self_cpu_us_per_gather": top.self_cpu_time_total / 50}
+    step = statistics.median(steps["mesh"])
+    print(f"  decode step at 8 lanes, median of its segments, in turns: "
+          f"unsharded {steps['unsharded'][0]:.2f}, mesh {steps['mesh'][0]:.2f}"
+          f", mesh {steps['mesh'][1]:.2f}, unsharded "
+          f"{steps['unsharded'][1]:.2f} ms (phase 3: "
+          f"{ref['step_ms_median']:.2f} ms); "
+          f"{decode_tokens / decode_s:.1f} tokens/s on the mesh; one head "
+          f"gather over "
+          f"NCCL {gather_dec:.4f} ms at decode ({tuple(x_dec.shape)}), "
+          f"{gather_pre:.4f} ms at a {LOGITS_PROMPT}-token prefill, "
+          f"{gather_host_us:.1f} us of host a call (a rank of a larger mesh "
+          f"issues {cfg.n_layers} a decode step; most of it "
+          f"{gather_top['op']}, {gather_top['self_cpu_us_per_gather']:.1f} "
+          f"us of self CPU a gather under the profiler); the segment's token "
+          f"check {agree_ms:.4f} ms (its host sync included)")
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    local = head_local_checks(torch, flush, gen, cfg)
+    del flush
+    engine.close()
+    mesh.close()
+    del engine
+    gc_collect(torch)
+    launcher = mesh_launcher(torch, seed)
+    return {"launches": launches, "routes": routes, "collectives": counts,
+            "decode_steps": d_steps, "prefills": n_prefills,
+            "serve_s": serve_s, "setup_s": setup_s, "mesh_init_s": mesh_s,
+            "logits_equal": logits_equal, "streams_identical": same,
+            "step_ms_median": step, "step_ms_in_turns": steps,
+            "phase3_step_ms_median": ref["step_ms_median"],
+            "decode_tokens_per_s": decode_tokens / decode_s,
+            "head_gather_ms_decode": gather_dec,
+            "head_gather_ms_prefill": gather_pre,
+            "head_gather_host_us": gather_host_us,
+            "head_gather_top_host_op": gather_top,
+            "token_check_ms": agree_ms, "head_local": local,
+            "refusal": refusal, "launcher": launcher, "device": smi_line()}
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -5163,7 +5594,7 @@ def main() -> int:
 
     with phase(3, "serve gemma2-2b (published widths) through the packed "
                   "session"):
-        engine, launches, metrics = serve(torch, args.seed)
+        engine, launches, metrics, serve_ref = serve(torch, args.seed)
 
     with phase(4, "small fp32 model: card kernels vs CPU plain versions"):
         metrics.update(agree_with_cpu(torch, args.seed))
@@ -5213,6 +5644,13 @@ def main() -> int:
     with phase(14, "serve gemma2-2b (published widths) over HTTP through the "
                    "gateway"):
         gateway_metrics = serve_gateway(torch, args.seed)
+        gc_collect(torch)
+
+    with phase(15, "serve gemma2-2b (published widths) through a one-rank "
+                   "NCCL serve mesh, and the head-local kernels at tp 2 and "
+                   "4"):
+        mesh_metrics = serve_mesh(torch, args.seed, serve_ref)
+        del serve_ref
         gc_collect(torch)
 
     decode_m8 = [r for r in gemv_rows if r["M"] == 8]
@@ -5270,6 +5708,19 @@ def main() -> int:
     g_soak = gateway_metrics["soak_launches"]
     q_launch, q_routes = qwen_metrics["launches"], qwen_metrics["routes"]
 
+    s_launch = mesh_metrics["launches"]
+
+    def tp_cols(kernel, **match):
+        """Phase 15's head-local slice of ``kernel`` at each shard count:
+        rank 0's launch time and bound (at ``match``'s shape)."""
+        out = {}
+        for r in mesh_metrics["head_local"]:
+            if r["kernel"] == kernel and all(r.get(k) == v
+                                             for k, v in match.items()):
+                out[f"phase15_tp{r['tp']}_ms"] = r["ms"]
+                out[f"phase15_tp{r['tp']}_bound_ms"] = r["bound_ms"]
+        return out
+
     def phase11(name):
         """Phase 11's card launches of ``name`` by session (CUDA-core)."""
         return {k: v["launches"][name] for k, v in family_metrics.items()
@@ -5312,6 +5763,8 @@ def main() -> int:
          "phase13_launches": o_launch["packed_xnor_gemv"],
          "phase14_launches": g_launch["packed_xnor_gemv"],
          "phase14_soak_launches": g_soak["packed_xnor_gemv"],
+         "phase15_launches": s_launch["packed_xnor_gemv"],
+         **tp_cols("packed_xnor_gemv", M=8),
          "shape": "sum over one layer's wqkv, wo, wgu, wd at M=8 lanes, bf16 x "
                   "(m16_* .. m256_*: the same at 16 to 256 prefill rows); "
                   "library_ms: torch.matmul on the bf16 ±1 weight; cc_ms: "
@@ -5325,7 +5778,11 @@ def main() -> int:
                   "card sessions' (fp32 x, the CUDA-core route); moonshot_*: "
                   "moonshot-v1-16b-a3b's wqkv and wo at M=8, phase12_*: "
                   "phase 12's launches; phase13_launches: phase 13's (both "
-                  "pools, tensor cores); phase14_launches / phase14_soak_launches: phase 14's over HTTP, its main traffic and its soak"},
+                  "pools, tensor cores); phase14_launches / phase14_soak_launches: phase 14's over HTTP, its main traffic and its soak; "
+                  "phase15_launches: phase 15's through the one-rank serve "
+                  "mesh; phase15_tp2_* / phase15_tp4_*: rank 0's shard-major "
+                  "column slice of wqkv at M=8 with the unsharded plan "
+                  "pinned, what one card of a 2- or 4-card mesh runs"},
         {"name": "paged_flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_flash_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:156",
@@ -5357,6 +5814,8 @@ def main() -> int:
          "phase13_launches": o_launch["paged_flash_decode"],
          "phase14_launches": g_launch["paged_flash_decode"],
          "phase14_soak_launches": g_soak["paged_flash_decode"],
+         "phase15_launches": s_launch["paged_flash_decode"],
+         **tp_cols("paged_flash_decode", pool="bf16"),
          "phase9_launches_by_route_and_group":
              qwen_metrics["decode_group_sizes"],
          "shape": f"{local['L']} lanes, {local['KV']} KV heads x {local['R']} "
@@ -5376,7 +5835,11 @@ def main() -> int:
                   "the CUDA-core route; moonshot_*: phase 12's shape, 16 KV "
                   "heads x 1 q head, head_dim 128, global, bf16 pool; "
                   "phase12_* / phase13_launches: phases 12 and 13's "
-                  "launches; phase14_launches / phase14_soak_launches: phase 14's over HTTP, its main traffic and its soak)"},
+                  "launches; phase14_launches / phase14_soak_launches: phase 14's over HTTP, its main traffic and its soak; "
+                  "phase15_launches: phase 15's through the one-rank serve "
+                  "mesh; phase15_tp2_* / phase15_tp4_*: rank 0's KV-head "
+                  "slice of phase 3's bf16 pool, global, the unsharded "
+                  "shares pinned)"},
         {"name": "boolean_weight_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/boolean_weight_bwd.cu",
          "replaces": "src/repro/kernels/boolean_bwd.py:52",
@@ -5421,6 +5884,8 @@ def main() -> int:
          "phase13_launches": o_launch["flash_attention_fwd"],
          "phase14_launches": g_launch["flash_attention_fwd"],
          "phase14_soak_launches": g_soak["flash_attention_fwd"],
+         "phase15_launches": s_launch["flash_attention_fwd"],
+         **tp_cols("flash_attention"),
          "shape": f"one layer's cold prefill: {flash['BH']} q heads over "
                   f"{flash['KV']} KV heads, S={flash['S']}, head_dim "
                   f"{flash['hd']}, bf16, softcap 50, window {flash['window']} "
@@ -5434,7 +5899,10 @@ def main() -> int:
                   "CUDA-core route); moonshot_*: its 1,024-token prefill, "
                   "16 q over 16 KV heads, head_dim 128, library_ms SDPA "
                   "(causal); phase12_* / phase13_launches: phases 12 and "
-                  "13's launches; phase14_launches / phase14_soak_launches: phase 14's over HTTP, its main traffic and its soak"},
+                  "13's launches; phase14_launches / phase14_soak_launches: phase 14's over HTTP, its main traffic and its soak; "
+                  "phase15_launches: phase 15's through the one-rank serve "
+                  "mesh; phase15_tp2_* / phase15_tp4_*: rank 0's head slice "
+                  "of a 1,024-token prefill, global"},
         {"name": "paged_prefix_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_prefix_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:335",
@@ -5530,6 +5998,7 @@ def main() -> int:
                                "moonshot_serve": moon_metrics,
                                "overload": overload_metrics,
                                "gateway": gateway_metrics,
+                               "serve_mesh": mesh_metrics,
                                "phase_wall_s": walls,
                                "phase_start_launch_us": launch_at,
                                "kernels": kernels}, indent=1))

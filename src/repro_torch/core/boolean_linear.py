@@ -15,6 +15,8 @@ view's dtype, where the JAX package's ``core/boolean_linear.py`` rounds them.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import (boolean_matmul, boolean_weight_bwd,
@@ -156,7 +158,8 @@ def pack_boolean_weight(w_int8: torch.Tensor) -> PackedBool:
 PACKED_GEMV_MAX_M = 256
 
 
-def boolean_dense_inference(x: torch.Tensor, w, b=None) -> torch.Tensor:
+def boolean_dense_inference(x: torch.Tensor, w, b=None, *,
+                            plan_n: Optional[int] = None) -> torch.Tensor:
     """Serving-path Boolean dense on stored Boolean weights.
 
     int8 ±1 ``x``: against an int8 weight ``boolean_matmul`` gives the int32
@@ -166,7 +169,7 @@ def boolean_dense_inference(x: torch.Tensor, w, b=None) -> torch.Tensor:
     a ``PackedBool`` weight routes thin-M (decode, short prefill)
     contractions through the packed-XNOR GEMV and returns fp32, wider ones
     unpack transiently to a ±1 view; an int8 weight takes the mixed-type
-    rule xnor(w, x) = e(w)·x.
+    rule xnor(w, x) = e(w)·x. ``plan_n`` is the GEMV's (``packed_xnor_gemv``).
     """
     lead = x.shape[:-1]
     if isinstance(w, PackedBool):
@@ -182,7 +185,7 @@ def boolean_dense_inference(x: torch.Tensor, w, b=None) -> torch.Tensor:
             y = matmul_f32(x, wv)
         else:
             y = packed_xnor_gemv(x.reshape(-1, x.shape[-1]).contiguous(),
-                                 w.bits, k_valid=w.k)
+                                 w.bits, k_valid=w.k, plan_n=plan_n)
             y = y.reshape(*lead, y.shape[-1])
     elif x.dtype == torch.int8:
         x2 = x.reshape(-1, x.shape[-1]).contiguous()

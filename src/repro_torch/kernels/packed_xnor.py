@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -136,7 +136,8 @@ def gemv_route(x: torch.Tensor, w_packed: torch.Tensor) -> str:
 
 
 def packed_xnor_gemv(x: torch.Tensor, w_packed: torch.Tensor, *,
-                     k_valid: int) -> torch.Tensor:
+                     k_valid: int, plan_n: Optional[int] = None
+                     ) -> torch.Tensor:
     """y[i,j] = Σ_k x[i,k]·e(w[k,j]) with only the weights bit-packed.
 
     x: (M, K) real activations, K == k_valid; w_packed: (Kw, N) int32 words
@@ -145,6 +146,12 @@ def packed_xnor_gemv(x: torch.Tensor, w_packed: torch.Tensor, *,
     ``gemv_route`` names. ``packed_xnor_gemv.launches`` counts kernel
     launches, ``.tc_launches`` and ``.cc_launches`` those of the
     tensor-core and CUDA-core kernels.
+
+    ``plan_n``: plan the launch (lane tile, K split) as for a weight of
+    ``plan_n`` columns. A column shard of a wider weight passes the whole
+    weight's N, so each column sums its K partials in the order the
+    unsharded launch sums them (the split follows N; ``sign()`` downstream
+    turns another order's ulps into token flips).
     """
     if x.dim() != 2 or w_packed.dim() != 2:
         raise ValueError(f"packed gemv wants 2-D operands, got x {tuple(x.shape)}"
@@ -167,9 +174,9 @@ def packed_xnor_gemv(x: torch.Tensor, w_packed: torch.Tensor, *,
         raise ValueError("packed gemv operands must be contiguous")
     tc = gemv_route(x, w_packed) == "tensor_cores"
     if tc:
-        lanes, ksplit, kws = gemv_tc_plan(M, Kw, N, gemv_tc_tiles())
+        lanes, ksplit, kws = gemv_tc_plan(M, Kw, plan_n or N, gemv_tc_tiles())
     else:
-        ksplit, kws = gemv_split(M, Kw, N)
+        ksplit, kws = gemv_split(M, Kw, plan_n or N)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     part = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
             if ksplit > 1 else y)

@@ -190,10 +190,10 @@ def _decode_launch(route: str, q, k_pool, v_pool, block_table, pos, k_scale,
                    nsplit: Optional[int] = None) -> torch.Tensor:
     """Launch the kernel of ``route`` on checked CUDA operands; counts
     nothing. The wrapper calls it with ``decode_route``'s answer and the
-    shares of ``decode_split`` at the device's SM count. ``nsplit`` is a
-    measurement hook that the serving path never passes: a measurement may
-    time a route with another number of shares, or the CUDA-core kernel on
-    bf16."""
+    shares of ``decode_split`` at the device's SM count (at the unsharded
+    KV head count under a serve mesh: ``plan_kv``). ``nsplit`` is also a
+    measurement hook: a measurement may time a route with another number
+    of shares, or the CUDA-core kernel on bf16."""
     L, KV, R, hd = q.shape
     n_pages, page = k_pool.shape[:2]
     C = block_table.shape[1]
@@ -243,7 +243,8 @@ def _decode_launch(route: str, q, k_pool, v_pool, block_table, pos, k_scale,
 
 def paged_flash_decode(q, k_pool, v_pool, block_table, pos,
                        k_scale=None, v_scale=None, *,
-                       window: int = 0, softcap_val: float = 0.0):
+                       window: int = 0, softcap_val: float = 0.0,
+                       plan_kv: Optional[int] = None):
     """Flash-decode over a paged pool, pages read in place per lane.
 
     q: (L, KV, R, hd) grouped queries; k_pool/v_pool: (n_pages, page, KV,
@@ -254,6 +255,11 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos,
     ``decode_route`` names. ``paged_flash_decode.launches`` counts kernel
     launches, ``.tc_launches`` and ``.cc_launches`` those of the
     tensor-core and CUDA-core routes.
+
+    ``plan_kv``: split each lane's pages into the shares ``decode_split``
+    gives ``plan_kv`` KV heads. A serve-mesh rank holding a head slice
+    passes the unsharded count, so each head merges the shares of the
+    unsharded launch, in its order.
     """
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"paged decode shapes: q {tuple(q.shape)}, pools "
@@ -295,8 +301,11 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos,
            (tensors if route == "tensor_cores" else (q, k_pool, v_pool))):
         raise ValueError(f"paged decode on the {route} route takes "
                          "16-byte-aligned operands")
+    nsplit = None if plan_kv is None else decode_split(
+        L, plan_kv, block_table.shape[1], _sm_count(q.device.index))
     out = _decode_launch(route, q, k_pool, v_pool, block_table, pos, k_scale,
-                         v_scale, window=window, softcap_val=softcap_val)
+                         v_scale, window=window, softcap_val=softcap_val,
+                         nsplit=nsplit)
     paged_flash_decode.launches += 1
     if route == "tensor_cores":
         paged_flash_decode.tc_launches += 1

@@ -1,0 +1,137 @@
+"""Mesh construction over ``torch.distributed``.
+
+The serve mesh is the JAX package's 1-D ("model",) mesh with one PROCESS
+a shard: ``init_serve_world`` joins this process to a world of N (NCCL on
+``cuda:rank``, gloo on the CPU), and ``make_serve_mesh`` builds the
+``DeviceMesh`` of its "model" dimension. A process that never joined a
+world is a world of one: ``make_serve_mesh(1)`` starts that world itself
+(an in-memory store, nothing leaves the process), and refuses more shards
+than there are processes or, on CUDA, cards — NCCL takes one card a rank.
+
+``make_local_mesh`` and ``make_production_mesh`` are the training slice's
+("data", "model") meshes, the same shapes as the JAX package's;
+``mesh_batch_axes`` and ``mesh_num_chips`` read any of them.
+"""
+from __future__ import annotations
+
+import datetime
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch.distributed import ServeMesh, set_mesh
+
+#: how long a collective (and the world's rendezvous) may wait on a rank
+#: before it raises: a rank that died never hangs the others
+TIMEOUT = datetime.timedelta(seconds=120)
+
+
+def _backend(device: torch.device) -> str:
+    return "nccl" if device.type == "cuda" else "gloo"
+
+
+def _rank_device(device, rank: int) -> torch.device:
+    """``cuda`` -> ``cuda:rank`` (one card a rank); the CPU as given."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", rank)
+    return dev
+
+
+def check_serve_world(n: int, device="cuda", world: int = None) -> None:
+    """Raise ``ValueError`` when ``n`` shards cannot be served: more than
+    ``world`` processes (default: the current world, 1 outside one) or,
+    on CUDA, more than the visible cards."""
+    if n < 1:
+        raise ValueError(f"make_serve_mesh: {n} shards")
+    if torch.device(device).type == "cuda":
+        cards = torch.cuda.device_count()
+        if n > cards:
+            raise ValueError(
+                f"make_serve_mesh: asked for {n} shards but only {cards} CUDA "
+                "devices are visible (NCCL serves one card a rank)")
+    if world is None:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+    if n > world:
+        raise ValueError(
+            f"make_serve_mesh: asked for {n} shards but only {world} devices "
+            "(processes) are in the world (start one process a shard: "
+            "python -m repro_torch.launch.serve --shards N)")
+
+
+def init_serve_world(rank: int, world: int, init_method: str,
+                     device="cuda") -> torch.device:
+    """Join this process to a serve world of ``world`` ranks at
+    ``init_method`` (``tcp://localhost:PORT`` or ``file://PATH``), NCCL on
+    ``cuda:rank`` or gloo on the CPU, every collective bounded by
+    ``TIMEOUT``. Returns this rank's device."""
+    dev = _rank_device(device, rank)
+    check_serve_world(world, dev, world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    kw = {"device_id": dev} if dev.type == "cuda" else {}
+    dist.init_process_group(_backend(dev), init_method=init_method,
+                            rank=rank, world_size=world, timeout=TIMEOUT,
+                            **kw)
+    return dev
+
+
+def make_serve_mesh(n_shards: int = 0, device="cuda") -> ServeMesh:
+    """1-D ("model",) mesh for tensor-parallel serving
+    (``ServeEngine(mesh=)``): every rank of the world, or a world of one
+    started here. ``n_shards=0`` takes the whole world. Installs the mesh
+    as the process's (``get_mesh``)."""
+    started = not dist.is_initialized()
+    world = dist.get_world_size() if not started else 1
+    n = n_shards or world
+    dev = _rank_device(device, dist.get_rank() if not started else 0)
+    check_serve_world(n, dev, world)
+    if n != world:
+        raise ValueError(f"make_serve_mesh: {n} shards over a world of "
+                         f"{world}: the serve mesh spans the whole world")
+    if started:
+        kw = {}
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            kw["device_id"] = dev
+        dist.init_process_group(_backend(dev), store=dist.HashStore(),
+                                rank=0, world_size=1, timeout=TIMEOUT, **kw)
+    elif dist.get_backend() != _backend(dev):
+        raise ValueError(f"make_serve_mesh: a {dev.type} mesh needs the "
+                         f"{_backend(dev)} backend, the world runs "
+                         f"{dist.get_backend()}")
+    dm = init_device_mesh(dev.type, (n,), mesh_dim_names=("model",))
+    ctrl = dist.new_group(backend="gloo", timeout=TIMEOUT) if n > 1 else None
+    mesh = ServeMesh(dm, dev, ctrl, owns_world=started)
+    set_mesh(mesh)
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The (data 16, model 16) mesh of a 256-card pod, with a leading pod
+    axis of 2 under ``multi_pod``; needs a world of that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(torch.device(device).type, shape,
+                            mesh_dim_names=axes)
+
+
+def make_local_mesh(model_axis: int = 1, device="cuda"):
+    """A (data, model) mesh over the current world."""
+    n = dist.get_world_size()
+    if n % model_axis != 0:
+        raise ValueError(f"make_local_mesh: a world of {n} ranks is not "
+                         f"divisible by model_axis={model_axis}")
+    return init_device_mesh(torch.device(device).type,
+                            (n // model_axis, model_axis),
+                            mesh_dim_names=("data", "model"))
+
+
+def mesh_batch_axes(mesh) -> tuple:
+    names = getattr(mesh, "axis_names", None) or mesh.mesh_dim_names
+    return tuple(a for a in names if a in ("pod", "data"))
+
+
+def mesh_num_chips(mesh) -> int:
+    return int(mesh.size if isinstance(mesh, ServeMesh) else mesh.size())

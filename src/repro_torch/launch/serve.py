@@ -1,4 +1,4 @@
-"""Serving launcher of the port, with the JAX package's single-device flags.
+"""Serving launcher of the port, with the JAX package's flags.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --smoke --batch 4 --prompt-len 32 --gen 16 [--device cpu]
@@ -33,21 +33,28 @@ watchdog never times an ``nvcc`` build:
         -d '{"prompt": [3, 1, 4, 1, 5], "max_tokens": 8}'
     curl localhost:8080/metrics
 
+Tensor-parallel serving over a serve mesh of N processes, one a shard
+(head-sharded q/k/v and KV page pools, one scheduler on rank 0; with
+--stream or --continuous, as in the JAX launcher). This process is rank 0
+and starts the N-1 others itself: NCCL on cuda:rank under ``--device
+cuda`` (one card a rank: more shards than cards are refused), gloo under
+``--device cpu``:
+
+    ... --shards 2 --stream --requests 8 --lanes 4 --gen 16 --device cpu
+
 Builds ``lm_init`` on a seeded generator and a ``ServeEngine`` (``--packed``:
 bit-packed weights; ``--kv-quant``: int8 KV cache). Without ``--continuous``
 or ``--stream`` it serves one fixed batch through ``generate`` (or the
 per-token ``generate_eager`` with ``--eager``). ``--device`` defaults to
 ``cuda`` and raises on a host without a card; ``--device cpu`` runs the
-kernels' plain versions. The JAX launcher's mesh flag ``--shards`` is
-accepted and refused: it comes with the port's multi-device slice.
+kernels' plain versions.
 """
 from __future__ import annotations
 
 import argparse
+import socket
+import sys
 import time
-
-# the JAX launcher's flags of later slices: flag -> the slice that ports it
-_LATER = {"shards": "multi-device"}
 
 
 def _parser():
@@ -126,7 +133,11 @@ def _parser():
     ap.add_argument("--host", default="127.0.0.1",
                     help="(--http) bind address")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--shards", type=int, default=None, help="a later slice")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="tensor-parallel serve mesh of N processes, one a "
+                         "shard (head-axis sharded weights + KV page pools, "
+                         "one mesh-wide scheduler on rank 0; NCCL one card a "
+                         "rank on cuda, gloo on cpu). 0 = single-device")
     return ap
 
 
@@ -302,33 +313,104 @@ def _stream(engine, args, prompts, gens):
     return [h.tokens_so_far() if h is not None else None for h in handles]
 
 
-def main(argv=None):
-    args = _parser().parse_args(argv)
-    later = [f"--{k.replace('_', '-')}" for k, v in vars(args).items()
-             if k in _LATER and v not in (None, False)]
-    if later:
-        raise SystemExit(
-            f"[serve] {', '.join(later)}: not ported yet; they come with the "
-            "port's " + ", ".join(sorted({_LATER[f[2:].replace('-', '_')]
-                                          for f in later})) + " slice(s)")
-
-    import numpy as np
+def _engine(args, device, mesh=None):
+    """The launcher's model: lm_init on a generator seeded 0 on ``device``
+    (every rank of a mesh draws the same whole tree), then the engine."""
     import torch
 
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.models import lm_init
-    from repro_torch.serve import ServeEngine, resolve_device
+    from repro_torch.serve import ServeEngine
 
-    device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.frontend == "embeddings":
-        print(f"[serve] {args.arch} uses an embeddings frontend stub; "
-              "serving decodes tokens after an embedded prompt.")
     cfg = cfg.scaled(kv_cache_quant=args.kv_quant)
     params = lm_init(cfg, torch.Generator(device=device).manual_seed(0))
-    engine = ServeEngine(cfg, params, max_len=args.prompt_len + args.gen,
-                         packed=args.packed, device=device)
-    del params
+    return cfg, ServeEngine(cfg, params, max_len=args.prompt_len + args.gen,
+                            packed=args.packed, device=device, mesh=mesh)
+
+
+def _rank(rank: int, init_method: str, argv) -> None:
+    """A rank > 0 of ``--shards N``: join the world, build the same engine
+    and follow rank 0's calls until its engine closes."""
+    from repro_torch.distributed import serve_worker
+    from repro_torch.launch.mesh import init_serve_world, make_serve_mesh
+
+    args = _parser().parse_args(argv)
+    device = init_serve_world(rank, args.shards, init_method, args.device)
+    mesh = make_serve_mesh(args.shards, device)
+    try:
+        _, engine = _engine(args, device, mesh)
+        serve_worker.run(engine)
+    finally:
+        mesh.close()
+
+
+def _mesh_ranks(args, argv):
+    """Rank 0 of ``--shards N``: check the world fits, start the N-1 other
+    ranks (``torch.multiprocessing``, the same arguments) at a free
+    localhost port, and join the world with them. Returns (device, mesh,
+    the other ranks' processes)."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import (check_serve_world, init_serve_world,
+                                         make_serve_mesh)
+    from repro_torch.serve import resolve_device
+
+    if not (args.stream or args.continuous):
+        raise SystemExit("--shards requires --stream or --continuous (the "
+                         "paged serve path; generate() is single-device)")
+    try:
+        check_serve_world(args.shards, resolve_device(args.device),
+                          args.shards)
+    except ValueError as e:
+        raise SystemExit(f"[serve] {e}") from None
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        init = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank, args=(r, init, argv))
+             for r in range(1, args.shards)]
+    for p in procs:
+        p.start()
+    device = init_serve_world(0, args.shards, init, args.device)
+    mesh = make_serve_mesh(args.shards, device)
+    print(f"[serve] tensor-parallel mesh: {args.shards} shards over "
+          f"{mesh.device.type} (head-axis sharded weights + KV page pools)",
+          flush=True)
+    return device, mesh, procs
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    from repro_torch.serve import resolve_device
+
+    mesh, procs, engine = None, [], None
+    if args.shards:
+        device, mesh, procs = _mesh_ranks(args, argv)
+    else:
+        device = resolve_device(args.device)
+    try:
+        cfg, engine = _engine(args, device, mesh)
+        if cfg.frontend == "embeddings":
+            print(f"[serve] {args.arch} uses an embeddings frontend stub; "
+                  "serving decodes tokens after an embedded prompt.")
+        return _serve(engine, cfg, args, device)
+    finally:
+        if engine is not None:
+            engine.close()
+        if mesh is not None:
+            mesh.close()
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+
+
+def _serve(engine, cfg, args, device):
+    """Serve as the flags say: a chaos soak, the gateway, a stream, a
+    continuous pool, or one fixed batch."""
+    import numpy as np
 
     if args.chaos_soak:
         return _chaos(engine, args, cfg.vocab_size)

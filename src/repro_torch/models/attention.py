@@ -8,6 +8,12 @@ decode of continuous batching.
 Q heads are padded up to a multiple of 16 and the padded heads' outputs are
 masked to zero before the o-projection, because Boolean ±1 weights cannot
 encode zero rows (the JAX package's layout, kept so weights bridge over).
+
+Under serve-time tensor parallelism (``cfg.serve_tp``, a serve mesh's
+engine) the serving bodies run at the head-local counts of ``_tp_heads``
+on this rank's column slice of q/k/v and its KVp slice of the page pools,
+and gather the heads before the replicated ``wo`` (``_wo_project``)
+over the serve mesh the engine runs them under (``distributed.serving``).
 """
 from __future__ import annotations
 
@@ -16,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import PackedBool
+from repro_torch.distributed import active_mesh
 from repro_torch.kernels import paged_flash_decode, paged_prefix_attention
 from repro_torch.kernels.paged_attention import (  # noqa: F401 (reference names)
     flash_attention_abs, gather_prefix_rows)
@@ -36,20 +44,38 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig, lead=(),
     }
 
 
+def _tp_heads(cfg: ModelConfig, axis_size: int = 16):
+    """(hp_local, kvp_local): a rank's head counts under serve-time TP, the
+    global padded counts at ``serve_tp == 1``. Heads are group-major and
+    the engine checks that serve_tp divides kvp, so hp_local // kvp_local
+    is the global group size."""
+    return (cfg.heads_padded(axis_size) // cfg.serve_tp,
+            cfg.kv_heads_padded(axis_size) // cfg.serve_tp)
+
+
+def _proj_cols(cfg: ModelConfig, p, x):
+    """A q/k/v projection of this rank's columns, its serving GEMV planned
+    for the whole weight's columns (``packed_xnor_gemv``'s ``plan_n``)."""
+    w = p["w"]
+    n = (w.bits if isinstance(w, PackedBool) else w).shape[-1]
+    return proj_apply(cfg, p, x, plan_n=n * cfg.serve_tp)
+
+
 def _qkv(cfg: ModelConfig, p, x, positions, axis_size: int = 16):
-    """Project to (B,S,Hp,hd) q and (B,S,KVp,hd) k/v with RoPE applied."""
+    """Project to (B,S,Hp,hd) q and (B,S,KVp,hd) k/v with RoPE applied: the
+    head-local counts under serve-time TP (the fused wqkv is this rank's
+    shard-major [q_r|k_r|v_r] block)."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
-    hp = cfg.heads_padded(axis_size)
-    kvp = cfg.kv_heads_padded(axis_size)
+    hp, kvp = _tp_heads(cfg, axis_size)
     if "wqkv" in p:
         # packed serving layout (pack_weights): one GEMV for q, k and v
-        qkv = proj_apply(cfg, p["wqkv"], x)
+        qkv = _proj_cols(cfg, p["wqkv"], x)
         q, k, v = torch.split(qkv, [hp * hd, kvp * hd, kvp * hd], dim=-1)
     else:
-        q = proj_apply(cfg, p["wq"], x)
-        k = proj_apply(cfg, p["wk"], x)
-        v = proj_apply(cfg, p["wv"], x)
+        q = _proj_cols(cfg, p["wq"], x)
+        k = _proj_cols(cfg, p["wk"], x)
+        v = _proj_cols(cfg, p["wv"], x)
     q = rope(q.reshape(B, S, hp, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(B, S, kvp, hd), positions, cfg.rope_theta)
     return q, k, v.reshape(B, S, kvp, hd)
@@ -68,18 +94,42 @@ def _group(cfg: ModelConfig, axis_size: int = 16) -> int:
 
 
 def _head_mask(cfg: ModelConfig, out, axis_size: int = 16):
-    """Zero the padded q-head outputs (Boolean wo rows are ±1, not 0)."""
+    """Zero the padded q-head outputs (Boolean wo rows are ±1, not 0).
+    Under a serve mesh ``out`` holds this rank's head slice, so the test
+    is on GLOBAL head indices: rank × local heads + local index."""
     hp = cfg.heads_padded(axis_size)
     if hp == cfg.n_heads:
         return out
-    mask = (torch.arange(hp, device=out.device) < cfg.n_heads).to(out.dtype)
+    hp_l = hp // cfg.serve_tp
+    base = _serve_mesh(cfg).rank * hp_l if cfg.serve_tp > 1 else 0
+    mask = (torch.arange(base, base + hp_l, device=out.device)
+            < cfg.n_heads).to(out.dtype)
     return out * mask[None, None, :, None]
 
 
+def _serve_mesh(cfg: ModelConfig):
+    mesh = active_mesh()
+    if mesh is None or mesh.size != cfg.serve_tp:
+        raise RuntimeError(f"serve_tp={cfg.serve_tp} outside a serve mesh of "
+                           "that size (ServeEngine(mesh=) runs the model)")
+    return mesh
+
+
 def _wo_project(cfg: ModelConfig, p_wo, out):
-    """o-projection. The JAX package all-gathers the head activations here
-    under serve-time tensor parallelism; the port serves on one card, which
-    is its ``serve_tp == 1`` path."""
+    """o-projection of (B, S, hp_local·hd) head activations. Under
+    serve-time TP the heads are all-gathered first (shard-major is the
+    global head order) and the REPLICATED wo is applied to the whole
+    activation, not a partial wo summed across ranks: that sum would
+    reassociate wo's fan-in and ``sign()`` turns its ulps into token
+    flips, where the gather keeps the projection's arithmetic the
+    unsharded graph's. The gathered bytes are O(B·hp·hd) a step, noise
+    beside the pool reads sharding divides. ``serve_tp == 1`` (a mesh of
+    one too) is the unsharded path, as in the JAX package: a one-rank
+    gather would only copy, at ~0.23 ms of host a call on the card."""
+    if cfg.serve_tp > 1:
+        B, S, _ = out.shape
+        out = _serve_mesh(cfg).all_gather_heads(
+            out.reshape(B, S, -1, cfg.head_dim_), axis=2).reshape(B, S, -1)
     return proj_apply(cfg, p_wo, out)
 
 
@@ -245,8 +295,8 @@ def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int,
                          device, lead=(), axis_size: int = 16):
     """Zeroed {"k", "v"}: (*lead, batch, max_len, KVp, hd) in cfg.dtype, or
     int8 with fp32 {"k_scale", "v_scale"}: (*lead, batch, max_len, KVp)
-    under cfg.kv_cache_quant."""
-    shape = (*lead, batch, max_len, cfg.kv_heads_padded(axis_size),
+    under cfg.kv_cache_quant; KVp head-local under serve-time TP."""
+    shape = (*lead, batch, max_len, _tp_heads(cfg, axis_size)[1],
              cfg.head_dim_)
     dtype = torch.int8 if cfg.kv_cache_quant else cfg.dtype
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -337,10 +387,14 @@ def attention_decode_paged(cfg: ModelConfig, p, x, cache, block_table, pos,
     0 is the reserved garbage page: idle lanes point at it, and a lane past
     its TABLE is routed to it explicitly — clipping the column would wrap
     the write onto the lane's last real page. Returns (out, cache).
+
+    Under serve-time TP the pool leaves are this rank's KVp slices and the
+    kernel reads only head-local pages, its page shares those of the
+    unsharded launch (``plan_kv``).
     """
     B = x.shape[0]
     hd = cfg.head_dim_
-    hp, kvp = cfg.heads_padded(), cfg.kv_heads_padded()
+    hp, kvp = _tp_heads(cfg)
     page = cache["k"].shape[1]
     C = block_table.shape[1]
     q, k_new, v_new = _qkv(cfg, p, x, pos[:, None])
@@ -365,7 +419,7 @@ def attention_decode_paged(cfg: ModelConfig, p, x, cache, block_table, pos,
         qg, cache["k"], cache["v"], block_table, pos,
         cache.get("k_scale"), cache.get("v_scale"),
         window=cfg.sliding_window if local else 0,
-        softcap_val=cfg.attn_logit_softcap)
+        softcap_val=cfg.attn_logit_softcap, plan_kv=cfg.kv_heads_padded())
     out = out.reshape(B, 1, hp, hd).to(x.dtype)
     out = _head_mask(cfg, out)
     return _wo_project(cfg, p["wo"], out.reshape(B, 1, hp * hd)), cache

@@ -157,7 +157,7 @@ def _apply_block_prefill(cfg: ModelConfig, bp, role, x, positions,
         return x, entry, snap
     local = role["mixer"] == "attn_local"
     q, k, v = A._qkv(cfg, bp["attn"], h, positions)
-    hp, hd = cfg.heads_padded(), cfg.head_dim_
+    hp, hd = A._tp_heads(cfg)[0], cfg.head_dim_
     if prefix_pages is not None:
         out = A.flash_prefix_attention_paged(
             cfg, prefix_pages, prefix_ids, q, k, v, offset, prefix_len, length,

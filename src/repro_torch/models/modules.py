@@ -24,10 +24,11 @@ from repro_torch.core import (PackedBool, boolean_dense,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The architecture and training fields of the JAX package's
-    ``ModelConfig``. Its mesh and sharding fields have no counterpart yet;
-    ``reduce_bf16``, ``remat_policy="save_block_outs"`` and
-    ``block_grad_barriers`` exist for cross-shard and XLA scheduling and
-    raise ``NotImplementedError`` until the multi-device slice."""
+    ``ModelConfig``, and ``serve_tp``, its serve-time tensor parallelism.
+    Its training-mesh fields have no counterpart yet; ``reduce_bf16``,
+    ``remat_policy="save_block_outs"`` and ``block_grad_barriers`` exist
+    for cross-shard training and XLA scheduling and raise
+    ``NotImplementedError`` until the multi-device training slice."""
     name: str
     family: str                    # dense | ssm | moe | hybrid | audio | vlm
     n_layers: int
@@ -87,6 +88,10 @@ class ModelConfig:
     kv_cache_quant: bool = False   # int8 KV cache (kv-quant slice)
     reduce_bf16: bool = False      # bf16 cross-shard partials: multi-device
     block_grad_barriers: bool = False  # XLA scheduling: multi-device
+    serve_tp: int = 1              # serve-time tensor parallelism over the
+    # 1-D ("model",) serve mesh: the model body runs at the head-local
+    # counts hp/serve_tp and kvp/serve_tp, and gathers the heads before the
+    # replicated wo (attention._wo_project); set by the engine from its mesh
 
     def __post_init__(self):
         if self.reduce_bf16 or self.block_grad_barriers \
@@ -94,7 +99,7 @@ class ModelConfig:
             raise NotImplementedError(
                 "reduce_bf16, block_grad_barriers and remat_policy="
                 f"{self.remat_policy!r} serve cross-shard training; they "
-                "come with the multi-device slice")
+                "come with the multi-device training slice")
 
     # -- derived -----------------------------------------------------------
     @property
@@ -182,13 +187,17 @@ def head_init(gen: torch.Generator, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # Projection dispatch: packed Boolean, int8 Boolean, or FP — one call site.
 # ---------------------------------------------------------------------------
-def proj_apply(cfg: ModelConfig, p, x, *, scale: Optional[float] = None):
+def proj_apply(cfg: ModelConfig, p, x, *, scale: Optional[float] = None,
+               plan_n: Optional[int] = None):
     """Apply a projection. Boolean path: counting GEMM, then the
-    deterministic 1/√fan_in pre-activation normalizer (App C.3)."""
+    deterministic 1/√fan_in pre-activation normalizer (App C.3).
+    ``plan_n``: a packed shard's whole column count, so the serving GEMV
+    sums each column as the unsharded launch does
+    (``packed_xnor_gemv``)."""
     w = p["w"]
     b = p.get("b")
     if isinstance(w, PackedBool):
-        y = boolean_dense_inference(x, w).to(x.dtype)
+        y = boolean_dense_inference(x, w, plan_n=plan_n).to(x.dtype)
         s = (1.0 / math.sqrt(w.k)) if scale is None else scale
         y = y * torch.tensor(s, dtype=y.dtype)
         if b is not None:

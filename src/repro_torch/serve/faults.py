@@ -42,9 +42,11 @@ request's greedy stream stays bit-identical to a fault-free run.
                    victim (the newest active request) fails, co-resident
                    lanes decode on bit-identically. It is not mapped to a
                    real ``torch.cuda.OutOfMemoryError``
-  shard_loss       a mesh device dropping mid-segment: kept in ``SITES``
-                   so schedules serialise as the JAX package's do; nothing
-                   polls it until the multi-device slice
+  shard_loss       a mesh device dropping mid-segment (``ServeSession``
+                   on a serve mesh's engine, polled first at the segment):
+                   every active request FAILS with ``shard-lost:shardN``
+                   and ``stats()["mesh"]`` stays unhealthy; never polled
+                   on one device
   ckpt_corrupt     checkpoint-load byte corruption (``checkpoint/``): one
                    byte of a leaf's stream flipped before the crc32 walk,
                    which raises ``CheckpointCorruption``

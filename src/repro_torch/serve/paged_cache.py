@@ -11,6 +11,12 @@ lanes, ...), never paged, since it does not grow with the context;
 physical page 0 is RESERVED as the garbage page — idle and overrun lanes
 point at it, so their writes never touch pages owned by live requests.
 
+Under a serve mesh there is still ONE host allocator (rank 0's scheduler):
+page ids are the same on every rank, and each rank's pool holds only its
+head-local bytes of every page (``paged_pool_init`` at the engine's
+``serve_tp`` config: KVp/serve_tp heads; ``launch.shardings.
+serve_pool_specs``), so a page id placed once is placed on every shard.
+
 ``CachePool`` is the host-side pool of preallocated cache trees that the
 engine reuses across calls (the contiguous caches of ``generate``, keyed by
 batch size): an entry is *taken* (removed) before a call that writes it and

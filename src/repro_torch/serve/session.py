@@ -56,6 +56,14 @@ slot against the holders' own books after each step. ``host_page_budget``
 attaches the host swap tier (serve/swap.py): swap preemption with a
 bit-exact resume, prefix demotion, and the index parked on the engine at
 ``close()`` for the next session of the same geometry.
+
+On a serve mesh's engine the session runs on rank 0 and is the one
+scheduler of the whole mesh: tensor parallelism shards heads, not lanes, so
+every lane sits on shard group 0 (``placement()``) and each admission,
+shed and deadline is decided once. An injected ``shard_loss`` (polled first
+at a segment) fails every active request with ``shard-lost:shardN`` and
+leaves ``stats()["mesh"]`` unhealthy for good; the host swap tier is
+refused there, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -243,6 +251,11 @@ class ServeSession:
         sheds)."""
         if segment < 1 or page_size < 1 or lanes < 1:
             raise ValueError("segment, page_size and lanes must be >= 1")
+        if host_page_budget is not None and engine.mesh is not None:
+            raise NotImplementedError(
+                "host_page_budget under a serve mesh is not supported yet: "
+                "sharded attention leaves need per-shard host slots "
+                "(ROADMAP follow-up)")
         self.engine = engine
         self.cfg = engine.cfg
         self.lanes = lanes
@@ -295,6 +308,8 @@ class ServeSession:
             if buckets else None
         self._pool = None
         self._closed = False
+        # shard-loss drill history (mesh sessions): the shards lost so far
+        self._lost_shards: list = []
         self._next_rid = 0
         self._handles = {}
         self._last_toks = None
@@ -416,7 +431,7 @@ class ServeSession:
             self.prefix.demote_all(self.sched.alloc)
             self.engine._prefix_store[self._store_key] = (self.prefix,
                                                           self.swap_mgr)
-        self._pool = None
+        self._drop_pool()
         self._closed = True
 
     def audit(self) -> dict:
@@ -459,8 +474,8 @@ class ServeSession:
     def stats(self) -> dict:
         """One host-side snapshot of every serving counter, with the JAX
         package's keys (scheduler lifecycle counters, queue and lane
-        occupancy, pool pages, the prefix and swap counters; ``mesh`` is
-        None on one device) and ``work`` beside them."""
+        occupancy, pool pages, the prefix and swap counters, the mesh's
+        health) and ``work`` beside them."""
         alloc = self.sched.alloc
         return {
             "sched": dict(self.sched.stats),
@@ -473,10 +488,29 @@ class ServeSession:
             if self.prefix is not None else None,
             "swap": self.swap_mgr.stats_dict()
             if self.swap_mgr is not None else None,
-            "mesh": None,
+            "mesh": self._mesh_stats(),
             "work": {k: (dict(v) if isinstance(v, (dict, Counter)) else v)
                      for k, v in self.work.items()},
         }
+
+    def _mesh_stats(self) -> Optional[dict]:
+        """Mesh health (None on one device). ``healthy`` turns False after
+        a contained shard loss and stays so: a real deployment rebuilds the
+        mesh before it trusts the instance again, though this drill goes on
+        serving on the intact ranks."""
+        if self.engine.mesh is None:
+            return None
+        return {"shards": self.engine.tp,
+                "shard_loss_events": len(self._lost_shards),
+                "lost": list(self._lost_shards),
+                "healthy": not self._lost_shards}
+
+    def placement(self) -> dict:
+        """{lane: shard group}: tensor parallelism places every lane on the
+        ONE group spanning the whole mesh (each rank holds the lane's
+        head-local pages), so every decision of the scheduler is made once,
+        mesh-wide; group 0 until data-parallel replicas add others."""
+        return {lane: 0 for lane in range(self.lanes)}
 
     def __enter__(self):
         return self
@@ -501,6 +535,11 @@ class ServeSession:
         if self._pool is None:
             self._pool = self.engine.init_pool(self.n_pages, self.page_size,
                                                self.lanes)
+
+    def _drop_pool(self):
+        if self._pool is not None:
+            self.engine.release_pool(self._pool)
+        self._pool = None
 
     def _reset_lane(self, lane: int) -> None:
         """Point a released lane at the garbage page: its in-flight segment
@@ -685,28 +724,10 @@ class ServeSession:
     def _dispatch_segment(self, sampled: bool) -> None:
         """``segment`` decode steps over the full lane pool, the pool
         updated in place, the lane mirrors advanced."""
-        dev = self.engine.device
-        cache = {"blocks": self._pool,
-                 "block_table": torch.from_numpy(self._bt).to(dev),
-                 "pos": torch.from_numpy(self._pos).to(dev)}
-        tok = torch.from_numpy(self._cur).to(dev)
-        temps = keys = steps = None
-        if sampled:
-            temps = torch.from_numpy(self._temps).to(dev)
-            keys = torch.from_numpy(self._keys.astype(np.int64)).to(dev)
-            steps = torch.from_numpy(self._steps).to(dev)
-        toks = []
-        for i in range(self.segment):
-            logits, cache = self.engine.decode_step(cache, tok)
-            if sampled:
-                tok = sample_tokens(self.cfg, logits[:, -1], temps, keys,
-                                    steps + (i + 1))
-            else:
-                tok = sample_tokens(self.cfg, logits[:, -1])
-            toks.append(tok[:, 0])
+        self._last_toks, self._cur = self.engine.decode_segment(
+            self._pool, self._bt, self._pos, self._cur, self._temps,
+            self._keys, self._steps, self.segment, sampled)
         self.work["decode_steps"] += self.segment
-        self._last_toks = torch.stack(toks).cpu().numpy()
-        self._cur = tok.cpu().numpy()
         self._pos += self.segment
         self._steps += self.segment
 
@@ -724,7 +745,23 @@ class ServeSession:
             self._reset_lane(lane)
         if self.prefix is not None:
             self.prefix.flush(self.sched.alloc)
-        self._pool = None
+        self._drop_pool()
+
+    def _contain_shard_loss(self) -> None:
+        """A mesh device dropped mid-segment. Every head is sharded across
+        the mesh, so EVERY active lane's next segment needs the lost shard:
+        fail them all with the typed ``shard-lost`` reason rather than
+        stream bytes computed on a partial mesh. Pending requests are
+        untouched and the session keeps admitting (the drill's mesh still
+        serves), but ``stats()["mesh"]`` stays degraded."""
+        shard = len(self._lost_shards) % max(self.engine.tp, 1)
+        reason = reasons.format_reason(reasons.SHARD_LOST, f"shard{shard}")
+        for lane in list(self.sched.active):
+            req = self.sched.fail(lane, reason)
+            self._handles.pop(req.rid, None)
+        for lane in self.sched.drain_freed_lanes():
+            self._reset_lane(lane)
+        self._lost_shards.append(shard)
 
     def _contain_oom(self) -> None:
         """A simulated out-of-memory at the segment dispatch, polled on the
@@ -747,8 +784,9 @@ class ServeSession:
         key at its own step (greedy lanes take the argmax); an all-greedy
         segment does no random work. Returns False when no lane is live.
 
-        Faults: ``device_oom`` and ``kernel_dispatch`` are polled on the
-        host before the segment's first launch. An injected dispatch fault
+        Faults: ``shard_loss`` (under a mesh), ``device_oom`` and
+        ``kernel_dispatch`` are polled on the host before the segment's
+        first launch. An injected dispatch fault
         is contained by re-issuing the same segment, once, on the same
         routes (no victim, no stream changes); a REAL exception inside the
         segment goes to ``_contain_pool_loss``."""
@@ -756,6 +794,10 @@ class ServeSession:
             if self.sched.pending:   # unreachable given check_fits at submit
                 raise RuntimeError("scheduler deadlock: pending requests "
                                    "but nothing admissible")
+            return False
+        if self.faults is not None and self.engine.mesh is not None \
+                and self.faults.should_fire("shard_loss"):
+            self._contain_shard_loss()
             return False
         if self.faults is not None and self.faults.should_fire("device_oom"):
             self._contain_oom()

@@ -367,12 +367,15 @@ def test_launcher_modes_on_cpu(mode):
 
 
 def test_launcher_refuses_later_slices_flags():
-    """Only the multi-device slice's ``--shards`` is refused; the gateway's
-    flags parse with the JAX launcher's defaults (``--http`` is served in
-    tests/test_torch_gateway_protocol.py)."""
-    with pytest.raises(SystemExit, match="not ported yet"):
+    """No flag of the JAX launcher is refused as a later slice's any more:
+    ``--shards`` is served (tests/test_torch_mesh_overload.py) and, as in
+    the JAX launcher, refused only without ``--stream``/``--continuous``;
+    the gateway's flags parse with the JAX launcher's defaults (``--http``
+    is served in tests/test_torch_gateway_protocol.py)."""
+    with pytest.raises(SystemExit, match="--shards requires --stream"):
         launcher.main(["--arch", "qwen2.5-14b", "--smoke", "--device",
                        "cpu", "--shards", "2"])
+    assert launcher._parser().parse_args(["--arch", "x"]).shards == 0
     args = launcher._parser().parse_args(
         ["--arch", "qwen2.5-14b", "--http", "8080", "--metrics-tenants", "4",
          "--watchdog-timeout", "5", "--host", "0.0.0.0"])

@@ -39,8 +39,8 @@ def test_import_loads_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(SUBMODULES) >= 20
-    # the training, prefix-cache, vision, gateway and energy slices' modules
-    # are among those imported
+    # the training, prefix-cache, vision, gateway, energy and serve-mesh
+    # slices' modules are among those imported
     assert {"repro_torch.core.optimizer", "repro_torch.kernels.boolean_bwd",
             "repro_torch.train.step", "repro_torch.train.loop",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
@@ -57,7 +57,10 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.serve.swap", "repro_torch.serve.chaos",
             "repro_torch.gateway", "repro_torch.gateway.server",
             "repro_torch.gateway.metrics", "repro_torch.energy",
-            "repro_torch.energy.model"} \
+            "repro_torch.energy.model", "repro_torch.distributed",
+            "repro_torch.distributed.context",
+            "repro_torch.distributed.serve_worker",
+            "repro_torch.launch.mesh", "repro_torch.launch.shardings"} \
         <= set(SUBMODULES)
 
 

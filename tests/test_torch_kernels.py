@@ -285,9 +285,9 @@ def test_every_serving_projection_takes_the_tensor_core_route(monkeypatch):
             assert gemv_route(x, w) == "tensor_cores", (M, K, N)
     calls = []
 
-    def spy(x, w, *, k_valid):
+    def spy(x, w, *, k_valid, plan_n=None):
         calls.append((x.dtype, gemv_route(x, w)))
-        return packed_xnor_gemv(x, w, k_valid=k_valid)
+        return packed_xnor_gemv(x, w, k_valid=k_valid, plan_n=plan_n)
 
     monkeypatch.setattr(TBL, "packed_xnor_gemv", spy)
     rng = np.random.default_rng(5)
