@@ -161,13 +161,14 @@ wall seconds, each on a line of its own:
               bf16 roundings) and to the exact attention over its own
               operands (tight enough that an fp16 or int8 rounding of the
               kernel's output fails it, asserted);
-10. falcon -- falcon-mamba-7b at its published widths (64 mamba blocks,
-              d_model 4096, d_inner 8192, state 16, conv 4, dt_rank 256,
-              vocab 65024, bf16): lm_init on a seeded generator, packed
+10. falcon -- falcon-mamba-7b at its published widths, depth cut to 32
+              of its 64 mamba blocks (FALCON_LAYERS; d_model 4096,
+              d_inner 8192, state 16, conv 4, dt_rank 256, vocab 65024,
+              bf16): lm_init on a seeded generator, packed
               (pack_weights(consume=True)), served through
               ServeEngine(packed=True, max_len=1024).session: 8 lanes, 16
               greedy requests of phase 3's prompt lengths, 32 tokens each,
-              some submitted mid-flight. Launch counters exact (5 x 64 GEMV
+              some submitted mid-flight. Launch counters exact (5 x 32 GEMV
               a decode step and a prefill of <= 256 rows, no other kernel;
               its five shapes, x_proj's N = 288 and dt_proj's K = 256
               among them, bit-exact in phase 2), every launch on the
@@ -196,16 +197,17 @@ wall seconds, each on a line of its own:
               captured and restored bit for bit, streams card vs CPU);
               musicgen-medium's and internvl2-26b's lm_forward logits on
               embeddings within phase 4's tolerance.
-12. moonshot -- moonshot-v1-16b-a3b at its published widths (48 layers,
-              d_model 2048, 16 q / 16 KV heads of 128, 64 experts top-6,
-              d_ff 1408, vocab 163840, bf16): lm_init on a seeded
+12. moonshot -- moonshot-v1-16b-a3b at its published widths, depth cut
+              to 24 of its 48 layers (MOON_LAYERS; d_model 2048, 16 q /
+              16 KV heads of 128, 64 experts top-6, d_ff 1408, vocab
+              163840, bf16): lm_init on a seeded
               generator, packed (pack_weights(consume=True); the int8
               experts stay the plain torch products of models/moe.py),
               served through ServeEngine(packed=True, max_len=1024).session:
               8 lanes, greedy, phase 3's first 8 prompt lengths, 32 tokens
-              each. Launch counts equal the printed formula (2 x 48 GEMV a
-              decode step and a prefill of <= 256 rows, 48 paged decode a
-              step, 48 flash a prefill), every launch on the tensor-core
+              each. Launch counts equal the printed formula (2 x 24 GEMV a
+              decode step and a prefill of <= 256 rows, 24 paged decode a
+              step, 24 flash a prefill), every launch on the tensor-core
               routes; init + pack peak, resident memory, decode step,
               tokens/s, TTFT, device time by group for an admission round
               and an 8-step segment; moe_block_check (two MoE layers,
@@ -286,6 +288,31 @@ wall seconds, each on a line of its own:
               --packed --stream --shards 1 as a process of its own, its
               streams those of the same run in process, --shards 2 exiting
               non-zero with the oversubscription message.
+16. train mesh -- multi-device training over torch.distributed on one
+              card: make_local_mesh(1), a one-rank NCCL ("data", "model")
+              world, and gemma2-2b at published widths (bf16, phase 5's
+              traffic and seed) through make_train_step(grad_shardings=)
+              and TrainLoop(shardings=), 2 warm-up and 3 timed steps in
+              turns with an unsharded run of the same steps: every loss
+              and every leaf of params and optimizer state torch.equal
+              after every step, the weight backward's launches counted
+              (182 a microbatch, all on the tensor-core route), the step
+              times and the peak memory; 3 steps of
+              ef_signsgd_compressed(hybrid_optimizer(...), ("data",)),
+              layer 0's decoded votes and residuals held to
+              compress_votes on the CPU (signs exact, the scale within
+              1e-5, the residual within one bf16 ulp), flips, the
+              compression's device ms and host us a step, the residual
+              state's bytes, the peak and the int32 vote payload; one NCCL
+              all-reduce of layer 0's fp32 grads and of its int32 votes,
+              timed; the weight-backward launches a rank of a larger mesh
+              makes (tp 2 and 4: column slices of the q/k/v votes
+              torch.equal to the full launch's; dp 2 and 4: row blocks of
+              the seven projections summed within tolerance), rank 0's
+              timed beside its bound; and python -m
+              repro_torch.launch.train --mesh local as a process of its
+              own (exit 0), --model-axis 2 exiting non-zero with the
+              divisibility message.
 
 The last lines are one JSON object of kernel results, the card's name and
 power limit as nvidia-smi reports them, and the result object.
@@ -3217,6 +3244,9 @@ MAMBA_GEMV_SHAPES = (("in_x", 4096, 8192), ("in_z", 4096, 8192),
                      ("x_proj", 8192, 288), ("dt_proj", 256, 8192),
                      ("out_proj", 8192, 4096))
 MAMBA_TOKENS = 32
+# phase 10 serves the first 32 of falcon-mamba-7b's 64 blocks at published
+# widths: the depth is cut to keep the whole script well inside its time
+FALCON_LAYERS = 32
 MAMBA_KERNEL_GROUPS = (("packed_xnor_gemv", ("xnor_gemv",)),
                        ("gemm (head; projections of > 256 rows, cuBLAS)",
                         ("gemm", "sm90_", "cutlass", "nvjet")))
@@ -3476,21 +3506,22 @@ def falcon_prefix(torch, eng, seed: int):
 
 
 def serve_falcon(torch, seed: int):
-    """Phase 10: falcon-mamba-7b at its published widths (64 mamba blocks,
-    d_model 4096, d_inner 8192, state 16, conv 4, dt_rank 256, vocab
-    65024, bf16), packed, through ServeEngine.session: 8 lanes, greedy, 16
-    requests of phase 3's prompt lengths, 32 tokens each, some submitted
-    mid-flight. Launch counts exact (5 x 64 GEMV a decode step and a
-    prefill of <= 256 rows, every one on the tensor-core route, no other
-    kernel); decode step, tokens/s, TTFT, memory and one profiled 8-step
-    segment; ssm_state_check; the prefix round."""
+    """Phase 10: falcon-mamba-7b at its published widths, the first
+    FALCON_LAYERS of its 64 mamba blocks (d_model 4096, d_inner 8192, state
+    16, conv 4, dt_rank 256, vocab 65024, bf16), packed, through
+    ServeEngine.session: 8 lanes, greedy, 16 requests of phase 3's prompt
+    lengths, 32 tokens each, some submitted mid-flight. Launch counts exact
+    (5 x L GEMV a decode step and a prefill of <= 256 rows, every one on
+    the tensor-core route, no other kernel); decode step, tokens/s, TTFT,
+    memory and one profiled 8-step segment; ssm_state_check; the prefix
+    round."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS
     from repro_torch.models import lm_init
     from repro_torch.serve import RequestStatus, SamplingParams, ServeEngine, pack_weights
 
-    cfg = get_config("falcon-mamba-7b")
+    cfg = get_config("falcon-mamba-7b").scaled(n_layers=FALCON_LAYERS)
     L = cfg.n_layers
     gc_collect(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -3894,6 +3925,9 @@ MOON_KERNEL_GROUPS = (
      ("one_hot", "cumsum", "scan", "topk", "softmax", "sort", "index",
       "scatter", "gather")))
 MOON_REST = "other elementwise (norms, rope, activations, sampling)"
+# phase 12 serves the first 24 of moonshot's 48 layers at published widths:
+# the depth is cut to keep the whole script well inside its time
+MOON_LAYERS = 24
 MOE_TOL = 1e-2      # relative RMS of a block output against its recompute
 MOE_CHECK_LEN = 512  # the prefill width of moe_block_check and its timings
 
@@ -3903,7 +3937,7 @@ def _rel_rms(a, b) -> float:
     return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
 
 
-def moe_block_check(torch, eng, prompt, layers=(0, 24)):
+def moe_block_check(torch, eng, prompt, layers=(0, MOON_LAYERS // 2)):
     """One MoE layer at published widths on the card, teacher-forced: each
     checked layer takes the input its MoE received in a prefill of
     ``prompt`` through the served weights. (1) The router's top-6 equals a
@@ -4014,16 +4048,16 @@ def moe_block_check(torch, eng, prompt, layers=(0, 24)):
 
 
 def serve_moonshot(torch, seed: int):
-    """Phase 12: moonshot-v1-16b-a3b at its published widths (48 layers,
-    d_model 2048, 16 q / 16 KV heads of 128, 64 experts top-6, d_ff 1408,
-    vocab 163,840, bf16), packed (its wqkv and wo; the experts stay int8
-    and go through the plain torch products of models/moe.py, as the JAX
-    package leaves them to XLA), through ServeEngine.session: 8 lanes,
-    greedy, phase 3's first 8 prompt lengths, 32 tokens each. Launch
-    counts equal to the printed formula, every launch on the tensor-core
-    routes; init + pack peak, resident memory, decode step, tokens/s,
-    TTFT, device time by group for an admission round and an 8-step
-    segment; moe_block_check."""
+    """Phase 12: moonshot-v1-16b-a3b at its published widths, the first
+    MOON_LAYERS of its 48 layers (d_model 2048, 16 q / 16 KV heads of 128,
+    64 experts top-6, d_ff 1408, vocab 163,840, bf16), packed (its wqkv and
+    wo; the experts stay int8 and go through the plain torch products of
+    models/moe.py, as the JAX package leaves them to XLA), through
+    ServeEngine.session: 8 lanes, greedy, phase 3's first 8 prompt lengths,
+    32 tokens each. Launch counts equal to the printed formula, every
+    launch on the tensor-core routes; init + pack peak, resident memory,
+    decode step, tokens/s, TTFT, device time by group for an admission
+    round and an 8-step segment; moe_block_check."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS
@@ -4031,7 +4065,7 @@ def serve_moonshot(torch, seed: int):
     from repro_torch.serve import (RequestStatus, SamplingParams, ServeEngine,
                                    pack_weights)
 
-    cfg = get_config("moonshot-v1-16b-a3b")
+    cfg = get_config("moonshot-v1-16b-a3b").scaled(n_layers=MOON_LAYERS)
     L = cfg.n_layers
     gc_collect(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -5501,6 +5535,441 @@ def serve_mesh(torch, seed: int, ref):
             "refusal": refusal, "launcher": launcher, "device": smi_line()}
 
 
+# ---------------------------------------------------------------------------
+# 16. the training mesh (data and head parallelism over torch.distributed)
+# ---------------------------------------------------------------------------
+MESH_WARMUP, MESH_TIMED, EF_STEPS = 2, 3, 3
+# the head- and data-parallel shard counts whose rank-local weight-backward
+# launches phase 16 holds to the full launch
+TRAIN_TP, TRAIN_DP = (2, 4), (2, 4)
+TRAIN_LAUNCH_ARGS = ("--arch", "gemma2-2b", "--mesh", "local", "--steps", "2",
+                     "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                     "--microbatches", str(TRAIN_MICRO))
+# the EF scale: a mean of |g + e| over a stacked leaf (up to 276 M terms)
+# summed in another order on the card and the CPU
+EF_SCALE_RTOL = 1e-5
+
+
+def _state_leaves(tree):
+    """The tensor leaves of a training state ({"params", "opt"}) in the
+    checkpoint's key order."""
+    from repro_torch.checkpoint.manager import _flatten
+    return _flatten(tree)
+
+
+def _states_equal(torch, a, b) -> bool:
+    fa, fb = _state_leaves(a), _state_leaves(b)
+    return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k])
+                                          for k in fa)
+
+
+def weight_bwd_slices(torch, flush, gen):
+    """The weight-backward launches a rank of a larger training mesh makes
+    at one microbatch's shapes (1,024 tokens, bf16): at tp 2 and 4 a rank's
+    column slice of the q/k/v votes (its heads' columns of z), each
+    ``torch.equal`` to the full launch's columns (the kernel sums each
+    output over the tokens in a fixed order, with no split of K that the
+    columns could change); at dp 2 and 4 a rank's row block of each of the
+    layer's seven projections, the blocks' votes summed in rank order
+    within the fp32 tolerance of check_weight_bwd. Rank 0's launches are
+    timed beside their bound."""
+    from repro_torch.kernels import boolean_weight_bwd
+
+    B, rows = WBWD_TOKENS, []
+    ops = {}
+    for name, M, N in WBWD_SHAPES:
+        x = torch.randn((B, M), generator=gen, device="cuda").to(torch.bfloat16)
+        z = torch.randn((B, N), generator=gen, device="cuda").to(torch.bfloat16)
+        ops[name] = (x, z, boolean_weight_bwd(x, z))
+    torch.cuda.synchronize()
+    for tp in TRAIN_TP:
+        ms = b_ms = 0.0
+        by = []
+        for name in ("wq", "wk", "wv"):
+            x, z, full = ops[name]
+            N = z.shape[1]
+            for r in range(tp):
+                zr = z[:, r * N // tp:(r + 1) * N // tp].contiguous()
+                part = boolean_weight_bwd(x, zr)
+                same = bool(torch.equal(part, full[:, r * N // tp:
+                                                   (r + 1) * N // tp]))
+                assert same, ("weight bwd column slice", name, tp, r)
+                if r == 0:
+                    ms += time_ms(torch, lambda: boolean_weight_bwd(x, zr),
+                                  flush)
+                    t, b = bound(x.numel() * 2 + zr.numel() * 2
+                                 + x.shape[1] * zr.shape[1] * 4,
+                                 2.0 * B * x.shape[1] * zr.shape[1], "bf16")
+                    b_ms += t
+                    by.append(b)
+        rows.append({"split": "tp", "n": tp, "projections": "wq wk wv",
+                     "equal": True, "ms": ms, "bound_ms": b_ms,
+                     "bound_by": max(set(by), key=by.count)})
+    for dp in TRAIN_DP:
+        ms = b_ms = worst = 0.0
+        by = []
+        for name, M, N in WBWD_SHAPES:
+            x, z, full = ops[name]
+            acc = None
+            for r in range(dp):
+                xr = x[r * B // dp:(r + 1) * B // dp].contiguous()
+                zr = z[r * B // dp:(r + 1) * B // dp].contiguous()
+                part = boolean_weight_bwd(xr, zr)
+                acc = part if acc is None else acc + part
+                if r == 0:
+                    ms += time_ms(torch, lambda: boolean_weight_bwd(xr, zr),
+                                  flush)
+                    t, b = bound(xr.numel() * 2 + zr.numel() * 2 + M * N * 4,
+                                 2.0 * (B // dp) * M * N, "bf16")
+                    b_ms += t
+                    by.append(b)
+            torch.cuda.synchronize()
+            err = (acc - full).abs().max().item()
+            tol = 1e-5 * full.abs().max().item() + 1e-4
+            assert err <= tol, ("weight bwd row blocks", name, dp, err, tol)
+            worst = max(worst, err / tol)
+        rows.append({"split": "dp", "n": dp, "projections": "all seven",
+                     "max_err_over_tol": worst, "ms": ms, "bound_ms": b_ms,
+                     "bound_by": max(set(by), key=by.count)})
+    qkv = [ops[n][:2] for n in ("wq", "wk", "wv")]
+    full_ms = sum(time_ms(torch, lambda: boolean_weight_bwd(x, z), flush)
+                  for x, z in qkv)
+    full_bound = sum(bound(x.numel() * 2 + z.numel() * 2
+                           + x.shape[1] * z.shape[1] * 4,
+                           2.0 * B * x.shape[1] * z.shape[1], "bf16")[0]
+                     for x, z in qkv)
+    for r in rows:
+        print(f"  {r['split']} {r['n']}: rank 0's weight-backward launches "
+              f"({r['projections']}) {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); "
+              + ("every column slice torch.equal to the full launch's"
+                 if r["split"] == "tp" else
+                 f"row blocks summed in rank order within "
+                 f"{r['max_err_over_tol']:.3f} of the tolerance"))
+    print(f"  the full q/k/v launches {full_ms:.4f} ms, bound "
+          f"{full_bound:.4f} ms")
+    return rows, full_ms, full_bound
+
+
+def train_mesh_launcher(torch):
+    """``python -m repro_torch.launch.train --arch gemma2-2b --mesh local``
+    as a process of its own (a one-rank NCCL world it starts), exit 0; then
+    ``--model-axis 2`` on that world of one, refused with the divisibility
+    message."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *TRAIN_LAUNCH_ARGS], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    proc_s = time.perf_counter() - t0
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "[train] mesh {'data': 1, 'model': 1} over cuda" in res.stdout
+    summary = [ln for ln in res.stdout.splitlines() if ln.startswith("[train]")]
+    bad = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *TRAIN_LAUNCH_ARGS, "--model-axis", "2"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    msg = bad.stderr.strip().splitlines()[-1] if bad.stderr.strip() else ""
+    assert bad.returncode != 0 and "not divisible by model_axis=2" in msg, \
+        (bad.returncode, bad.stderr[-2000:])
+    print(f"  launcher --mesh local as a process: exit 0 in {proc_s:.1f} s "
+          f"({' | '.join(summary)}); --model-axis 2 exit {bad.returncode}: "
+          f"{msg}")
+    return {"exit": res.returncode, "process_s": proc_s, "summary": summary,
+            "model_axis2_exit": bad.returncode, "model_axis2_message": msg}
+
+
+def train_mesh(torch, seed: int):
+    """Phase 16: gemma2-2b at published widths trained through a one-rank
+    NCCL training mesh (``make_local_mesh(1)``): (a) ``make_train_step(
+    grad_shardings=)`` + ``TrainLoop(shardings=)`` against an unsharded
+    run of the same steps, in turns, every loss and every leaf of params
+    and optimizer state ``torch.equal`` after every step, the weight
+    backward's launches counted; (b) 3 steps of ``ef_signsgd_compressed(
+    hybrid_optimizer(...), ("data",))``, one layer's decoded votes and
+    residuals held to ``compress_votes`` on the CPU; (c) one NCCL
+    all-reduce of a layer's fp32 grads and of its int32 votes, timed; (d)
+    the rank-local weight-backward launches of tp 2 / 4 and dp 2 / 4; (e)
+    the launcher as a process."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.optimizer import (Optimizer, cosine_schedule,
+                                            hybrid_optimizer, is_boolean_leaf,
+                                            tree_leaves)
+    from repro_torch.data import make_pipeline
+    from repro_torch.distributed.compression import (VoteOptimizer,
+                                                     compress_votes,
+                                                     ef_signsgd_compressed)
+    from repro_torch.kernels import KERNELS, boolean_weight_bwd
+    from repro_torch.launch.mesh import make_local_mesh, mesh_batch_axes
+    from repro_torch.distributed.placement import named, place
+    from repro_torch.launch.shardings import (train_param_specs,
+                                              train_state_specs)
+    from repro_torch.models import lm_init
+    from repro_torch.train import TrainLoop, make_train_step
+
+    gc_collect(torch)
+    cfg = get_config("gemma2-2b")
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(1)
+    mesh_s = time.perf_counter() - t0
+    cfg_s = cfg.scaled(batch_axes=mesh_batch_axes(mesh),
+                       use_sharding_constraints=True)
+    total = MESH_WARMUP + MESH_TIMED
+
+    def opt():
+        return hybrid_optimizer(
+            eta=cosine_schedule(4.0, total, warmup=total // 20),
+            fp_lr=cosine_schedule(1e-3, total, warmup=total // 20))
+
+    def pipeline():
+        return make_pipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+
+    def init():
+        return lm_init(cfg, torch.Generator(device="cuda").manual_seed(seed))
+
+    # (a) the sharded loop and the unsharded one, step by step in turns
+    t0 = time.perf_counter()
+    params_u = init()
+    o_u = opt()
+    loop_u = TrainLoop(make_train_step(cfg, o_u, TRAIN_MICRO), params_u,
+                       o_u.init(params_u), pipeline(), log_every=1000)
+    params = init()
+    specs = train_param_specs(params)
+    grad_sh = named(mesh, specs)
+    params = place(params, grad_sh)
+    o_s = opt()
+    state = o_s.init(params)
+    state_sh = named(mesh, train_state_specs(params, state, specs))
+    loop_s = TrainLoop(make_train_step(cfg_s, o_s, TRAIN_MICRO,
+                                       grad_shardings=grad_sh),
+                       params, state, pipeline(), log_every=1000,
+                       shardings=state_sh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def one_step(loop):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loop.run(1, install_signal_handlers=False)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    steps = {"unsharded": [], "mesh": []}
+    launches = tc = 0
+    resident_u = sum(t.numel() * t.element_size() for t in _state_leaves(
+        {"params": loop_u.params, "opt": loop_u.opt_state}).values())
+    peak_s = 0
+    for i in range(total):
+        order = ("unsharded", "mesh") if i % 2 == 0 else ("mesh", "unsharded")
+        for label in order:
+            if label == "mesh":
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                ms = one_step(loop_s)
+                launches += boolean_weight_bwd.launches
+                tc += boolean_weight_bwd.tc_launches
+                others = {k.__name__: k.launches for k in KERNELS
+                          if k is not boolean_weight_bwd}
+                assert not any(others.values()), others
+                peak_s = max(peak_s, torch.cuda.max_memory_allocated())
+            else:
+                ms = one_step(loop_u)
+            if i >= MESH_WARMUP:
+                steps[label].append(ms)
+        assert loop_s.history == loop_u.history, (loop_s.history,
+                                                  loop_u.history)
+        same = _states_equal(torch, {"params": loop_s.params,
+                                     "opt": loop_s.opt_state},
+                             {"params": loop_u.params,
+                              "opt": loop_u.opt_state})
+        assert same, ("the mesh's state differs from the unsharded run's", i)
+    per_mb = 7 * cfg.n_layers
+    want = total * TRAIN_MICRO * per_mb
+    assert launches == tc == want, (launches, tc, want)
+    assert mesh.counts["grad_reduces"] == 0 and \
+        mesh.counts["head_gathers"] == 0, mesh.counts
+    n_leaves = len(_state_leaves({"params": loop_s.params,
+                                  "opt": loop_s.opt_state}))
+    print(f"  make_local_mesh(1): NCCL world of one on {mesh.device} in "
+          f"{mesh_s:.2f} s; both runs set up in {setup_s:.1f} s")
+    print(f"  {total} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+          f"{TRAIN_MICRO} microbatches: losses equal ("
+          + " ".join(f"{x:.4f}" for x in loop_s.history) + f"), all {n_leaves}"
+          f" leaves of params and optimizer state torch.equal after every "
+          f"step; {launches} weight-backward launches ({per_mb} a microbatch),"
+          f" all on the tensor-core route; collectives {mesh.counts} (a "
+          "world of one issues none)")
+    print(f"  step in turns (timed steps): unsharded "
+          + " ".join(f"{x:.1f}" for x in steps["unsharded"]) + " ms, mesh "
+          + " ".join(f"{x:.1f}" for x in steps["mesh"]) + " ms; peak during a "
+          f"mesh step {peak_s / 2**30:.2f} GiB with the unsharded run's "
+          f"{resident_u / 2**30:.2f} GiB of state resident (the mesh run's "
+          f"own {(peak_s - resident_u) / 2**30:.2f} GiB)")
+    hist = list(loop_s.history)
+    # (b) trains on from the mesh run's params with a state of its own
+    params = loop_s.params
+    del loop_u, params_u, o_u, loop_s, state, o_s
+    gc_collect(torch)
+
+    # (b) EF-SignSGD on the same mesh, one layer held to the CPU
+    inner = opt()
+    seen, marks = {}, {}
+    layer_keys = [k for k in sorted(params["blocks"]["b0"])
+                  if k in ("attn", "ffn")]
+
+    def b0_leaves(tree):
+        out = {}
+        for part in layer_keys:
+            for proj, leaf in tree["blocks"]["b0"][part].items():
+                if isinstance(leaf, dict) and leaf.get("w") is not None:
+                    out[f"{part}/{proj}"] = leaf["w"]
+        return out
+
+    def inner_update(grads, st, ps, shardings=None):
+        marks["inner"] = torch.cuda.Event(enable_timing=True)
+        marks["inner"].record()
+        marks["inner_t"] = time.perf_counter()
+        if seen.get("capture"):
+            seen["dec"] = {k: v[0].to("cpu", copy=True)
+                           for k, v in b0_leaves(grads).items()}
+        out = inner.update(grads, st, ps, shardings=shardings)
+        torch.cuda.synchronize()
+        marks["inner_host_s"] = time.perf_counter() - marks["inner_t"]
+        return out
+
+    ef = ef_signsgd_compressed(Optimizer(inner.init, inner_update), ("data",))
+
+    def ef_update(grads, st, ps, shardings=None):
+        if seen.get("capture"):
+            seen["g"] = {k: v.to("cpu", copy=True)
+                         for k, v in b0_leaves(grads).items()}
+            seen["e0"] = {k: v.to("cpu", copy=True)
+                          for k, v in b0_leaves(st.error).items()}
+        torch.cuda.synchronize()
+        marks["ef"] = torch.cuda.Event(enable_timing=True)
+        marks["ef"].record()
+        t = time.perf_counter()
+        out = ef.update(grads, st, ps, shardings=shardings)
+        marks["ef_host_us"] = (marks["inner_t"] - t) * 1e6
+        if seen.get("capture"):
+            seen["e1"] = {k: v[0].to("cpu", copy=True) for k, v in
+                          b0_leaves(out[1].error).items()}
+        return out
+
+    opt_ef = VoteOptimizer(ef.init, ef_update, ef.vote_axes)
+    state_ef = opt_ef.init(params)
+    err_bytes = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(state_ef.error))
+    n_bool = sum(p.numel() for p in tree_leaves(params)
+                 if is_boolean_leaf(p))
+    step_ef = make_train_step(cfg_s, opt_ef, TRAIN_MICRO,
+                              grad_shardings=grad_sh)
+    pipe = pipeline()
+    ef_flips, ef_ms, ef_host_us, ef_loss = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(EF_STEPS):
+        seen["capture"] = i == EF_STEPS - 1
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in pipe.batch_at(total + i).items()}
+        params, state_ef, m = step_ef(params, state_ef, batch)
+        torch.cuda.synchronize()
+        ef_loss.append(float(m["loss"]))
+        ef_ms.append(marks["ef"].elapsed_time(marks["inner"]))
+        ef_host_us.append(marks["ef_host_us"])
+        ef_flips.append(sum(float(f) for f in
+                            tree_leaves(state_ef.inner.boolean.flips)))
+    ef_peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(x) for x in ef_loss), ef_loss
+    check = {}
+    for key, g in seen["g"].items():
+        dec, err = compress_votes(g, seen["e0"][key], None)
+        got_dec, got_err = seen["dec"][key], seen["e1"][key]
+        same_sign = bool(torch.equal(torch.sign(got_dec), torch.sign(dec[0])))
+        scale_card, scale_cpu = got_dec.abs().max().item(), \
+            dec[0].abs().max().item()
+        scale_rel = abs(scale_card - scale_cpu) / scale_cpu
+        want_err = err[0].float()
+        gap = (got_err.float() - want_err).abs()
+        # one bf16 ulp of each residual (2^-7 of it), and a scale's
+        # rounding where the residual is near 0
+        ulp = torch.maximum(want_err.abs() * 2.0 ** -7,
+                            torch.tensor(scale_cpu * 2.0 ** -20))
+        err_ok = bool((gap <= ulp).all())
+        check[key] = {"signs_equal": same_sign, "scale_rel_err": scale_rel,
+                      "residual_within_one_ulp": err_ok}
+        assert same_sign and scale_rel <= EF_SCALE_RTOL and err_ok, \
+            (key, check[key])
+    print(f"  EF-SignSGD, {EF_STEPS} steps: losses "
+          + " ".join(f"{x:.4f}" for x in ef_loss) + "; flips "
+          + " ".join(f"{x:.0f}" for x in ef_flips) + "; compression "
+          + " ".join(f"{x:.2f}" for x in ef_ms) + " ms of device and "
+          + " ".join(f"{x:.0f}" for x in ef_host_us) + " us of host a step;"
+          f" residual state {err_bytes / 2**30:.2f} GiB; peak "
+          f"{ef_peak / 2**30:.2f} GiB; votes {n_bool * 4 / 2**30:.2f} GiB of "
+          f"int32 a step against {n_bool * 4 / 2**30:.2f} GiB of fp32 grads")
+    print(f"  layer 0's {len(check)} Boolean leaves against compress_votes "
+          f"on the CPU: signs equal, scales within "
+          f"{max(c['scale_rel_err'] for c in check.values()):.2e} (bound "
+          f"{EF_SCALE_RTOL:g}), residuals within one bf16 ulp")
+    del seen["g"], seen["e0"]
+
+    # (c) one all-reduce of a layer's grads and of its votes over NCCL
+    layer = sum(v[0].numel() for v in b0_leaves(params).values())
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    reduce_rows = {}
+    for name, dtype in (("fp32 grads", torch.float32),
+                        ("int32 votes", torch.int32)):
+        buf = torch.ones(layer, dtype=dtype, device="cuda")
+        dev_ms = time_ms(torch, lambda: dist.all_reduce(buf), flush)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(50):
+            dist.all_reduce(buf)
+        host_us = (time.perf_counter() - t) / 50 * 1e6
+        torch.cuda.synchronize()
+        reduce_rows[name] = {"elements": layer, "bytes": layer * 4,
+                             "ms": dev_ms, "host_us": host_us}
+        del buf
+    print("  one NCCL all-reduce of layer 0's Boolean grads (world of one), "
+          + "; ".join(f"{k}: {v['bytes'] / 2**20:.1f} MiB, {v['ms']:.4f} ms "
+                      f"of device, {v['host_us']:.1f} us of host"
+                      for k, v in reduce_rows.items()))
+    del params, state_ef, step_ef, opt_ef, ef, inner
+    mesh.close()
+    gc_collect(torch)
+
+    # (d) the rank-local weight-backward launches of larger meshes
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    slices, full_ms, full_bound = weight_bwd_slices(torch, flush, gen)
+    del flush
+    gc_collect(torch)
+
+    # (e) the launcher as a process
+    launcher = train_mesh_launcher(torch)
+    return {"launches": {"boolean_weight_bwd": launches},
+            "tc_launches": tc, "steps": total, "losses": hist,
+            "step_ms_in_turns": steps,
+            "step_ms_median": statistics.median(steps["mesh"]),
+            "unsharded_step_ms_median": statistics.median(steps["unsharded"]),
+            "peak_bytes_during_mesh_step": peak_s,
+            "unsharded_resident_bytes": resident_u,
+            "mesh_init_s": mesh_s, "setup_s": setup_s,
+            "leaves_compared": n_leaves,
+            "ef": {"losses": ef_loss, "flips": ef_flips,
+                   "device_ms": ef_ms, "host_us": ef_host_us,
+                   "error_state_bytes": err_bytes, "peak_bytes": ef_peak,
+                   "vote_payload_bytes": n_bool * 4,
+                   "fp32_grad_bytes": n_bool * 4, "layer0_check": check},
+            "all_reduce": reduce_rows, "weight_bwd_slices": slices,
+            "weight_bwd_full_qkv_ms": full_ms,
+            "weight_bwd_full_qkv_bound_ms": full_bound, "launcher": launcher,
+            "device": smi_line()}
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -5651,6 +6120,12 @@ def main() -> int:
                    "4"):
         mesh_metrics = serve_mesh(torch, args.seed, serve_ref)
         del serve_ref
+        gc_collect(torch)
+
+    with phase(16, "train gemma2-2b (published widths) through a one-rank "
+                   "NCCL training mesh, EF-SignSGD, and the rank-local weight "
+                   "backward at tp and dp 2 and 4"):
+        train_mesh_metrics = train_mesh(torch, args.seed)
         gc_collect(torch)
 
     decode_m8 = [r for r in gemv_rows if r["M"] == 8]
@@ -5857,10 +6332,24 @@ def main() -> int:
          "bound_by": ("bytes" if sum(r["bound_by"] == "bytes" for r in layer_votes)
                       * 2 >= len(layer_votes) else "operations"),
          "library_ms": sum(r["library_ms"] for r in layer_votes),
+         "phase16_launches": train_mesh_metrics["launches"][
+             "boolean_weight_bwd"],
+         "phase16_tc_launches": train_mesh_metrics["tc_launches"],
+         **{f"phase16_{r['split']}{r['n']}_{k}": r[k]
+            for r in train_mesh_metrics["weight_bwd_slices"]
+            for k in ("ms", "bound_ms")},
+         "phase16_full_qkv_ms": train_mesh_metrics["weight_bwd_full_qkv_ms"],
+         "phase16_full_qkv_bound_ms":
+             train_mesh_metrics["weight_bwd_full_qkv_bound_ms"],
          "shape": f"sum over one layer's wq, wk, wv, wo, wg, wu, wd votes at "
                   f"B={WBWD_TOKENS} tokens (one microbatch), bf16 x and z, "
                   "alpha=0 (the tensor-core route; tc_launches: its launches "
-                  "in phase 5)"},
+                  "in phase 5); phase16_launches / phase16_tc_launches: phase "
+                  "16's through the one-rank training mesh; phase16_tp2_* / "
+                  "phase16_tp4_*: rank 0's column slices of the wq, wk, wv "
+                  "votes at tp 2 / 4 (phase16_full_qkv_*: the full three); "
+                  "phase16_dp2_* / phase16_dp4_*: rank 0's row blocks of "
+                  "the seven at dp 2 / 4"},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:87",
@@ -5999,6 +6488,7 @@ def main() -> int:
                                "overload": overload_metrics,
                                "gateway": gateway_metrics,
                                "serve_mesh": mesh_metrics,
+                               "train_mesh": train_mesh_metrics,
                                "phase_wall_s": walls,
                                "phase_start_launch_us": launch_at,
                                "kernels": kernels}, indent=1))

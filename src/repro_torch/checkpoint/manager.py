@@ -185,9 +185,13 @@ def _from_numpy(raw: np.ndarray, entry) -> torch.Tensor:
 
 
 def restore_pytree(template, directory, step: Optional[int] = None,
-                   faults=None):
+                   shardings=None, faults=None):
     """Restore into the structure of ``template``, each leaf on its template
-    leaf's device. Every leaf's raw bytes are checksum-verified against the
+    leaf's device. ``shardings`` (a matching tree of
+    ``distributed.placement.NamedPlacement``; leaves it leaves out are
+    replicated) re-slices each full-array leaf onto the live mesh: a
+    sharded leaf becomes this rank's slice, whatever mesh wrote it — the
+    elastic restore. Every leaf's raw bytes are checksum-verified against the
     manifest before ``np.load`` reads them; a mismatch raises
     ``CheckpointCorruption`` naming the step, leaf and file. ``faults`` (a
     ``serve.FaultInjector``) arms the ``ckpt_corrupt`` drill: when it fires
@@ -203,6 +207,7 @@ def restore_pytree(template, directory, step: Optional[int] = None,
     manifest = json.loads((src / "manifest.json").read_text())
 
     flat_tpl = _flatten(template)
+    flat_sh = _flatten(shardings) if shardings is not None else {}
     out = {}
     for key, entry in manifest["leaves"].items():
         if key not in flat_tpl:
@@ -221,7 +226,11 @@ def restore_pytree(template, directory, step: Optional[int] = None,
                 raise CheckpointCorruption(step, key, entry["file"],
                                            int(want), got)
         raw = np.load(io.BytesIO(raw_bytes))
-        out[key] = _from_numpy(raw, entry).to(flat_tpl[key].device)
+        arr = _from_numpy(raw, entry)
+        sh = flat_sh.get(key)
+        if sh is not None:
+            arr = sh.local(arr)
+        out[key] = arr.to(flat_tpl[key].device)
 
     missing = set(flat_tpl) - set(out)
     if missing:
@@ -253,8 +262,9 @@ class CheckpointManager:
             self._inflight.join()
             self._inflight = None
 
-    def restore_latest(self, template, faults=None):
-        return restore_pytree(template, self.directory, faults=faults)
+    def restore_latest(self, template, shardings=None, faults=None):
+        return restore_pytree(template, self.directory, shardings=shardings,
+                              faults=faults)
 
     def latest_step(self):
         return latest_step(self.directory)

@@ -65,13 +65,16 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 class _BooleanDense(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, bwd_norm, sign_backward):
-        y = matmul_f32(x, w).to(x.dtype)
+    def forward(ctx, x, w, b, bwd_norm, sign_backward, reduce_bf16, group,
+                fan_out):
+        y = (torch.matmul(x, w) if reduce_bf16 else matmul_f32(x, w)) \
+            .to(x.dtype)
         if b is not None:
             y = y + b.to(y.dtype)
         ctx.save_for_backward(x, w)
         ctx.has_b, ctx.bwd_norm, ctx.sign_backward = \
             b is not None, bwd_norm, sign_backward
+        ctx.reduce_bf16, ctx.group, ctx.fan_out = reduce_bf16, group, fan_out
         return y
 
     @staticmethod
@@ -80,10 +83,19 @@ class _BooleanDense(torch.autograd.Function):
         m, n = w.shape
         gx = None
         if ctx.needs_input_grad[0]:
-            # Eq 6/8: upstream signal aggregated over fan-out
-            gx = matmul_f32(z, w.t())
+            # Eq 6/8: upstream signal aggregated over fan-out, in x.dtype
+            # under reduce_bf16 (the JAX package's bf16 transpose), else fp32
+            if ctx.reduce_bf16:
+                gx = torch.matmul(z.to(x.dtype), w.to(x.dtype).t())
+            else:
+                gx = matmul_f32(z, w.t())
+            if ctx.group is not None:
+                # the other output columns' partials live on the other ranks
+                # of the group: the sum precedes the normalisation and sign
+                gx = all_reduce_sum(gx, ctx.group)
+            gx = gx.to(torch.float32)
             if ctx.bwd_norm:
-                gx = gx * backward_scale(n)
+                gx = gx * backward_scale(ctx.fan_out or n)
             if ctx.sign_backward:
                 gx = torch.where(gx >= 0, 1.0, -1.0)
             gx = gx.to(x.dtype)
@@ -93,12 +105,22 @@ class _BooleanDense(torch.autograd.Function):
         gw = boolean_weight_bwd(x.reshape(-1, m).contiguous(), z2,
                                 alpha=0.0).to(w.dtype)
         gb = z2.to(torch.float32).sum(0).to(w.dtype) if ctx.has_b else None
-        return gx, gw, gb, None, None
+        return gx, gw, gb, None, None, None, None, None
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (a copy, contiguous)."""
+    import torch.distributed as dist
+
+    out = t.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
 
 
 def boolean_dense(x: torch.Tensor, w: torch.Tensor, b=None,
-                  bwd_norm: bool = True,
-                  sign_backward: bool = False) -> torch.Tensor:
+                  bwd_norm: bool = True, sign_backward: bool = False,
+                  reduce_bf16: bool = False, group=None,
+                  fan_out: Optional[int] = None) -> torch.Tensor:
     """y = x @ w (+ b) on the ±1 weight view, fp32 counts cast to x.dtype,
     with the Boolean-variation backward.
 
@@ -106,9 +128,18 @@ def boolean_dense(x: torch.Tensor, w: torch.Tensor, b=None,
     gradient is the vote tensor the flip-rule optimizer reads, never a
     weight update; b: (n,) real bias or None. ``bwd_norm`` applies the
     √(2/n) App-C.4 normalisation to δLoss/δx; ``sign_backward`` projects it
-    to ±1 (Boolean backprop signal, Alg 6).
+    to ±1 (Boolean backprop signal, Alg 6). ``reduce_bf16`` emits the
+    contraction and its activation-grad transpose in x.dtype (the vote
+    counts stay fp32), as the JAX package's flag does.
+
+    A column shard of a wider weight (head-parallel training): ``w`` holds
+    this rank's output columns, ``group`` the ranks holding the others and
+    ``fan_out`` the whole weight's columns. The backward sums δLoss/δx's
+    partials over ``group`` before the √(2/fan_out) normalisation and the
+    sign, so every rank gets the unsharded signal.
     """
-    return _BooleanDense.apply(x, w, b, bwd_norm, sign_backward)
+    return _BooleanDense.apply(x, w, b, bwd_norm, sign_backward, reduce_bf16,
+                               group, fan_out)
 
 
 class PackedBool:

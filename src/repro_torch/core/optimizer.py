@@ -31,21 +31,52 @@ Schedule = Callable[[torch.Tensor], torch.Tensor]  # step -> value
 F32 = torch.float32
 
 
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def tree_map(fn, tree, *rest):
-    """Map ``fn`` over the tensor leaves of nested dicts; ``None`` stays."""
+    """Map ``fn`` over the leaves of nested dicts and NamedTuples (the
+    optimizer states); ``None`` stays."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
     if tree is None:
         return None
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
-    """Tensor leaves in sorted-key order (the JAX package's flatten order)."""
+    """Leaves in sorted-key order, a NamedTuple's in field order (the JAX
+    package's flatten order)."""
     if isinstance(tree, dict):
         return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    if _is_namedtuple(tree):
+        return [l for v in tree for l in tree_leaves(v)]
     return [] if tree is None else [tree]
+
+
+def tree_unflatten(like, leaves):
+    """Nested dict shaped like ``like`` from leaves in ``tree_leaves``
+    order (``None`` stays ``None``)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return None if node is None else next(it)
+    return build(like)
+
+
+def _placements(shardings, params):
+    """``shardings``, or a tree of ``None`` shaped like ``params``."""
+    if shardings is not None:
+        return shardings
+    return tree_map(lambda _: None, params) if isinstance(params, dict) \
+        else None
 
 
 def _as_schedule(v: Union[float, Schedule]) -> Schedule:
@@ -78,7 +109,11 @@ class HybridState(NamedTuple):
 
 class Optimizer(NamedTuple):
     """update() returns the NEW PARAMS (not deltas): Boolean flips are not
-    additive updates."""
+    additive updates. ``update(grads, state, params, shardings=None)``:
+    ``shardings`` is the parameters' placement tree on a training mesh
+    (``distributed.placement.named``), so that a per-layer statistic of a
+    leaf sharded across ranks (the flip count of Eq 11's β) is taken over
+    the whole leaf, as the JAX package's global arrays give it."""
     init: Callable[[PyTree], PyTree]
     update: Callable[[PyTree, PyTree, PyTree], tuple]
 
@@ -106,20 +141,26 @@ def boolean_optimizer(eta: Union[float, Schedule],
                                tree_map(scalar(0.0), params), _step0(params))
 
     @torch.no_grad()
-    def update(votes: PyTree, state: BooleanOptState, params: PyTree):
+    def update(votes: PyTree, state: BooleanOptState, params: PyTree,
+               shardings: PyTree = None):
         eta = eta_fn(state.step.cpu()).to(F32)
 
-        def leaf(w, q, m, beta, flips):
+        def leaf(w, q, m, beta, flips, sh):
             # accumulate (Eq 10) in f32, store back at accum_dtype
             m32 = beta * m.to(F32) + eta.to(w.device) * q.to(F32)
             flip = (m32 * w.to(F32)) >= 1.0          # xnor(m, w) = T  (Eq 9)
             w.copy_(torch.where(flip, -w, w))
             m.copy_(m32.masked_fill_(flip, 0.0))
-            # an exact count, rounded once to f32
-            flips.copy_(flip.sum(dtype=torch.int64).to(F32))
-            beta.copy_(1.0 - flips / float(w.numel()))   # Eq 11, per layer
+            # an exact count, rounded once to f32, over the whole leaf
+            count, shards = flip.sum(dtype=torch.int64), 1
+            if sh is not None:
+                count, shards = sh.sum_over_shards(count)
+            flips.copy_(count.to(F32))
+            # Eq 11, per layer
+            beta.copy_(1.0 - flips / float(w.numel() * shards))
 
-        tree_map(leaf, params, votes, state.accum, state.ratio, state.flips)
+        tree_map(leaf, params, votes, state.accum, state.ratio, state.flips,
+                 _placements(shardings, params))
         return params, state._replace(step=state.step + 1)
 
     return Optimizer(init, update)
@@ -137,7 +178,8 @@ def adam(lr: Union[float, Schedule], b1=0.9, b2=0.999, eps=1e-8,
                          _step0(params))
 
     @torch.no_grad()
-    def update(grads: PyTree, state: AdamState, params: PyTree):
+    def update(grads: PyTree, state: AdamState, params: PyTree,
+               shardings: PyTree = None):
         step = state.step + 1
         lr = lr_fn(state.step.cpu()).to(F32)
         stepf = step.cpu().to(F32)
@@ -189,9 +231,12 @@ def hybrid_optimizer(eta: Union[float, Schedule],
         bool_tree, fp_tree = _split(params)
         return HybridState(bopt.init(bool_tree), fopt.init(fp_tree))
 
-    def update(grads: PyTree, state: HybridState, params: PyTree):
+    def update(grads: PyTree, state: HybridState, params: PyTree,
+               shardings: PyTree = None):
         bool_p, fp_p = _split(params)
-        _, bstate = bopt.update(_select(grads, bool_p), state.boolean, bool_p)
+        sh = _placements(shardings, params)
+        _, bstate = bopt.update(_select(grads, bool_p), state.boolean, bool_p,
+                                _select(sh, bool_p))
         _, fstate = fopt.update(_select(grads, fp_p), state.adam, fp_p)
         return params, HybridState(bstate, fstate)
 

@@ -1,6 +1,7 @@
-"""Tensor-parallel serving over ``torch.distributed``: the serve mesh and
-its process-wide context (context.py) and the engine's command channel
-from rank 0 to the other ranks (serve_worker.py). The training half of the
-JAX package's ``distributed/`` (1-bit EF-SignSGD compression) comes with
-the multi-device training slice."""
-from .context import (ServeMesh, active_mesh, get_mesh, serving, set_mesh)
+"""Multi-device serving and training over ``torch.distributed``: the serve
+and training meshes and the process-wide mesh context (context.py), where
+a training tree's leaves live on a training mesh (placement.py), the
+serve engine's command channel from rank 0 to the other ranks
+(serve_worker.py) and the EF-SignSGD vote all-reduce (compression.py)."""
+from .context import (ServeMesh, TrainMesh, active_mesh, gather_heads,
+                      get_mesh, serving, set_mesh)

@@ -1,5 +1,5 @@
-"""The serve mesh over ``torch.distributed``, and the process-wide mesh
-context.
+"""The serve and training meshes over ``torch.distributed``, and the
+process-wide mesh context.
 
 The JAX package traces its tensor-parallel serving graphs under
 ``shard_map`` on a 1-D ("model",) mesh. The port runs one process per
@@ -15,12 +15,25 @@ attention layers read ``active_mesh()`` for the rank (the padded-head
 mask tests global head indices) and the head gather before ``wo``.
 ``set_mesh`` / ``get_mesh`` are the launcher's process-wide slot, as in
 the JAX package.
+
+``TrainMesh`` is the JAX package's ("data", "model") training mesh (with
+a leading "pod" axis on the production mesh), one process a device: the
+process groups of its axes and of the tuples of axes the model reaches
+(the batch axes, the cache-seq axes), this rank's coordinates, and the
+collectives the training path issues. A group of one issues none. Its
+two autograd functions are those head-parallel training needs, as in
+Megatron-LM: ``gather_heads`` (all-gather forward, this rank's slice
+backward; ``torch.distributed.nn``'s gather reduce-scatters in the
+backward, which would multiply a replicated downstream grad by the
+shard count), and, for the input of a column-sharded projection, the
+grad sum over the group (``models.modules.copy_to_group`` and
+``core.boolean_dense``'s ``group``).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -97,12 +110,134 @@ class ServeMesh:
             set_mesh(None)
 
 
-def set_mesh(mesh: Optional[ServeMesh]) -> None:
+class TrainMesh:
+    """An N-D training mesh: ``device_mesh`` (a ``DeviceMesh`` whose dims
+    are named ``axis_names``, e.g. ("data", "model")) and this process's
+    ``device``. ``shape`` maps each axis to its size and ``coords`` to this
+    rank's index on it, as a JAX mesh's ``shape`` and ``axis_index`` do.
+    ``group(axes)`` is the process group of the ranks that share this
+    rank's coordinates off ``axes``; ``index(axes)`` this rank's row-major
+    index over ``axes``. ``counts`` tallies the collectives issued."""
+
+    def __init__(self, device_mesh, device: torch.device,
+                 owns_world: bool = False):
+        self.device_mesh = device_mesh
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self.shape = dict(zip(self.axis_names,
+                              (int(n) for n in device_mesh.mesh.shape)))
+        coords = device_mesh.get_coordinate()
+        self.coords = dict(zip(self.axis_names, coords))
+        self.size = device_mesh.size()
+        self.device = torch.device(device)
+        self._owns_world = owns_world
+        self._groups = {(a,): device_mesh.get_group(a)
+                        for a in self.axis_names}
+        self._groups[self.axis_names] = dist.group.WORLD
+        batch = tuple(a for a in self.axis_names if a in ("pod", "data"))
+        if len(batch) > 1 and batch not in self._groups:
+            self._groups[batch] = self._subgroup(batch)
+        self.counts = {"grad_reduces": 0, "head_gathers": 0,
+                       "seq_combines": 0, "vote_reduces": 0,
+                       "count_reduces": 0, "leaf_gathers": 0}
+
+    def _subgroup(self, axes: Tuple[str, ...]):
+        """The group over ``axes`` (every rank calls this alike): the ranks
+        of the mesh with ``axes`` moved last, one group a row."""
+        ranks = self.device_mesh.mesh
+        dims = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(ranks.dim()) if i not in dims]
+        rows = ranks.permute(*rest, *dims).reshape(-1, self.size_of(axes))
+        group, _ = dist.new_subgroups_by_enumeration(rows.tolist())
+        return group
+
+    def size_of(self, axes) -> int:
+        n = 1
+        for a in _axes(axes):
+            n *= self.shape[a]
+        return n
+
+    def index(self, axes) -> int:
+        idx = 0
+        for a in _axes(axes):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def group(self, axes):
+        axes = _axes(axes)
+        if axes not in self._groups:
+            raise ValueError(f"no process group over {axes} on a mesh of "
+                             f"{self.axis_names}")
+        return self._groups[axes]
+
+    def all_reduce(self, t: torch.Tensor, axes, op=dist.ReduceOp.SUM,
+                   count: str = "grad_reduces") -> torch.Tensor:
+        """``t`` reduced in place over ``axes`` (no collective on a group
+        of one); returns ``t``."""
+        if self.size_of(axes) > 1:
+            dist.all_reduce(t, op=op, group=self.group(axes))
+            self.counts[count] += 1
+        return t
+
+    def all_gather(self, t: torch.Tensor, axes, dim: int,
+                   count: str = "leaf_gathers") -> torch.Tensor:
+        """Every rank of ``axes``'s ``t`` concatenated on ``dim`` in rank
+        order (``t`` itself on a group of one)."""
+        n = self.size_of(axes)
+        if n == 1:
+            return t
+        xs = t.movedim(dim, 0).contiguous()
+        out = torch.empty((n * xs.shape[0],) + tuple(xs.shape[1:]),
+                          dtype=xs.dtype, device=xs.device)
+        _all_gather(out, xs, self.group(axes))
+        self.counts[count] += 1
+        return out.movedim(0, dim)
+
+    def close(self) -> None:
+        """Let go of the mesh's process groups, and destroy the world when
+        ``make_local_mesh`` started it, every rank together. A group object
+        still held once its world is destroyed is torn down only at the
+        interpreter's exit, where the backend's threads can abort the
+        process."""
+        self._groups.clear()
+        self.device_mesh = None
+        if _MESH is self:
+            set_mesh(None)
+        if self._owns_world and dist.is_initialized():
+            if dist.get_world_size() > 1:
+                dist.barrier()
+            dist.destroy_process_group()
+        self._owns_world = False
+
+
+def _axes(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class _GatherHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        return mesh.all_gather(x, "model", dim, count="head_gathers")
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.mesh.coords["model"]
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+def gather_heads(x: torch.Tensor, mesh: TrainMesh, dim: int) -> torch.Tensor:
+    """Every "model" rank's head slice of ``x`` (heads on ``dim``) gathered
+    in the global head order; the backward takes this rank's slice of the
+    grad, which every rank holds whole."""
+    return _GatherHeads.apply(x, mesh, dim)
+
+
+def set_mesh(mesh) -> None:
     global _MESH
     _MESH = mesh
 
 
-def get_mesh() -> ServeMesh:
+def get_mesh():
     if _MESH is None:
         raise RuntimeError("no mesh installed — launcher must call set_mesh()")
     return _MESH

@@ -8,19 +8,25 @@ world is a world of one: ``make_serve_mesh(1)`` starts that world itself
 (an in-memory store, nothing leaves the process), and refuses more shards
 than there are processes or, on CUDA, cards — NCCL takes one card a rank.
 
-``make_local_mesh`` and ``make_production_mesh`` are the training slice's
-("data", "model") meshes, the same shapes as the JAX package's;
-``mesh_batch_axes`` and ``mesh_num_chips`` read any of them.
+``make_local_mesh`` and ``make_production_mesh`` are the training
+meshes, the JAX package's ("data", "model") and ("pod", "data", "model")
+shapes, one process a device: a ``TrainMesh`` over the whole world. The
+world is the one this process has joined, else the one torch's standard
+environment describes (``torchrun`` sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``), else a world of one
+started here. ``mesh_batch_axes`` and ``mesh_num_chips`` read any mesh.
 """
 from __future__ import annotations
 
 import datetime
+import math
+import os
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
-from repro_torch.distributed import ServeMesh, set_mesh
+from repro_torch.distributed import ServeMesh, TrainMesh, set_mesh
 
 #: how long a collective (and the world's rendezvous) may wait on a rank
 #: before it raises: a rank that died never hangs the others
@@ -108,24 +114,94 @@ def make_serve_mesh(n_shards: int = 0, device="cuda") -> ServeMesh:
     return mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+def _join_world(device) -> tuple:
+    """Join the world for a training mesh -> (device, started here): the
+    world already joined, torch's environment (``torchrun``), or a world
+    of one. NCCL on ``cuda:LOCAL_RANK`` (more ranks than visible cards are
+    refused: NCCL takes one card a rank), gloo on the CPU."""
+    dev = torch.device(device)
+    if dist.is_initialized():
+        rank, world = dist.get_rank(), dist.get_world_size()
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        started = False
+    elif "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        started = True
+    else:
+        rank, world, local, started = 0, 1, 0, True
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        here = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        if here > cards:
+            raise ValueError(
+                f"a training mesh of {here} ranks on this host but only "
+                f"{cards} CUDA devices are visible (NCCL takes one card a "
+                "rank)")
+        if dev.index is None:
+            dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+    if started:
+        kw = {"device_id": dev} if dev.type == "cuda" else {}
+        if world == 1 and "MASTER_ADDR" not in os.environ:
+            kw["store"] = dist.HashStore()
+        else:
+            kw["init_method"] = "env://"
+        dist.init_process_group(_backend(dev), rank=rank, world_size=world,
+                                timeout=TIMEOUT, **kw)
+    elif dist.get_backend() != _backend(dev):
+        raise ValueError(f"a {dev.type} training mesh needs the "
+                         f"{_backend(dev)} backend, the world runs "
+                         f"{dist.get_backend()}")
+    return dev, started
+
+
+def _train_mesh(shape, axes, device) -> TrainMesh:
+    dev, started = _join_world(device)
+    try:
+        dm = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+        mesh = TrainMesh(dm, dev, owns_world=started)
+    except BaseException:
+        if started:
+            dist.destroy_process_group()
+        raise
+    set_mesh(mesh)
+    return mesh
+
+
+def _world_size() -> int:
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cuda") -> TrainMesh:
     """The (data 16, model 16) mesh of a 256-card pod, with a leading pod
-    axis of 2 under ``multi_pod``; needs a world of that many ranks."""
+    axis of 2 under ``multi_pod``: a world of exactly that many ranks.
+    Installs it as the process's mesh."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh(torch.device(device).type, shape,
-                            mesh_dim_names=axes)
+    want = math.prod(shape)
+    n = _world_size()
+    if n != want:
+        raise ValueError(
+            f"make_production_mesh: the {'multi' if multi_pod else 'single'}"
+            f"-pod mesh {dict(zip(axes, shape))} needs a world of {want} "
+            f"ranks, this one has {n} (--mesh local trains over the world "
+            "that is there)")
+    return _train_mesh(shape, axes, device)
 
 
-def make_local_mesh(model_axis: int = 1, device="cuda"):
-    """A (data, model) mesh over the current world."""
-    n = dist.get_world_size()
-    if n % model_axis != 0:
+def make_local_mesh(model_axis: int = 1, device="cuda") -> TrainMesh:
+    """A (data, model) mesh over the whole world: model_axis ranks a data
+    row. Installs it as the process's mesh."""
+    n = _world_size()
+    if model_axis < 1 or n % model_axis != 0:
         raise ValueError(f"make_local_mesh: a world of {n} ranks is not "
                          f"divisible by model_axis={model_axis}")
-    return init_device_mesh(torch.device(device).type,
-                            (n // model_axis, model_axis),
-                            mesh_dim_names=("data", "model"))
+    return _train_mesh((n // model_axis, model_axis), ("data", "model"),
+                       device)
 
 
 def mesh_batch_axes(mesh) -> tuple:
@@ -134,4 +210,5 @@ def mesh_batch_axes(mesh) -> tuple:
 
 
 def mesh_num_chips(mesh) -> int:
-    return int(mesh.size if isinstance(mesh, ServeMesh) else mesh.size())
+    return int(mesh.size if isinstance(mesh, (ServeMesh, TrainMesh))
+               else mesh.size())

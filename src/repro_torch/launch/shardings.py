@@ -1,4 +1,25 @@
-"""Serve-time tensor parallelism: which leaves shard, on which axis.
+"""Per-cell sharding policy, and which leaves shard on which axis.
+
+Training (the JAX package's ``apply_policy``, ``train_microbatches`` and
+``batch_shardings``; ``apply_policy`` and ``train_microbatches`` read only
+``mesh.shape`` and ``mesh.axis_names``):
+
+  train_4k     batch → (pod, data); heads → model; grad accumulation so
+               the per-device microbatch is a few samples.
+  prefill_32k  batch → (pod, data); the emitted KV cache seq → model.
+  decode_32k   batch → (pod, data); KV cache seq → model (int8 cache);
+               the decode's softmax statistics combine over "model".
+  long_500k    batch = 1: KV cache seq → every axis.
+
+The placement the port gives the two training axes (``train_param_specs``)
+keeps the JAX package's math and chooses where tensors live: "pod" and
+"data" are data parallel — each rank takes its rows of the global batch,
+parameters and optimizer state are replicated across them and the grads
+are reduced over them once a step; "model" is head parallel, the serve
+mesh's split below — the q/k/v projections shard on their output (head)
+axis and everything else is replicated. The JAX package's FSDP of the
+weights over "data" and its "model" split of d_ff, vocab and experts
+change only memory and are not ported yet.
 
 The serve mesh is 1-D ("model",) (launch/mesh.py). Only the attention head
 axis shards: the q/k/v projections column-wise (the fused packed ``wqkv``
@@ -14,14 +35,14 @@ its fan-in sums in the unsharded order; a row-sharded ``wo`` summed across
 ranks would reassociate it, and ``sign()`` turns those ulps into token
 flips.
 
-A spec tree has the structure of its tree, with a placement
-(``torch.distributed.tensor.Shard(dim)`` / ``Replicate()``) a leaf, the
-JAX package's ``PartitionSpec`` leaves translated; a ``PackedBool`` leaf's
-spec describes its ``bits``. ``shard_tree`` takes one rank's slice of
-every leaf as a plain local tensor: the kernels take raw pointers, not
-DTensors. The training half of the JAX package's ``shardings.py``
-(``apply_policy``, ``train_microbatches``, ``batch_shardings``) comes with
-the multi-device training slice.
+A spec tree has the structure of its tree, with a placement along the
+"model" axis (``torch.distributed.tensor.Shard(dim)`` / ``Replicate()``) a
+leaf, the JAX package's ``PartitionSpec`` leaves translated; a
+``PackedBool`` leaf's spec describes its ``bits``. ``shard_tree`` takes
+one rank's slice of every leaf as a plain local tensor: the kernels take
+raw pointers, not DTensors. The JAX package's ``named`` is
+``distributed.placement.named``, which pairs each spec with its mesh for
+``place`` and ``gather_tree``.
 """
 from __future__ import annotations
 
@@ -29,7 +50,87 @@ import torch
 from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.core import PackedBool
+from repro_torch.core.optimizer import tree_map
+from repro_torch.distributed.placement import BatchRows
 from repro_torch.models import ModelConfig, block_roles
+
+from .mesh import mesh_batch_axes
+from .shapes import ShapeDef
+
+
+def apply_policy(cfg: ModelConfig, shape: ShapeDef, mesh) -> ModelConfig:
+    b_axes = mesh_batch_axes(mesh)
+    batch_shards = 1
+    for a in b_axes:
+        batch_shards *= mesh.shape[a]
+
+    common = dict(use_sharding_constraints=True)
+    if shape.kind in ("train", "prefill"):
+        return cfg.scaled(
+            batch_axes=b_axes,
+            cache_seq_axes=("model",) if shape.kind == "prefill" else (),
+            moe_groups=min(batch_shards, shape.global_batch),
+            **common,
+        )
+    if shape.name == "long_500k":
+        return cfg.scaled(
+            batch_axes=(),
+            cache_seq_axes=tuple(mesh.axis_names),
+            kv_cache_quant=False,
+            moe_groups=1,
+            **common,
+        )
+    # decode_32k
+    return cfg.scaled(
+        batch_axes=b_axes,
+        cache_seq_axes=("model",),
+        kv_cache_quant=True,
+        moe_groups=1,
+        **common,
+    )
+
+
+def train_microbatches(cfg: ModelConfig, shape: ShapeDef, mesh) -> int:
+    """Grad-accumulation factor: target per-device microbatch by size tier."""
+    b_axes = mesh_batch_axes(mesh)
+    shards = 1
+    for a in b_axes:
+        shards *= mesh.shape[a]
+    if cfg.d_model >= 5120:
+        per_dev = 1
+    elif cfg.d_model >= 4096:
+        per_dev = 2
+    else:
+        per_dev = 4
+    mb = max(1, shape.global_batch // (shards * per_dev))
+    while shape.global_batch % (mb * shards) and mb > 1:
+        mb -= 1
+    return mb
+
+
+def train_state_specs(params, opt_state, specs=None):
+    """Placement tree of a training state ``{"params", "opt"}``: an
+    optimizer-state leaf shaped like its parameter (Boolean accumulators,
+    Adam moments, EF residuals) is placed as the parameter, the per-leaf
+    scalars and step counters are replicated."""
+    specs = train_param_specs(params) if specs is None else specs
+
+    def walk(node):
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(v) for v in node))
+        if isinstance(node, dict) and node.keys() == params.keys():
+            return tree_map(lambda t, p, sp: sp if t.dim() == p.dim()
+                            else Replicate(), node, params, specs)
+        return tree_map(lambda _: Replicate(), node)
+
+    return {"params": specs, "opt": walk(opt_state)}
+
+
+def batch_shardings(cfg: ModelConfig, mesh, batch_specs):
+    """Each batch leaf's ``BatchRows`` over ``cfg.batch_axes``."""
+    return {k: BatchRows(mesh, tuple(cfg.batch_axes))
+            for k in batch_specs}
+
 
 _ATTN_COL = ("wq", "wk", "wv", "wqkv")
 
@@ -64,6 +165,10 @@ def serve_param_specs(params):
                 for k, v in node.items()}
 
     return walk(params)
+
+
+# training shards the same leaves as serving (the module docstring)
+train_param_specs = serve_param_specs
 
 
 def serve_pool_specs(cfg: ModelConfig, pool):

@@ -14,6 +14,16 @@ engine) the serving bodies run at the head-local counts of ``_tp_heads``
 on this rank's column slice of q/k/v and its KVp slice of the page pools,
 and gather the heads before the replicated ``wo`` (``_wo_project``)
 over the serve mesh the engine runs them under (``distributed.serving``).
+
+Under a training mesh (``cfg.use_sharding_constraints``, the launcher's
+``TrainMesh``) the training attention runs head-parallel over its "model"
+axis: this rank's column slices of q/k/v (``launch.shardings.
+train_param_specs``), attention at the head-local counts, the heads
+gathered before the replicated ``wo`` (``distributed.gather_heads``), the
+activation grad of the q/k/v input summed over the axis. With
+``cfg.cache_seq_axes`` the contiguous decode runs seq-sharded instead:
+each rank holds a slab of the cache rows and the softmax statistics
+combine across the slabs (``attention_decode``).
 """
 from __future__ import annotations
 
@@ -21,9 +31,11 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import PackedBool
-from repro_torch.distributed import active_mesh
+from repro_torch.distributed import (TrainMesh, active_mesh, gather_heads,
+                                     get_mesh)
 from repro_torch.kernels import paged_flash_decode, paged_prefix_attention
 from repro_torch.kernels.paged_attention import (  # noqa: F401 (reference names)
     flash_attention_abs, gather_prefix_rows)
@@ -93,16 +105,20 @@ def _group(cfg: ModelConfig, axis_size: int = 16) -> int:
     return hp // kvp
 
 
-def _head_mask(cfg: ModelConfig, out, axis_size: int = 16):
+def _head_mask(cfg: ModelConfig, out, axis_size: int = 16, shard=None):
     """Zero the padded q-head outputs (Boolean wo rows are ±1, not 0).
-    Under a serve mesh ``out`` holds this rank's head slice, so the test
-    is on GLOBAL head indices: rank × local heads + local index."""
+    ``out`` holds shard ``rank`` of ``n`` of the heads (``shard`` = (rank,
+    n); by default the serve mesh's rank and ``serve_tp``), so the test is
+    on GLOBAL head indices: rank × local heads + local index."""
     hp = cfg.heads_padded(axis_size)
     if hp == cfg.n_heads:
         return out
-    hp_l = hp // cfg.serve_tp
-    base = _serve_mesh(cfg).rank * hp_l if cfg.serve_tp > 1 else 0
-    mask = (torch.arange(base, base + hp_l, device=out.device)
+    if shard is None:
+        shard = (_serve_mesh(cfg).rank, cfg.serve_tp) if cfg.serve_tp > 1 \
+            else (0, 1)
+    rank, n = shard
+    hp_l = hp // n
+    mask = (torch.arange(rank * hp_l, (rank + 1) * hp_l, device=out.device)
             < cfg.n_heads).to(out.dtype)
     return out * mask[None, None, :, None]
 
@@ -241,20 +257,59 @@ def flash_prefix_attention_paged(cfg: ModelConfig, bcache, page_ids, q, k, v,
     return out.transpose(0, 1)[None].to(q.dtype)
 
 
+def _train_heads_mesh(cfg: ModelConfig) -> Optional[TrainMesh]:
+    """The training mesh whose "model" axis the training attention's heads
+    shard over, or None: a ``TrainMesh`` installed under
+    ``use_sharding_constraints`` with a "model" axis of more than one rank
+    that does not shard the cache rows instead."""
+    if not cfg.use_sharding_constraints or "model" in cfg.cache_seq_axes:
+        return None
+    mesh = get_mesh()
+    if not isinstance(mesh, TrainMesh):
+        raise RuntimeError("use_sharding_constraints outside a training "
+                           "mesh (the launcher installs one: set_mesh)")
+    return mesh if mesh.shape.get("model", 1) > 1 else None
+
+
 def attention_apply(cfg: ModelConfig, p, x, positions, *,
                     local: bool = False, axis_size: int = 16):
-    """Full training/prefill attention block body (no residual/norm)."""
+    """Full training/prefill attention block body (no residual/norm).
+
+    Head-parallel under a training mesh of tp "model" ranks
+    (``_train_heads_mesh``): ``p``'s q/k/v hold this rank's hp/tp q and
+    kvp/tp KV heads (contiguous, group-major, so a rank's q heads read its
+    own KV heads), the padded-head mask tests global head indices, and the
+    heads are gathered before the replicated ``wo``."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
     hp = cfg.heads_padded(axis_size)
+    kvp = cfg.kv_heads_padded(axis_size)
     n_rep = _group(cfg, axis_size)
-    q, k, v = _qkv(cfg, p, x, positions, axis_size)
+    mesh = _train_heads_mesh(cfg)
+    shard = (0, 1)
+    if mesh is None:
+        q, k, v = _qkv(cfg, p, x, positions, axis_size)
+    else:
+        tp = mesh.shape["model"]
+        if kvp % tp:
+            raise ValueError(f"{cfg.name}: {kvp} KV heads do not split over "
+                             f"a model axis of {tp}")
+        hp_l, kvp_l = hp // tp, kvp // tp
+        group = mesh.group("model")
+        q, k, v = (proj_apply(cfg, p[name], x, group=group)
+                   for name in ("wq", "wk", "wv"))
+        q = rope(q.reshape(B, S, hp_l, hd), positions, cfg.rope_theta)
+        k = rope(k.reshape(B, S, kvp_l, hd), positions, cfg.rope_theta)
+        v = v.reshape(B, S, kvp_l, hd)
+        shard = (mesh.coords["model"], tp)
     out = flash_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
                           causal=True,
                           window=cfg.sliding_window if local else 0,
                           softcap_val=cfg.attn_logit_softcap,
                           chunk=cfg.attn_chunk)
-    out = _head_mask(cfg, out, axis_size)
+    out = _head_mask(cfg, out, axis_size, shard)
+    if mesh is not None:
+        out = gather_heads(out, mesh, 2)
     return proj_apply(cfg, p["wo"], out.reshape(B, S, hp * hd))
 
 
@@ -317,9 +372,10 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
     with {"k_scale", "v_scale"}: (B, Smax, KVp) under kv_cache_quant,
     UPDATED IN PLACE with the new token's row at ``pos`` (an int, every
     row of the batch at the same position). The read is the JAX package's
-    ``_flash_decode_local``: fp32 scores over chunks of ``cfg.decode_chunk``
-    rows with an online softmax, rows valid at kpos <= pos (and kpos > pos
-    - window on a local layer). Returns (out, cache).
+    ``_flash_decode_local``. Returns (out, cache). Under
+    ``use_sharding_constraints`` with ``cache_seq_axes`` the cache holds
+    this rank's slab of the rows and ``pos`` is global
+    (``_decode_seq_sharded``).
 
     The cache has the paged pool's layout (B pages of Smax rows, block
     table ``arange(B)[:, None]``), but this read stays its own copy: the
@@ -336,20 +392,47 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(cfg, p, x, positions)
     qg = q[:, 0].reshape(B, kvp, n_rep, hd).to(torch.float32)
+    sharded = cfg.use_sharding_constraints and bool(cfg.cache_seq_axes)
+    row, here = pos, True
+    if sharded:
+        # this rank's slab of the rows: the new row is written iff it lands
+        # there
+        s_loc = cache["k"].shape[1]
+        row = pos - get_mesh().index(cfg.cache_seq_axes) * s_loc
+        here = 0 <= row < s_loc
     if cache["k"].dtype == torch.int8:
         k_new, ks_new = kv_quant(k_new)
         v_new, vs_new = kv_quant(v_new)
-        cache["k_scale"][:, pos] = ks_new[:, 0]
-        cache["v_scale"][:, pos] = vs_new[:, 0]
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+        if here:
+            cache["k_scale"][:, row] = ks_new[:, 0]
+            cache["v_scale"][:, row] = vs_new[:, 0]
+    if here:
+        cache["k"][:, row] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, row] = v_new[:, 0].to(cache["v"].dtype)
 
+    if sharded:
+        out = _decode_seq_sharded(cfg, qg, cache, pos, local)
+    else:
+        m, l, acc = _flash_decode_local(cfg, qg, cache, pos, 0, local)
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+    out = out.reshape(B, 1, hp, hd).to(x.dtype)
+    out = _head_mask(cfg, out)
+    return _wo_project(cfg, p["wo"], out.reshape(B, 1, hp * hd)), cache
+
+
+def _flash_decode_local(cfg: ModelConfig, qg, cache, pos: int, offset: int,
+                        local: bool):
+    """The JAX package's ``_flash_decode_local``: (m, l, acc) of qg (B, KVp,
+    R, hd) fp32 over the cache rows, row i at position ``offset + i``: fp32
+    scores over chunks of ``cfg.decode_chunk`` rows with an online softmax,
+    rows valid at kpos <= pos (and kpos > pos - window on a local layer)."""
+    B, kvp, n_rep, hd = qg.shape
     S = cache["k"].shape[1]
     scale = 1.0 / math.sqrt(hd)
     c = min(cfg.decode_chunk, S)
-    m = torch.full((B, kvp, n_rep), -1e30, device=x.device)
+    m = torch.full((B, kvp, n_rep), -1e30, device=qg.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((B, kvp, n_rep, hd), device=x.device)
+    acc = torch.zeros((B, kvp, n_rep, hd), device=qg.device)
     for c0 in range(0, S, c):
         rows = slice(c0, min(S, c0 + c))
         kf = kv_dequant(cache["k"][:, rows], cache["k_scale"][:, rows]
@@ -358,7 +441,8 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
                         if "v_scale" in cache else None)
         s = torch.einsum("bgrd,bcgd->bgrc", qg, kf) * scale
         s = softcap(s, cfg.attn_logit_softcap)
-        kpos = torch.arange(rows.start, rows.stop, device=x.device)
+        kpos = torch.arange(offset + rows.start, offset + rows.stop,
+                            device=qg.device)
         valid = kpos <= pos
         if local and cfg.sliding_window > 0:
             valid &= kpos > pos - cfg.sliding_window
@@ -369,10 +453,29 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
         l = l * corr + pexp.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bgrc,bcgd->bgrd", pexp, vf)
         m = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-30)
-    out = out.reshape(B, 1, hp, hd).to(x.dtype)
-    out = _head_mask(cfg, out)
-    return _wo_project(cfg, p["wo"], out.reshape(B, 1, hp * hd)), cache
+    return m, l, acc
+
+
+def _decode_seq_sharded(cfg: ModelConfig, qg, cache, pos: int,
+                        local: bool):
+    """The JAX package's ``_decode_shardmap``: this rank holds the cache
+    rows [offset, offset + S_loc) of a cache whose rows shard over
+    ``cfg.cache_seq_axes`` (slab index: the row-major index over those
+    axes), its read runs over its slab from that offset, and the softmax
+    statistics combine across the slabs with one MAX and two SUM
+    all-reduces of O(B·H·hd). The new row was written by the caller iff
+    ``pos`` lands in the slab."""
+    mesh = get_mesh()
+    axes = cfg.cache_seq_axes
+    offset = mesh.index(axes) * cache["k"].shape[1]
+    m, l, acc = _flash_decode_local(cfg, qg, cache, pos, offset, local)
+    m_g = mesh.all_reduce(m.clone(), axes, dist.ReduceOp.MAX,
+                          count="seq_combines")
+    corr = torch.exp(m - m_g)
+    l_g = mesh.all_reduce(l * corr, axes, count="seq_combines")
+    acc_g = mesh.all_reduce(acc * corr[..., None], axes,
+                            count="seq_combines")
+    return acc_g / torch.clamp(l_g[..., None], min=1e-30)
 
 
 def attention_decode_paged(cfg: ModelConfig, p, x, cache, block_table, pos,

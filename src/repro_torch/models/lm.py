@@ -108,11 +108,12 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int, device):
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
-def _ffn_residual(cfg: ModelConfig, bp, role, x):
-    """x + the block's FFN (MoE, dense or both) -> (x, MoE aux loss)."""
+def _ffn_branch(cfg: ModelConfig, bp, role, x):
+    """The block's FFN branch (MoE, dense or both) on ``x`` -> (its output,
+    MoE aux loss); (None, 0) for a block without one."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if role["ffn"] is None:
-        return x, aux
+        return None, aux
     h = rmsnorm_apply(bp["norm2"], x)
     out = None
     if "moe" in role["ffn"]:
@@ -120,7 +121,13 @@ def _ffn_residual(cfg: ModelConfig, bp, role, x):
     if "dense" in role["ffn"]:
         d = F.ffn_apply(cfg, bp["ffn"], h)
         out = d if out is None else out + d
-    return x + out, aux
+    return out, aux
+
+
+def _ffn_residual(cfg: ModelConfig, bp, role, x):
+    """x + the block's FFN (MoE, dense or both) -> (x, MoE aux loss)."""
+    out, aux = _ffn_branch(cfg, bp, role, x)
+    return (x if out is None else x + out), aux
 
 
 def _apply_block_prefill(cfg: ModelConfig, bp, role, x, positions,
@@ -213,18 +220,38 @@ def unbind_tree(tree, n: int):
     return torch.unbind(tree, 0)
 
 
-def _apply_block(cfg: ModelConfig, bp, role, x, positions):
-    """One block of the training forward -> (x, MoE aux loss)."""
+def _mixer_branch(cfg: ModelConfig, bp, role, x, positions):
+    """The block's mixer branch (attention or mamba) on ``x``."""
     h = rmsnorm_apply(bp["norm1"], x)
     if role["mixer"] == "mamba":
-        mix = M.mamba_apply(cfg, bp["mamba"], h)
-    else:
-        mix = A.attention_apply(cfg, bp["attn"], h, positions,
-                                local=(role["mixer"] == "attn_local"))
-    return _ffn_residual(cfg, bp, role, x + mix)
+        return M.mamba_apply(cfg, bp["mamba"], h)
+    return A.attention_apply(cfg, bp["attn"], h, positions,
+                             local=(role["mixer"] == "attn_local"))
+
+
+def _saved(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, under ``remat_policy="save_block_outs"`` recomputed in
+    the backward from its inputs, so what the backward keeps of a block is
+    its residual branches' inputs and outputs (the JAX package saves the
+    two outputs it names ``blk_out`` and recomputes the rest)."""
+    if cfg.remat and cfg.remat_policy == "save_block_outs":
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def _apply_block(cfg: ModelConfig, bp, role, x, positions):
+    """One block of the training forward -> (x, MoE aux loss)."""
+    x = x + _saved(cfg, _mixer_branch, cfg, bp, role, x, positions)
+    out, aux = _saved(cfg, _ffn_branch, cfg, bp, role, x)
+    return (x if out is None else x + out), aux
 
 
 def _apply_group(cfg: ModelConfig, roles, gp, x, positions):
+    """One group's blocks. ``block_grad_barriers`` changes nothing here: the
+    JAX package's barrier between the blocks orders XLA's scheduling of
+    their grad reductions, and eager autograd runs them as it reaches
+    them."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, role in enumerate(roles):
         x, a = _apply_block(cfg, gp[f"b{i}"], role, x, positions)
@@ -245,7 +272,9 @@ def lm_forward(cfg: ModelConfig, params, batch):
     """-> (logits fp32 (B, S, Vp), aux loss: the MoE blocks' load-balancing
     losses summed). With ``cfg.remat`` each group runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward (the JAX
-    package's ``jax.checkpoint`` of the scanned body)."""
+    package's ``jax.checkpoint`` of the scanned body); under
+    ``remat_policy="save_block_outs"`` each residual branch is instead
+    (``_saved``)."""
     h = _inputs_to_h(cfg, params, batch)
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=h.device) \
@@ -253,7 +282,7 @@ def lm_forward(cfg: ModelConfig, params, batch):
     roles = block_roles(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for gp in unbind_tree(params["blocks"], cfg.n_groups):
-        if cfg.remat:
+        if cfg.remat and cfg.remat_policy != "save_block_outs":
             h, a = torch.utils.checkpoint.checkpoint(
                 _apply_group, cfg, roles, gp, h, positions,
                 use_reentrant=False)

@@ -4,6 +4,13 @@ Parameters are nested dicts of tensors with the same tree as the JAX
 package's ``models/modules.py`` (Boolean weights are int8 ±1 leaves, stacked
 per group on a leading axis by ``lm_init``), so a JAX parameter tree bridges
 over leaf by leaf (``repro_torch.bridge``).
+
+The JAX package's ``constrain`` (a ``with_sharding_constraint`` against the
+launcher's mesh) has no counterpart: the port computes eagerly on local
+tensors, which have no layout to constrain. ``use_sharding_constraints``
+selects the mesh paths, as in the JAX package: head-parallel training
+attention and the seq-sharded contiguous decode (``models/attention.py``)
+under the training mesh the launcher installs (``distributed.set_mesh``).
 """
 from __future__ import annotations
 
@@ -12,10 +19,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import (PackedBool, boolean_dense,
                               boolean_dense_inference, matmul_f32,
                               random_boolean)
+from repro_torch.core.boolean_linear import all_reduce_sum
 
 
 # ---------------------------------------------------------------------------
@@ -23,12 +32,10 @@ from repro_torch.core import (PackedBool, boolean_dense,
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The architecture and training fields of the JAX package's
-    ``ModelConfig``, and ``serve_tp``, its serve-time tensor parallelism.
-    Its training-mesh fields have no counterpart yet; ``reduce_bf16``,
-    ``remat_policy="save_block_outs"`` and ``block_grad_barriers`` exist
-    for cross-shard training and XLA scheduling and raise
-    ``NotImplementedError`` until the multi-device training slice."""
+    """The fields of the JAX package's ``ModelConfig``, with its defaults.
+    ``block_grad_barriers`` is accepted and changes nothing: in the JAX
+    package it places an ``optimization_barrier`` for XLA's scheduler, and
+    eager autograd has no scheduler to reorder the blocks' grads."""
     name: str
     family: str                    # dense | ssm | moe | hybrid | audio | vlm
     n_layers: int
@@ -81,25 +88,24 @@ class ModelConfig:
     # numerics / memory
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True             # recompute each group in the backward
-    remat_policy: str = "full"     # "save_block_outs": multi-device slice
+    remat_policy: str = "full"     # full | save_block_outs (each block's two
+    # residual branch outputs kept, the rest recomputed: models/lm.py)
     long_context: bool = False     # eligible for long_500k (ssm/hybrid)
     attn_chunk: int = 1024         # flash-attention KV chunk
     decode_chunk: int = 2048       # contiguous flash-decode KV chunk
     kv_cache_quant: bool = False   # int8 KV cache (kv-quant slice)
-    reduce_bf16: bool = False      # bf16 cross-shard partials: multi-device
-    block_grad_barriers: bool = False  # XLA scheduling: multi-device
+    reduce_bf16: bool = False      # projections and their activation grads
+    # in x.dtype, not fp32, so the cross-shard partials are bf16
+    block_grad_barriers: bool = False  # XLA scheduling only: a no-op here
+
+    # distribution (set by the launcher; the defaults run mesh-free)
+    batch_axes: tuple = ("data",)  # mesh axes the batch rows shard over
+    cache_seq_axes: tuple = ()     # decode: mesh axes the cache rows shard over
+    use_sharding_constraints: bool = False   # run the mesh paths
     serve_tp: int = 1              # serve-time tensor parallelism over the
     # 1-D ("model",) serve mesh: the model body runs at the head-local
     # counts hp/serve_tp and kvp/serve_tp, and gathers the heads before the
     # replicated wo (attention._wo_project); set by the engine from its mesh
-
-    def __post_init__(self):
-        if self.reduce_bf16 or self.block_grad_barriers \
-                or self.remat_policy != "full":
-            raise NotImplementedError(
-                "reduce_bf16, block_grad_barriers and remat_policy="
-                f"{self.remat_policy!r} serve cross-shard training; they "
-                "come with the multi-device training slice")
 
     # -- derived -----------------------------------------------------------
     @property
@@ -188,12 +194,15 @@ def head_init(gen: torch.Generator, cfg: ModelConfig):
 # Projection dispatch: packed Boolean, int8 Boolean, or FP — one call site.
 # ---------------------------------------------------------------------------
 def proj_apply(cfg: ModelConfig, p, x, *, scale: Optional[float] = None,
-               plan_n: Optional[int] = None):
+               plan_n: Optional[int] = None, group=None):
     """Apply a projection. Boolean path: counting GEMM, then the
     deterministic 1/√fan_in pre-activation normalizer (App C.3).
     ``plan_n``: a packed shard's whole column count, so the serving GEMV
     sums each column as the unsharded launch does
-    (``packed_xnor_gemv``)."""
+    (``packed_xnor_gemv``). ``group``: ``p`` holds this rank's output
+    columns of a weight whose other columns live on the other ranks of
+    that process group (head-parallel training); the activation grad is
+    summed over it (``boolean_dense``, ``copy_to_group``)."""
     w = p["w"]
     b = p.get("b")
     if isinstance(w, PackedBool):
@@ -207,17 +216,40 @@ def proj_apply(cfg: ModelConfig, p, x, *, scale: Optional[float] = None,
         w = w.to(cfg.dtype)
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
+    shards = 1 if group is None else dist.get_world_size(group)
     if cfg.boolean:
-        y = boolean_dense(x, w, None, cfg.bwd_norm, cfg.sign_backward)
+        y = boolean_dense(x, w, None, cfg.bwd_norm, cfg.sign_backward,
+                          cfg.reduce_bf16, group, w.shape[-1] * shards)
         s = (1.0 / math.sqrt(w.shape[0])) if scale is None else scale
         y = y * torch.tensor(s, dtype=y.dtype)
         if b is not None:
             y = y + b.to(y.dtype)
         return y
-    y = matmul_f32(x, w).to(x.dtype)
+    if group is not None:
+        x = copy_to_group(x, group)
+    y = torch.matmul(x, w) if cfg.reduce_bf16 else matmul_f32(x, w)
+    y = y.to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the backward sums the grad over the group (the
+    input of a column-sharded projection, Megatron-LM's copy-to-region)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+def copy_to_group(x, group):
+    return _CopyToGroup.apply(x, group)
 
 
 # ---------------------------------------------------------------------------

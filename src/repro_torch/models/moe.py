@@ -50,18 +50,27 @@ def _bmm_f32(x, w):
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
+def _bmm(cfg: ModelConfig, x, w):
+    """An expert product in x's dtype: summed in fp32, or, under
+    ``reduce_bf16``, produced in x's dtype so its grads are too (the JAX
+    package's ``preferred_element_type``)."""
+    if cfg.reduce_bf16:
+        return torch.matmul(x, w.to(x.dtype))
+    return _bmm_f32(x, w).to(x.dtype)
+
+
 def _expert_mlp(cfg: ModelConfig, p, xin):
     """xin: (E, C, D) -> (E, C, D) through each expert's gated MLP."""
     d_ff = p["wg"].shape[-1]
     scale_in = 1.0 / math.sqrt(p["wg"].shape[-2]) if cfg.boolean else 1.0
     scale_hid = 1.0 / math.sqrt(d_ff) if cfg.boolean else 1.0
-    g = _bmm_f32(xin, p["wg"]).to(xin.dtype) * scale_in
-    u = _bmm_f32(xin, p["wu"]).to(xin.dtype) * scale_in
+    g = _bmm(cfg, xin, p["wg"]) * scale_in
+    u = _bmm(cfg, xin, p["wu"]) * scale_in
     if cfg.boolean and cfg.act_boolean:
         h = boolean_activation(g, p["tau"].to(g.dtype), 1) * u
     else:
         h = F.silu(g.to(torch.float32)).to(u.dtype) * u
-    return _bmm_f32(h, p["wd"]).to(xin.dtype) * scale_hid
+    return _bmm(cfg, h, p["wd"]) * scale_hid
 
 
 def _route(cfg: ModelConfig, p, xf):

@@ -4,8 +4,9 @@
   1. view the int8 Boolean params as ±1 ``cfg.dtype`` tensors for one
      differentiation (no persistent FP latents);
   2. microbatched gradient accumulation, so activation memory is one
-     microbatch; grads are summed in fp32 — summing votes across
-     microbatches IS the paper's Eq-7 batch aggregation;
+     microbatch; grads are summed in fp32 (``grad_accum_dtype``) — summing
+     votes across microbatches IS the paper's Eq-7 batch aggregation, and
+     on a training mesh so is their sum across the batch ranks;
   3. the Boolean flip-rule update for int8 leaves + Adam for FP leaves.
 """
 from __future__ import annotations
@@ -13,7 +14,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.optimizer import (Optimizer, is_boolean_leaf,
-                                        tree_leaves, tree_map)
+                                        tree_leaves, tree_map,
+                                        tree_unflatten)
+from repro_torch.distributed.placement import BatchRows
 from repro_torch.models import ModelConfig, lm_loss
 
 
@@ -27,66 +30,124 @@ def bool_view(params, dtype=torch.bfloat16):
     return tree_map(view, params)
 
 
-def _unflatten(like, leaves):
-    """Nested dict shaped like ``like`` from leaves in ``tree_leaves`` order."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
-    return build(like)
-
-
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
-                    microbatches: int = 1):
+                    microbatches: int = 1,
+                    grad_accum_dtype=torch.float32, grad_shardings=None):
     """-> ``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "flips"})``. ``batch`` holds (B, S) ``tokens`` and ``labels``
     (and optionally ``loss_mask``) on the params' device; B is split into
-    ``microbatches`` consecutive row blocks. The optimizer updates
-    ``params`` and ``opt_state`` in place."""
-    def grads_of(pf, leaves, mb):
-        loss, _ = lm_loss(cfg, pf, mb)
+    ``microbatches`` consecutive row blocks whose grads are summed in
+    ``grad_accum_dtype``. The optimizer updates ``params`` and
+    ``opt_state`` in place.
+
+    ``grad_shardings``: the parameters' placement tree on a training mesh
+    (``distributed.placement.named(mesh, train_param_specs(params))``); the
+    step is then one rank's part of the sharded step, which computes what
+    the unsharded step computes. ``params`` and ``opt_state`` are this
+    rank's (``distributed.placement.place``); ``batch`` is the GLOBAL
+    batch, of which the rank takes its rows of each microbatch
+    (``BatchRows``). Each rank differentiates its share of each global
+    microbatch's loss (its rows' weighted NLL over the microbatch's whole weight, and its routing
+    groups' share of the MoE aux loss), so the grads summed over the batch
+    axes, once after the microbatches, are the global grads — also below
+    a ``sign_backward`` projection, where the loss's scale does not reach.
+    A ``VoteOptimizer`` (``ef_signsgd_compressed``) reduces the Boolean
+    leaves' grads itself, as votes: the step hands it each rank's share
+    times the batch shard count, the rank's estimate of the global grad.
+    ``cfg.moe_groups`` counts the global batch's routing groups; a rank's
+    rows hold ``moe_groups`` / (its batch shards) of them.
+    ``grad_shardings=None`` is the single-device step."""
+    mesh = axes = rows = None
+    dp = 1
+    if grad_shardings is not None:
+        mesh = next(sh.mesh for sh in tree_leaves(grad_shardings))
+        axes = tuple(cfg.batch_axes)
+        dp = mesh.size_of(axes)
+        if cfg.moe_groups % dp and cfg.n_experts:
+            raise ValueError(f"moe_groups={cfg.moe_groups} routing groups do "
+                             f"not split over {dp} batch shards")
+        cfg = cfg.scaled(moe_groups=max(cfg.moe_groups // dp, 1))
+        rows = BatchRows(mesh, axes)
+    votes_reduced = getattr(optimizer, "vote_axes", None) is not None
+
+    def grads_of(pf, leaves, mb, share):
+        loss, parts = lm_loss(cfg, pf, mb)
+        if share is not None:
+            # this rank's share of the global microbatch's loss
+            loss = parts["nll"] * share + 0.01 * parts["aux"] / dp
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         return loss.detach(), [torch.zeros_like(l) if g is None else g
                                for l, g in zip(leaves, grads)]
 
     def train_step(params, opt_state, batch):
+        shares = [None] * microbatches
+        if rows is not None and dp > 1:
+            shares = _shares(batch, microbatches, rows)
+            batch = {k: rows.take(v, microbatches) for k, v in batch.items()}
         pf = bool_view(params, cfg.dtype)
         leaves = tree_leaves(pf)
         if microbatches == 1:
-            loss, grads = grads_of(pf, leaves, batch)
-            grads = [g.to(torch.float32) for g in grads]
+            loss, grads = grads_of(pf, leaves, batch, shares[0])
+            # reduced in place below: a copy, as two leaves may share a
+            # grad tensor
+            grads = [g.to(torch.float32, copy=dp > 1) for g in grads]
         else:
             size = next(iter(batch.values())).shape[0]
             if size % microbatches:
                 raise ValueError(f"batch of {size} rows does not split into "
                                  f"{microbatches} microbatches")
-            rows = size // microbatches
+            n = size // microbatches
             loss = grads = None
             for i in range(microbatches):
-                mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
-                mloss, g = grads_of(pf, leaves, mb)
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                mloss, g = grads_of(pf, leaves, mb, shares[i])
                 loss = mloss if loss is None else loss + mloss
                 if grads is None:
-                    # a copy even at fp32: two leaves may share a grad
-                    # tensor, which the in-place sums would then alter twice
-                    grads = [gi.to(torch.float32, copy=True) for gi in g]
+                    # a copy even at the grads' dtype: two leaves may share
+                    # a grad tensor, which the in-place sums would then
+                    # alter twice
+                    grads = [gi.to(grad_accum_dtype, copy=True) for gi in g]
                 else:
                     for a, gi in zip(grads, g):
-                        a.add_(gi)           # fp32 sum of the widened grads
+                        a.add_(gi.to(grad_accum_dtype))
                 del g
             loss = loss / microbatches
+        if dp > 1:
+            # the grads cross the batch ranks once, after the microbatches
+            bool_leaves = tree_leaves(tree_map(is_boolean_leaf, params))
+            for g, is_bool in zip(grads, bool_leaves):
+                if votes_reduced and is_bool:
+                    g.mul_(dp)
+                else:
+                    mesh.all_reduce(g, axes)
+            loss = mesh.all_reduce(loss.reshape(1).clone(), axes)[0]
+        if microbatches > 1:
             for g in grads:
                 g.div_(microbatches)
         del pf, leaves
-        new_params, new_state = optimizer.update(_unflatten(params, grads),
-                                                 opt_state, params)
+        kw = {} if grad_shardings is None else {"shardings": grad_shardings}
+        new_params, new_state = optimizer.update(tree_unflatten(params, grads),
+                                                 opt_state, params, **kw)
         metrics = {"loss": loss.to(torch.float32),
                    "flips": _flip_total(new_state)}
         return new_params, new_state, metrics
 
     return train_step
+
+
+def _shares(batch, microbatches, rows):
+    """Each microbatch's share of its global loss that this rank's rows
+    carry: their ``loss_mask`` weight over the microbatch's (every row
+    weighs its tokens without a mask), from the global batch."""
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    w = torch.ones_like(labels, dtype=torch.float32) if mask is None \
+        else mask.to(torch.float32)
+    mine = rows.take(w, microbatches)
+    n, m = w.shape[0] // microbatches, mine.shape[0] // microbatches
+    return [float(mine[i * m:(i + 1) * m].sum())
+            / max(float(w[i * n:(i + 1) * n].sum()), 1.0)
+            for i in range(microbatches)]
 
 
 def _flip_total(opt_state):

@@ -39,8 +39,8 @@ def test_import_loads_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(SUBMODULES) >= 20
-    # the training, prefix-cache, vision, gateway, energy and serve-mesh
-    # slices' modules are among those imported
+    # the training, prefix-cache, vision, gateway, energy, serve-mesh and
+    # training-mesh slices' modules are among those imported
     assert {"repro_torch.core.optimizer", "repro_torch.kernels.boolean_bwd",
             "repro_torch.train.step", "repro_torch.train.loop",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
@@ -60,8 +60,10 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.energy.model", "repro_torch.distributed",
             "repro_torch.distributed.context",
             "repro_torch.distributed.serve_worker",
-            "repro_torch.launch.mesh", "repro_torch.launch.shardings"} \
-        <= set(SUBMODULES)
+            "repro_torch.launch.mesh", "repro_torch.launch.shardings",
+            "repro_torch.distributed.compression",
+            "repro_torch.distributed.placement",
+            "repro_torch.launch.shapes"} <= set(SUBMODULES)
 
 
 IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|repro)(?!\w)", re.M)
