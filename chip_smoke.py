@@ -313,6 +313,25 @@ wall seconds, each on a line of its own:
               repro_torch.launch.train --mesh local as a process of its
               own (exit 0), --model-axis 2 exiting non-zero with the
               divisibility message.
+17. dry run -- the analytic launchers: python -m repro_torch.launch.dryrun
+              on gemma2-2b × train_4k, prefill_32k and decode_32k × the
+              single-pod (16, 16) mesh, each a process of its own on a fake
+              world started once phase 16's host-timed sections are done
+              (each ok; its peak a rank,
+              bottleneck and roofline bound from the H100_SXM datasheet
+              record, its collectives; its traced launches of row 3 in
+              training and row 4 in the prefill); three one-rank cells at
+              published widths, each traced on a fake world of one and then
+              run on the card through the same entry points (train: phase
+              5's traffic, 2 microbatches; prefill: one 32,768-token row
+              through make_prefill_step on int8 leaves; decode: 8 rows over
+              a 32,768-row contiguous cache, 16 steps through
+              make_decode_step): the traced peak beside
+              max_memory_allocated, the median step beside the roofline
+              bound and its share of it, the card's launches a call equal
+              to the trace's; the traced launches' plans held to the
+              libraries' tiles; and the achieved bf16 matmul (8192^3) and
+              device-to-device copy (4 GiB) rates beside the record's peaks.
 
 The last lines are one JSON object of kernel results, the card's name and
 power limit as nvidia-smi reports them, and the result object.
@@ -5680,7 +5699,7 @@ def train_mesh_launcher(torch):
             "model_axis2_exit": bad.returncode, "model_axis2_message": msg}
 
 
-def train_mesh(torch, seed: int):
+def train_mesh(torch, seed: int, then=lambda: None):
     """Phase 16: gemma2-2b at published widths trained through a one-rank
     NCCL training mesh (``make_local_mesh(1)``): (a) ``make_train_step(
     grad_shardings=)`` + ``TrainLoop(shardings=)`` against an unsharded
@@ -5691,7 +5710,9 @@ def train_mesh(torch, seed: int):
     residuals held to ``compress_votes`` on the CPU; (c) one NCCL
     all-reduce of a layer's fp32 grads and of its int32 votes, timed; (d)
     the rank-local weight-backward launches of tp 2 / 4 and dp 2 / 4; (e)
-    the launcher as a process."""
+    the launcher as a process. ``then`` is called once (a)-(c), the
+    sections timed on the host, are done: phase 17 starts its traces
+    there, beside (d) and (e)."""
     import numpy as np
     import torch.distributed as dist
 
@@ -5942,6 +5963,7 @@ def train_mesh(torch, seed: int):
     mesh.close()
     gc_collect(torch)
 
+    then()
     # (d) the rank-local weight-backward launches of larger meshes
     gen = torch.Generator(device="cuda").manual_seed(seed + 16)
     slices, full_ms, full_bound = weight_bwd_slices(torch, flush, gen)
@@ -5968,6 +5990,286 @@ def train_mesh(torch, seed: int):
             "weight_bwd_full_qkv_ms": full_ms,
             "weight_bwd_full_qkv_bound_ms": full_bound, "launcher": launcher,
             "device": smi_line()}
+
+
+# ---------------------------------------------------------------------------
+# 17. dry run and roofline
+# ---------------------------------------------------------------------------
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+# phase 17's one-rank cells of gemma2-2b: (name, seq_len, batch, kind,
+# microbatches); train is phase 5's traffic, prefill one 32,768-token row,
+# decode 8 rows over a 32,768-row contiguous cache for DECODE_STEPS steps
+CELLS = (("train", 512, 4, "train", 2), ("prefill", 32768, 1, "prefill", 1),
+         ("decode", 32768, 8, "decode", 1))
+DECODE_STEPS, CELL_WARMUP, CELL_TIMED = 16, 1, 3
+# a cell's profiled call by kernel group: the port's kernels, the GEMMs,
+# then the elementwise widening and scaling of the int8 leaves and cache
+CELL_GROUPS = (("boolean_weight_bwd", ("weight_bwd", "ring_kernel")),
+               ("flash_attention", ("flash_tc", "flash_fwd")),
+               ("gemm", ("gemm", "sm90_", "cutlass", "nvjet")),
+               ("copy (dtype widening)", ("copy",)),
+               ("mul", ("mul",)))
+MATMUL_N, COPY_BYTES = 8192, 4 << 30
+# traces one cell of CELLS on a fake world of one (argv: name, seq, batch,
+# kind, microbatches, output file)
+CELL_TRACE = """
+import json, sys
+from repro_torch.launch.dryrun import trace_cell
+from repro_torch.launch.shapes import ShapeDef
+name, seq, batch, kind, mb, out = sys.argv[1:7]
+rec = trace_cell("gemma2-2b", ShapeDef(name, int(seq), int(batch), kind),
+                 ((1, 1), ("data", "model")), microbatches=int(mb))
+open(out, "w").write(json.dumps(rec, default=str))
+"""
+
+
+def start_dry_runs(out_dir: Path):
+    """Phase 17's traces, each a process of its own (a fake world belongs
+    to its process), started once phase 16's host-timed sections are done
+    so that their host time runs beside the card's: (a) ``python -m repro_torch.launch.dryrun`` on
+    gemma2-2b × each of DRYRUN_SHAPES × the single-pod mesh, and (b) each
+    of CELLS on a fake world of one. -> {name: (process, record path)};
+    every process is killed at exit if still running."""
+    import atexit
+    import os
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for shape in DRYRUN_SHAPES:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               "gemma2-2b", "--shape", shape, "--mesh", "single", "--out",
+               str(out_dir)]
+        procs[shape] = (cmd, out_dir / f"gemma2-2b__{shape}__single__"
+                                      "baseline.json")
+    for name, seq, batch, kind, mb in CELLS:
+        rec = out_dir / f"cell__{name}.json"
+        procs[f"cell:{name}"] = ([sys.executable, "-c", CELL_TRACE, name,
+                                  str(seq), str(batch), kind, str(mb),
+                                  str(rec)], rec)
+    started = {}
+    for name, (cmd, rec) in procs.items():
+        started[name] = (subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), rec)
+
+    def stop():
+        for p, _ in started.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+    atexit.register(stop)
+    return started
+
+
+def _trace_record(procs, name, timeout=900.0) -> dict:
+    p, path = procs[name]
+    out, err = p.communicate(timeout=timeout)
+    assert p.returncode == 0, f"{name}: exit {p.returncode}\n{err[-3000:]}"
+    rec = json.loads(Path(path).read_text())
+    assert rec.get("status", "ok") == "ok" and "roofline" in rec, \
+        (name, rec.get("error"), rec.get("traceback", "")[-2000:])
+    return rec
+
+
+def _cell_steps(torch, name, cfg, seq, batch, mb, seed):
+    """(the step of cell ``name`` on the card, its arguments, how many
+    launches of which kernel one step makes)."""
+    from repro_torch.core.optimizer import hybrid_optimizer
+    from repro_torch.models import cache_init, lm_init
+    from repro_torch.train import (make_decode_step, make_prefill_step,
+                                   make_train_step)
+
+    params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tok = torch.randint(0, cfg.vocab_size, (batch, seq if name != "decode"
+                                            else 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    if name == "train":
+        opt = hybrid_optimizer(eta=8.0, fp_lr=1e-3)
+        state = opt.init(params)
+        batch_d = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+        step = make_train_step(cfg, opt, mb)
+        return (lambda: step(params, state, batch_d),
+                {"boolean_weight_bwd": 7 * cfg.n_layers * mb})
+    if name == "prefill":
+        step = make_prefill_step(cfg)
+        return (lambda: step(params, {"tokens": tok}),
+                {"flash_attention_fwd": cfg.n_layers})
+    cache = cache_init(cfg, batch, seq, "cuda")
+    step = make_decode_step(cfg)
+    # the last DECODE_STEPS rows of a full context, one step a call
+    cache["pos"] = seq - DECODE_STEPS - CELL_WARMUP
+
+    def decode():
+        return step(params, cache, {"tokens": tok})
+    return decode, {}
+
+
+def cell_run(torch, name, seq, batch, kind, mb, seed):
+    """One of CELLS on the card, through the same entry points and config
+    as its trace (``apply_policy`` on a one-rank mesh): a warm-up call,
+    then CELL_TIMED calls (decode: DECODE_STEPS steps) timed by CUDA
+    events, the peak of allocated bytes over them from a reset after the
+    inputs exist, the launches a call makes, and one more call profiled
+    (its wall against its device time by CELL_GROUPS)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.shapes import ShapeDef
+    from repro_torch.launch.shardings import apply_policy
+
+    gc_collect(torch)
+    mesh = make_local_mesh(1)
+    try:
+        cfg = apply_policy(get_config("gemma2-2b"),
+                           ShapeDef(name, seq, batch, kind), mesh)
+        fn, per_call = _cell_steps(torch, name, cfg, seq, batch, mb, seed)
+        for _ in range(CELL_WARMUP):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        calls = DECODE_STEPS if name == "decode" else CELL_TIMED
+        ms = []
+        for _ in range(calls):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            del out
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        launches = {k.__name__: k.launches // calls for k in KERNELS
+                    if k.launches}
+        assert all(k.launches % calls == 0 for k in KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+        prof = _profiled(torch, fn, kernel_groups=CELL_GROUPS)
+        del fn
+    finally:
+        mesh.close()
+        gc_collect(torch)
+    return {"step_ms": ms, "median_ms": statistics.median(ms),
+            "max_memory_allocated": peak, "launches_per_call": launches,
+            "want_launches": per_call, "calls": calls, "profiled": prof}
+
+
+def datasheet_rates(torch):
+    """(c): the achieved bf16 torch.matmul rate at MATMUL_N³ and the
+    device-to-device copy rate of COPY_BYTES, CUDA events, median of 10,
+    beside the H100_SXM record's peaks: a check of the yardstick."""
+    from repro_torch.launch.hlo_analysis import H100_SXM
+
+    n = MATMUL_N
+    a = torch.randn((n, n), device="cuda", dtype=torch.bfloat16)
+    b = torch.randn((n, n), device="cuda", dtype=torch.bfloat16)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    mm_ms = time_ms(torch, lambda: torch.matmul(a, b), flush, iters=10)
+    del a, b
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    cp_ms = time_ms(torch, lambda: dst.copy_(src), flush, iters=10)
+    del src, dst, flush
+    gc_collect(torch)
+    flops = 2.0 * n ** 3
+    return {"matmul_n": n, "matmul_ms": mm_ms,
+            "matmul_tflops": flops / (mm_ms * 1e-3) / 1e12,
+            "peak_bf16_tflops": H100_SXM.peak_flops_bf16 / 1e12,
+            "copy_bytes": COPY_BYTES, "copy_ms": cp_ms,
+            # a copy reads and writes every byte
+            "copy_gb_s": 2.0 * COPY_BYTES / (cp_ms * 1e-3) / 1e9,
+            "peak_hbm_gb_s": H100_SXM.hbm_bw / 1e9}
+
+
+def dry_run(torch, seed: int, procs):
+    """Phase 17: (a) the dry run of gemma2-2b × train_4k / prefill_32k /
+    decode_32k on the single-pod fake world (each ``ok``; its peak a rank,
+    bottleneck and bound; its traced launches of rows 3 and 4); (b) three
+    one-rank cells at published widths, each traced on a fake world of one
+    and run on the card: the trace's peak beside max_memory_allocated,
+    the step's median ms beside the roofline bound and its share of it, the
+    card's launches equal to the trace's; (c) the achieved matmul and copy
+    rates beside the datasheet record's. (b) and (c) run on the card while
+    the sweep's traces, the longest, finish on the host."""
+    from repro_torch.kernels.packed_xnor import (gemv_source_tiles,
+                                                 gemv_tc_tiles)
+    from repro_torch.kernels.paged_attention import (attention_source_tiles,
+                                                     attention_tc_tiles)
+
+    # a traced launch plans with the tiles it reads from the kernels'
+    # source: those the libraries were built with and report
+    assert gemv_tc_tiles()[:4] == gemv_source_tiles()[:4], gemv_tc_tiles()
+    for lib in ("flash_attention", "paged_prefix_attention"):
+        assert attention_tc_tiles(lib)[:2] == attention_source_tiles()[:2], \
+            (lib, attention_tc_tiles(lib))
+    print("  traced launches plan with the libraries' tiles "
+          "(read from csrc/packed_xnor_gemv.cu and csrc/attention_tc.cuh)")
+    smi = smi_line()
+    out = {"sweep": {}, "cells": {}}
+    # the card's work first, the sweep's longest traces still running
+    for name, seq, batch, kind, mb in CELLS:
+        real = cell_run(torch, name, seq, batch, kind, mb, seed)
+        rec = _trace_record(procs, f"cell:{name}")
+        bound_s = rec["roofline"]["step_time_lower_bound_s"]
+        share = bound_s * 1e3 / real["median_ms"]
+        traced = rec["peak_bytes_per_device"]
+        fake = rec.get("fake_launches", {})
+        assert real["launches_per_call"] == real["want_launches"] == fake, \
+            (name, real["launches_per_call"], real["want_launches"], fake)
+        print(f"  (b) {name} ({batch} x {seq}, {kind}"
+              + (f", {mb} microbatches" if kind == "train" else "")
+              + (f", {DECODE_STEPS} steps" if kind == "decode" else "")
+              + f"): traced peak {traced / 2**30:.2f} GiB, card "
+              f"max_memory_allocated {real['max_memory_allocated'] / 2**30:.2f}"
+              f" GiB (traced / card {traced / real['max_memory_allocated']:.3f})"
+              f"; median {real['median_ms']:.2f} ms against the bound "
+              f"{bound_s * 1e3:.3f} ms ({rec['roofline']['bottleneck']}): "
+              f"{share:.4f} of it; launches a call {real['launches_per_call']}"
+              f" = traced {fake}; {smi}")
+        prof = real["profiled"]
+        print(f"      profiled call: wall {prof['wall_ms']:.2f} ms, device "
+              f"{prof['device_ms']:.2f} ms over {prof['device_events']} "
+              "kernels: " + ", ".join(
+                  f"{g} {v:.2f}" for g, v in
+                  prof["device_ms_by_group"].items() if v))
+        out["cells"][name] = {"trace": {k: rec[k] for k in (
+            "peak_bytes_per_device", "mem_by_kind", "roofline", "analytic",
+            "fake_launches", "trace_s", "model_flops_total") if k in rec},
+            "card": real, "share_of_bound": share,
+            "traced_over_card_peak": traced / real["max_memory_allocated"]}
+    rates = datasheet_rates(torch)
+    print(f"  (c) bf16 torch.matmul {MATMUL_N}^3: {rates['matmul_tflops']:.1f}"
+          f" TFLOP/s of the record's {rates['peak_bf16_tflops']:.1f}; "
+          f"device-to-device copy of {COPY_BYTES >> 30} GiB: "
+          f"{rates['copy_gb_s']:.1f} GB/s of {rates['peak_hbm_gb_s']:.0f}; "
+          f"{smi}")
+    out["rates"] = rates
+    n_layers = 26
+    for shape in DRYRUN_SHAPES:
+        rec = _trace_record(procs, shape)
+        r = rec["roofline"]
+        fake = rec.get("fake_launches", {})
+        # row 3 in training (7 Boolean projections a layer a microbatch),
+        # row 4 in the cold prefill (one a layer), no kernel in decode
+        want = {"train_4k": {"boolean_weight_bwd":
+                             7 * n_layers * rec.get("microbatches", 0)},
+                "prefill_32k": {"flash_attention_fwd": n_layers},
+                "decode_32k": {}}[shape]
+        assert fake == want, (shape, fake, want)
+        print(f"  (a) gemma2-2b × {shape} × 16x16: ok, peak "
+              f"{rec['peak_bytes_per_device'] / 2**30:.2f} GiB a rank, "
+              f"bottleneck {r['bottleneck']}, step_time_lower_bound_s "
+              f"{r['step_time_lower_bound_s']:.6g}, {rec['collectives']['count']}"
+              f" collectives ({rec['collectives']['total'] / 2**20:.1f} MiB), "
+              f"traced launches {fake}, trace {rec['trace_s']} s")
+        out["sweep"][shape] = {k: rec[k] for k in (
+            "peak_bytes_per_device", "mem_by_kind", "roofline",
+            "collectives", "collective_sites", "fake_launches", "trace_s",
+            "microbatches", "placement") if k in rec}
+    return out
 
 
 def gc_collect(torch):
@@ -6122,11 +6424,20 @@ def main() -> int:
         del serve_ref
         gc_collect(torch)
 
+    # phase 17's traces run on the host beside phase 16's last sections,
+    # after those it times on the host
+    traces = {}
     with phase(16, "train gemma2-2b (published widths) through a one-rank "
                    "NCCL training mesh, EF-SignSGD, and the rank-local weight "
                    "backward at tp and dp 2 and 4"):
-        train_mesh_metrics = train_mesh(torch, args.seed)
+        train_mesh_metrics = train_mesh(torch, args.seed, lambda: traces.update(
+            start_dry_runs(Path(args.out).parent / "dryrun")))
         gc_collect(torch)
+
+    with phase(17, "dry run and roofline: gemma2-2b's single-pod cells traced "
+                   "on a fake world, three one-rank cells traced and run on "
+                   "the card, the datasheet rates"):
+        dry_metrics = dry_run(torch, args.seed, traces)
 
     decode_m8 = [r for r in gemv_rows if r["M"] == 8]
     layer_votes = [r for r in wbwd_rows if r["alpha"] == 0.0
@@ -6339,6 +6650,8 @@ def main() -> int:
             for r in train_mesh_metrics["weight_bwd_slices"]
             for k in ("ms", "bound_ms")},
          "phase16_full_qkv_ms": train_mesh_metrics["weight_bwd_full_qkv_ms"],
+         "phase17_launches": dry_metrics["cells"]["train"]["card"][
+             "launches_per_call"]["boolean_weight_bwd"] * CELL_TIMED,
          "phase16_full_qkv_bound_ms":
              train_mesh_metrics["weight_bwd_full_qkv_bound_ms"],
          "shape": f"sum over one layer's wq, wk, wv, wo, wg, wu, wd votes at "
@@ -6374,6 +6687,8 @@ def main() -> int:
          "phase14_launches": g_launch["flash_attention_fwd"],
          "phase14_soak_launches": g_soak["flash_attention_fwd"],
          "phase15_launches": s_launch["flash_attention_fwd"],
+         "phase17_launches": dry_metrics["cells"]["prefill"]["card"][
+             "launches_per_call"]["flash_attention_fwd"] * CELL_TIMED,
          **tp_cols("flash_attention"),
          "shape": f"one layer's cold prefill: {flash['BH']} q heads over "
                   f"{flash['KV']} KV heads, S={flash['S']}, head_dim "
@@ -6489,6 +6804,7 @@ def main() -> int:
                                "gateway": gateway_metrics,
                                "serve_mesh": mesh_metrics,
                                "train_mesh": train_mesh_metrics,
+                               "dry_run": dry_metrics,
                                "phase_wall_s": walls,
                                "phase_start_launch_us": launch_at,
                                "kernels": kernels}, indent=1))

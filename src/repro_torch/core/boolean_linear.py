@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels import (boolean_matmul, boolean_weight_bwd,
                                  pack_bits, packed_xnor_gemv,
                                  packed_xnor_matmul, unpack_bits)
+from repro_torch.kernels.build import on_card
 
 from .scaling import backward_scale
 
@@ -54,11 +55,12 @@ class _MatmulF32(torch.autograd.Function):
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w summed in fp32 and returned in fp32 (``preferred_element_type=
     float32`` in the JAX package), differentiable. bf16 inputs on the card
-    go through the GEMM's fp32 output; elsewhere the operands are widened
-    first, which is exact for bf16."""
+    go through the GEMM's fp32 output (also in a trace of the card's step,
+    ``kernels.build.on_card``); elsewhere the operands are widened first,
+    which is exact for bf16."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w)
-    if x.is_cuda and x.dtype == w.dtype:
+    if on_card(x) and x.dtype == w.dtype:
         return _MatmulF32.apply(x, w)
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
@@ -66,7 +68,7 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 class _BooleanDense(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, bwd_norm, sign_backward, reduce_bf16, group,
-                fan_out):
+                fan_out, sum_votes):
         y = (torch.matmul(x, w) if reduce_bf16 else matmul_f32(x, w)) \
             .to(x.dtype)
         if b is not None:
@@ -75,6 +77,7 @@ class _BooleanDense(torch.autograd.Function):
         ctx.has_b, ctx.bwd_norm, ctx.sign_backward = \
             b is not None, bwd_norm, sign_backward
         ctx.reduce_bf16, ctx.group, ctx.fan_out = reduce_bf16, group, fan_out
+        ctx.sum_votes = sum_votes
         return y
 
     @staticmethod
@@ -102,10 +105,15 @@ class _BooleanDense(torch.autograd.Function):
         # Eq 5/7: weight votes over all batch-like rows, fp32 counts rounded
         # to the weight view's dtype
         z2 = z.reshape(-1, n).contiguous()
-        gw = boolean_weight_bwd(x.reshape(-1, m).contiguous(), z2,
-                                alpha=0.0).to(w.dtype)
-        gb = z2.to(torch.float32).sum(0).to(w.dtype) if ctx.has_b else None
-        return gx, gw, gb, None, None, None, None, None
+        gw = boolean_weight_bwd(x.reshape(-1, m).contiguous(), z2, alpha=0.0)
+        gb = z2.to(torch.float32).sum(0) if ctx.has_b else None
+        if ctx.sum_votes:
+            # a replicated weight whose output this rank reads in part: the
+            # other ranks of the group hold the other partial votes
+            gw = all_reduce_sum(gw, ctx.group)
+            gb = None if gb is None else all_reduce_sum(gb, ctx.group)
+        gb = None if gb is None else gb.to(w.dtype)
+        return gx, gw.to(w.dtype), gb, None, None, None, None, None, None
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
@@ -120,7 +128,8 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
 def boolean_dense(x: torch.Tensor, w: torch.Tensor, b=None,
                   bwd_norm: bool = True, sign_backward: bool = False,
                   reduce_bf16: bool = False, group=None,
-                  fan_out: Optional[int] = None) -> torch.Tensor:
+                  fan_out: Optional[int] = None,
+                  sum_votes: bool = False) -> torch.Tensor:
     """y = x @ w (+ b) on the ±1 weight view, fp32 counts cast to x.dtype,
     with the Boolean-variation backward.
 
@@ -136,10 +145,13 @@ def boolean_dense(x: torch.Tensor, w: torch.Tensor, b=None,
     this rank's output columns, ``group`` the ranks holding the others and
     ``fan_out`` the whole weight's columns. The backward sums δLoss/δx's
     partials over ``group`` before the √(2/fan_out) normalisation and the
-    sign, so every rank gets the unsharded signal.
+    sign, so every rank gets the unsharded signal. ``sum_votes``: ``w`` is
+    the whole weight, replicated over ``group``, and each rank reads only
+    part of its output (k/v when the KV heads are fewer than the ranks):
+    the votes (and the bias grad) are also summed over ``group``, in fp32.
     """
     return _BooleanDense.apply(x, w, b, bwd_norm, sign_backward, reduce_bf16,
-                               group, fan_out)
+                               group, fan_out, sum_votes)
 
 
 class PackedBool:

@@ -74,6 +74,9 @@
 
 namespace attn {
 
+// kernels/paged_attention.py reads BQ and BK from this text to plan a
+// traced launch, where no library is built; the libraries report them
+// (export_tiles) for a launch.
 constexpr int BQ = 128;                  // query rows a block: 2 x 64
 constexpr int BK = 64;                   // key rows a tile
 constexpr int THREADS = 384;             // two consumer warpgroups + a producer one

@@ -169,6 +169,11 @@ __global__ void xnor_gemv_reduce(const float* __restrict__ part, float* __restri
 constexpr int TC_KS = 4;                 // words a stage (128 k)
 constexpr int TC_COLS = 128;             // weight columns a block
 constexpr int TC_THREADS = 288;          // two consumer warpgroups + a producer warp
+// By lane tile (rows of x a block, ascending): the lane tile, the blocks an
+// SM and the ring's stages. kernels/packed_xnor.py reads TC_KS, TC_COLS and
+// this table from this text to plan a traced launch, where no library is
+// built; the library reports them (xnor_gemv_tc_tiles) for a launch.
+constexpr int TC_TILES[5][3] = {{8, 3, 8}, {16, 2, 8}, {32, 2, 6}, {64, 2, 4}, {128, 1, 4}};
 
 // bits 0 and 1 of u as a bf16 pair (low half from bit 0): +1 where set, -1
 // where clear
@@ -192,10 +197,13 @@ __device__ __forceinline__ void fragment(uint32_t (&a)[4], uint32_t u0,
 // of a K-major wgmma operand), then the words as one 4 x 128 box.
 template <int LANES>
 struct Ring {
+    static constexpr int ROW = LANES == 8 ? 0 : LANES == 16 ? 1 : LANES == 32 ? 2
+                               : LANES == 64 ? 3 : 4;
+    static_assert(TC_TILES[ROW][0] == LANES, "no such lane tile");
     static constexpr int X_BOX = LANES * 128;
     static constexpr int STAGE = 2 * X_BOX + TC_KS * TC_COLS * 4;
-    static constexpr int STAGES = LANES <= 16 ? 8 : LANES == 32 ? 6 : 4;
-    static constexpr int BLOCKS = LANES == 8 ? 3 : LANES <= 64 ? 2 : 1;
+    static constexpr int STAGES = TC_TILES[ROW][2];
+    static constexpr int BLOCKS = TC_TILES[ROW][1];
     static constexpr size_t SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
 };
 

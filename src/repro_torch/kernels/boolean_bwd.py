@@ -46,7 +46,7 @@ def weight_bwd_route(x: torch.Tensor, z: torch.Tensor,
     N = z.shape[1]
     if (x.dtype == torch.bfloat16 and z.dtype == torch.bfloat16
             and alpha <= 0.0 and B > 0 and M % 8 == 0 and N % 8 == 0
-            and x.data_ptr() % 16 == 0 and z.data_ptr() % 16 == 0):
+            and build.address(x) % 16 == 0 and build.address(z) % 16 == 0):
         return "tensor_cores"
     return "cuda_cores"
 
@@ -59,7 +59,9 @@ def boolean_weight_bwd(x: torch.Tensor, z: torch.Tensor, d=None, *,
     threshold, read only when ``alpha > 0``. CPU tensors take the plain
     version; CUDA tensors launch the kernel ``weight_bwd_route`` names.
     ``boolean_weight_bwd.launches`` counts kernel launches, ``.tc_launches``
-    and ``.cc_launches`` those of the tensor-core and CUDA-core kernels.
+    and ``.cc_launches`` those of the tensor-core and CUDA-core kernels;
+    a traced launch (``build.traced``) allocates y and counts
+    ``.fake_launches``.
     """
     if x.dim() != 2 or z.dim() != 2 or x.shape[0] != z.shape[0]:
         raise ValueError(f"weight bwd wants x (B, M) and z (B, N), got x "
@@ -74,7 +76,7 @@ def boolean_weight_bwd(x: torch.Tensor, z: torch.Tensor, d=None, *,
     tensors = (x, z) if alpha <= 0.0 else (x, z, d)
     if all(t.device.type == "cpu" for t in tensors):
         return boolean_weight_bwd_plain(x, z, d, alpha=alpha)
-    if not (x.is_cuda and all(t.device == x.device for t in tensors)):
+    if not (build.on_card(x) and all(t.device == x.device for t in tensors)):
         raise ValueError("weight bwd operands must all be on one CUDA device, "
                          f"got {[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
@@ -82,6 +84,9 @@ def boolean_weight_bwd(x: torch.Tensor, z: torch.Tensor, d=None, *,
     B, M = x.shape
     N = z.shape[1]
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if build.traced(*tensors):
+        boolean_weight_bwd.fake_launches += 1
+        return y
     lib = build.library("boolean_weight_bwd")
     tc = weight_bwd_route(x, z, alpha) == "tensor_cores"
     with torch.cuda.device(x.device):
@@ -107,3 +112,4 @@ def boolean_weight_bwd(x: torch.Tensor, z: torch.Tensor, d=None, *,
 boolean_weight_bwd.launches = 0
 boolean_weight_bwd.tc_launches = 0
 boolean_weight_bwd.cc_launches = 0
+boolean_weight_bwd.fake_launches = 0

@@ -53,8 +53,10 @@ def boolean_matmul_operands(x: torch.Tensor, w: torch.Tensor):
     Kp = -(-K // 16) * 16
     if Kp != K:
         x = torch.nn.functional.pad(x, (0, Kp - K))
-    elif x.data_ptr() % 16:
+    elif build.address(x) % 16:
         x = x.clone()
+    if build.traced(w):
+        return x, torch.empty((N, Kp), dtype=torch.int8, device=w.device)
     if not w.is_cuda:
         wt = w.new_zeros((N, Kp))
         wt[:, :K] = w.t()
@@ -75,7 +77,9 @@ def boolean_matmul(x: torch.Tensor, w: torch.Tensor, *,
     """x (M, K) int8 @ w (K, N) int8 -> (M, N) int32 counts, or int8 ±1
     (s ≥ tau) with ``fuse_threshold``. CPU tensors take the plain version;
     CUDA tensors launch the kernel on ``boolean_matmul_operands(x, w)``.
-    ``boolean_matmul.launches`` counts kernel launches."""
+    ``boolean_matmul.launches`` counts kernel launches; a traced launch
+    (``build.traced``) allocates y and the operands and counts
+    ``.fake_launches``."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"boolean matmul wants x (M, K) and w (K, N), got x "
                          f"{tuple(x.shape)}, w {tuple(w.shape)}")
@@ -85,7 +89,7 @@ def boolean_matmul(x: torch.Tensor, w: torch.Tensor, *,
     if x.device.type == "cpu" and w.device.type == "cpu":
         return boolean_matmul_plain(x, w, fuse_threshold=fuse_threshold,
                                     tau=tau)
-    if not (x.is_cuda and w.device == x.device):
+    if not (build.on_card(x) and w.device == x.device):
         raise ValueError(f"boolean matmul operands on {x.device} and "
                          f"{w.device}: both must be on one CUDA device")
     if not (x.is_contiguous() and w.is_contiguous()):
@@ -96,6 +100,9 @@ def boolean_matmul(x: torch.Tensor, w: torch.Tensor, *,
     if y.numel() == 0:
         return y
     xk, wt = boolean_matmul_operands(x, w)
+    if build.traced(x, w):
+        boolean_matmul.fake_launches += 1
+        return y
     lib = build.library("boolean_matmul")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -108,3 +115,4 @@ def boolean_matmul(x: torch.Tensor, w: torch.Tensor, *,
 
 
 boolean_matmul.launches = 0
+boolean_matmul.fake_launches = 0

@@ -9,6 +9,14 @@ library already built.
 ``build_all`` starts one ``nvcc`` per source, all at once. Nothing here
 runs at import time: the CPU tests import every module of the port on a
 host without ``nvcc``.
+
+``traced`` tells a wrapper that its operands are a traced launch's: the dry
+run's ``FakeTensorMode`` tensors off the CPU (``launch/dryrun.py``). Such
+a launch allocates what the kernel's launch allocates, builds and launches
+nothing, and counts ``<wrapper>.fake_launches``; a CPU tensor still takes
+the plain version and a CUDA tensor the kernel. It plans with the tile
+constants it reads from the kernel's source (``source_ints``), the ones
+the library is compiled from.
 """
 from __future__ import annotations
 
@@ -23,6 +31,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Tuple
 
+from torch._subclasses.fake_tensor import FakeTensor
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("packed_xnor_gemv", "paged_flash_decode", "boolean_weight_bwd",
@@ -34,6 +44,43 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+#: the SMs of an H100 SXM: what the GEMV's grid always plans for, and
+#: what a traced launch plans for where a launch asks the device
+H100_SMS = 132
+
+
+def source_ints(source: str, name: str) -> List[int]:
+    """The integers of ``constexpr int <name>... = ...;`` in
+    ``csrc/<source>``, in order: a constant or table of a kernel's source,
+    which a traced launch plans with where no library is built."""
+    text = (CSRC / source).read_text()
+    m = re.search(rf"constexpr\s+int\s+{name}\b[^=]*=([^;]*);", text)
+    if m is None:
+        raise LookupError(f"no constexpr int {name} in csrc/{source}")
+    return [int(v) for v in re.findall(r"-?\d+", m.group(1))]
+
+
+def traced(*tensors) -> bool:
+    """Whether the tensors are a traced launch's: ``FakeTensorMode``
+    tensors (shapes and dtypes, no storage) on a device other than the
+    CPU."""
+    return bool(tensors) and all(isinstance(t, FakeTensor)
+                                 and t.device.type != "cpu" for t in tensors)
+
+
+def on_card(t) -> bool:
+    """``t`` lies on the card, or stands for a tensor on it in a trace."""
+    return t.is_cuda or traced(t)
+
+
+def address(t) -> int:
+    """``t``'s data address, for alignment tests; a traced tensor's is its
+    storage offset in bytes (the allocator aligns every base)."""
+    if isinstance(t, FakeTensor):
+        return t.storage_offset() * t.element_size()
+    return t.data_ptr()
 
 
 def _nvcc() -> str:

@@ -133,7 +133,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     ``softcap`` > 0 applies the tanh logit cap. Returns (BH, S, hd) in q's
     dtype. CUDA tensors launch the kernel ``flash_route`` names.
     ``flash_attention_fwd.launches`` counts kernel launches, ``.tc_launches``
-    and ``.cc_launches`` those of the tensor-core and CUDA-core kernels.
+    and ``.cc_launches`` those of the tensor-core and CUDA-core kernels; a
+    traced launch (``build.traced``) allocates the output and counts
+    ``.fake_launches``.
     """
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or n_rep < 1 \
             or q.shape[0] != k.shape[0] * n_rep or q.shape[1:] != k.shape[1:]:
@@ -151,17 +153,21 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     if all(t.device.type == "cpu" for t in tensors):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, n_rep=n_rep)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
+    if not all(build.on_card(t) and t.device == q.device for t in tensors):
         raise ValueError("flash attention operands must all lie on one CUDA "
                          "device")
     hd = q.shape[2]
     if hd not in _HEAD_DIMS:
         raise ValueError(f"flash attention kernel takes head_dim in "
                          f"{_HEAD_DIMS}, got {hd}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+    if not all(t.is_contiguous() and build.address(t) % 16 == 0
+               for t in tensors):
         raise ValueError("flash attention operands must be contiguous and "
                          "16-byte aligned")
     route = flash_route(q)
+    if build.traced(*tensors):
+        flash_attention_fwd.fake_launches += 1
+        return torch.empty_like(q)          # what _launch allocates
     out = _launch(route, q, k, v, causal=causal, window=window,
                   softcap=softcap, n_rep=n_rep)
     flash_attention_fwd.launches += 1
@@ -175,3 +181,4 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
 flash_attention_fwd.launches = 0
 flash_attention_fwd.tc_launches = 0
 flash_attention_fwd.cc_launches = 0
+flash_attention_fwd.fake_launches = 0

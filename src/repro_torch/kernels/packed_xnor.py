@@ -73,8 +73,7 @@ def packed_xnor_gemv_plain(x: torch.Tensor, w_packed: torch.Tensor, *,
 
 
 # Fill the card: aim for this many blocks (2 per SM of an H100's 132).
-_SMS = 132
-_TARGET_BLOCKS = 2 * _SMS
+_TARGET_BLOCKS = 2 * build.H100_SMS
 _BN, _BM, _KWS_MAX, _KWS_MIN = 256, 8, 32, 4
 
 
@@ -109,6 +108,20 @@ def gemv_tc_tiles() -> GemvTiles:
                                        for c in (1, 2, 3)))
 
 
+@functools.lru_cache(maxsize=None)
+def gemv_source_tiles() -> GemvTiles:
+    """The tile table as ``csrc/packed_xnor_gemv.cu`` writes it (``TC_KS``,
+    ``TC_COLS``, ``TC_TILES``), read from its text: what a traced launch
+    (``build.traced``) plans with, where no library is built. The shared
+    bytes are the compiler's, and left empty."""
+    (ks,), (cols,) = (build.source_ints("packed_xnor_gemv.cu", n)
+                      for n in ("TC_KS", "TC_COLS"))
+    flat = build.source_ints("packed_xnor_gemv.cu", "TC_TILES")
+    rows = [flat[i:i + 3] for i in range(0, len(flat), 3)]
+    return GemvTiles(ks, cols, {r[0]: r[1] for r in rows},
+                     {r[0]: r[2] for r in rows}, {})
+
+
 def gemv_tc_plan(M: int, Kw: int, N: int, tiles: GemvTiles):
     """(lanes, ksplit, words per split) for the tensor-core kernel: the
     narrowest lane tile of ``tiles`` that covers M (the widest above it,
@@ -116,7 +129,7 @@ def gemv_tc_plan(M: int, Kw: int, N: int, tiles: GemvTiles):
     SM; every split but the last a whole number of stages."""
     lanes = next((b for b in tiles.blocks if b >= M), max(tiles.blocks))
     n_tiles = (-(-N // tiles.cols)) * (-(-M // lanes))
-    ksplit = max(1, _SMS * tiles.blocks[lanes] // n_tiles)
+    ksplit = max(1, build.H100_SMS * tiles.blocks[lanes] // n_tiles)
     ksplit = min(ksplit, -(-Kw // tiles.ks))
     kws = -(-(-(-Kw // ksplit)) // tiles.ks) * tiles.ks
     return lanes, -(-Kw // kws), kws
@@ -130,7 +143,8 @@ def gemv_route(x: torch.Tensor, w_packed: torch.Tensor) -> str:
     shapes and addresses alone."""
     K, N = x.shape[1], w_packed.shape[1]
     if (x.dtype == torch.bfloat16 and K % 8 == 0 and N % 4 == 0
-            and x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0):
+            and build.address(x) % 16 == 0
+            and build.address(w_packed) % 16 == 0):
         return "tensor_cores"
     return "cuda_cores"
 
@@ -145,7 +159,8 @@ def packed_xnor_gemv(x: torch.Tensor, w_packed: torch.Tensor, *,
     CPU tensors take the plain version; CUDA tensors launch the kernel
     ``gemv_route`` names. ``packed_xnor_gemv.launches`` counts kernel
     launches, ``.tc_launches`` and ``.cc_launches`` those of the
-    tensor-core and CUDA-core kernels.
+    tensor-core and CUDA-core kernels; a traced launch (``build.traced``)
+    allocates y and the split-K partials and counts ``.fake_launches``.
 
     ``plan_n``: plan the launch (lane tile, K split) as for a weight of
     ``plan_n`` columns. A column shard of a wider weight passes the whole
@@ -165,7 +180,7 @@ def packed_xnor_gemv(x: torch.Tensor, w_packed: torch.Tensor, *,
         raise TypeError(f"packed weights must be int32 words, got {w_packed.dtype}")
     if x.device.type == "cpu" and w_packed.device.type == "cpu":
         return packed_xnor_gemv_plain(x, w_packed, k_valid=k_valid)
-    if not (x.is_cuda and w_packed.device == x.device):
+    if not (build.on_card(x) and w_packed.device == x.device):
         raise ValueError(f"packed gemv operands on {x.device} and "
                          f"{w_packed.device}: both must be on one CUDA device")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -173,13 +188,19 @@ def packed_xnor_gemv(x: torch.Tensor, w_packed: torch.Tensor, *,
     if not (x.is_contiguous() and w_packed.is_contiguous()):
         raise ValueError("packed gemv operands must be contiguous")
     tc = gemv_route(x, w_packed) == "tensor_cores"
+    traced = build.traced(x, w_packed)
     if tc:
-        lanes, ksplit, kws = gemv_tc_plan(M, Kw, plan_n or N, gemv_tc_tiles())
+        lanes, ksplit, kws = gemv_tc_plan(
+            M, Kw, plan_n or N,
+            gemv_source_tiles() if traced else gemv_tc_tiles())
     else:
         ksplit, kws = gemv_split(M, Kw, plan_n or N)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     part = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
             if ksplit > 1 else y)
+    if traced:
+        packed_xnor_gemv.fake_launches += 1
+        return y
     lib = build.library("packed_xnor_gemv")
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
@@ -204,6 +225,7 @@ def packed_xnor_gemv(x: torch.Tensor, w_packed: torch.Tensor, *,
 packed_xnor_gemv.launches = 0
 packed_xnor_gemv.tc_launches = 0
 packed_xnor_gemv.cc_launches = 0
+packed_xnor_gemv.fake_launches = 0
 
 
 def packed_xnor_matmul_plain(x_packed: torch.Tensor, w_packed: torch.Tensor, *,
@@ -229,7 +251,8 @@ def packed_xnor_matmul(x_packed: torch.Tensor, w_packed: torch.Tensor, *,
     int32 words packed along axis 0 (``pack_bits`` layouts); pad bits F on
     both sides make s the ±1 product over the k_valid real bits. CPU tensors
     take the plain version; CUDA tensors launch the kernel.
-    ``packed_xnor_matmul.launches`` counts kernel launches.
+    ``packed_xnor_matmul.launches`` counts kernel launches; a traced launch
+    (``build.traced``) allocates y and counts ``.fake_launches``.
     """
     if x_packed.dim() != 2 or w_packed.dim() != 2 \
             or x_packed.shape[1] != w_packed.shape[0]:
@@ -244,13 +267,16 @@ def packed_xnor_matmul(x_packed: torch.Tensor, w_packed: torch.Tensor, *,
         raise ValueError(f"k_valid={k_valid} does not fit {Kw} words")
     if x_packed.device.type == "cpu" and w_packed.device.type == "cpu":
         return packed_xnor_matmul_plain(x_packed, w_packed, k_valid=k_valid)
-    if not (x_packed.is_cuda and w_packed.device == x_packed.device):
+    if not (build.on_card(x_packed) and w_packed.device == x_packed.device):
         raise ValueError(f"packed matmul operands on {x_packed.device} and "
                          f"{w_packed.device}: both must be on one CUDA device")
     if not (x_packed.is_contiguous() and w_packed.is_contiguous()):
         raise ValueError("packed matmul operands must be contiguous")
     y = torch.empty((M, N), dtype=torch.int32, device=x_packed.device)
     if y.numel() == 0:
+        return y
+    if build.traced(x_packed, w_packed):
+        packed_xnor_matmul.fake_launches += 1
         return y
     lib = build.library("packed_xnor_matmul")
     with torch.cuda.device(x_packed.device):
@@ -264,3 +290,4 @@ def packed_xnor_matmul(x_packed: torch.Tensor, w_packed: torch.Tensor, *,
 
 
 packed_xnor_matmul.launches = 0
+packed_xnor_matmul.fake_launches = 0

@@ -170,6 +170,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _sms(dev: torch.device) -> int:
+    """The SMs a launch on ``dev`` plans for (``build.H100_SMS`` for a
+    traced one)."""
+    return _sm_count(dev.index) if dev.type == "cuda" else build.H100_SMS
+
+
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -188,8 +194,9 @@ def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 def _decode_launch(route: str, q, k_pool, v_pool, block_table, pos, k_scale,
                    v_scale, *, window: int, softcap_val: float,
                    nsplit: Optional[int] = None) -> torch.Tensor:
-    """Launch the kernel of ``route`` on checked CUDA operands; counts
-    nothing. The wrapper calls it with ``decode_route``'s answer and the
+    """Launch the kernel of ``route`` on checked CUDA operands (a traced
+    launch allocates the same buffers and returns); counts nothing. The
+    wrapper calls it with ``decode_route``'s answer and the
     shares of ``decode_split`` at the device's SM count (at the unsharded
     KV head count under a serve mesh: ``plan_kv``). ``nsplit`` is also a
     measurement hook: a measurement may time a route with another number
@@ -200,21 +207,33 @@ def _decode_launch(route: str, q, k_pool, v_pool, block_table, pos, k_scale,
     quant = k_pool.dtype == torch.int8
     dev = q.device
     if nsplit is None:
-        nsplit = decode_split(L, KV, C, _sm_count(dev.index))
+        nsplit = decode_split(L, KV, C, _sms(dev))
     out = torch.empty((L, KV, R, hd), dtype=torch.float32, device=dev)
+    part_m = part_l = part_ml = part_acc = None
+    if route == "tensor_cores":
+        if nsplit > 1:
+            part_ml = torch.empty((L, KV, nsplit, R, 2), dtype=torch.float32,
+                                  device=dev)
+            part_acc = torch.empty((L, KV, nsplit, R, hd),
+                                   dtype=torch.float32, device=dev)
+    else:
+        pps = -(-C // nsplit)          # whole pages a share
+        nsplit = -(-C // pps)
+        part_m = torch.empty((L, KV, nsplit, R), dtype=torch.float32,
+                             device=dev)
+        part_l = torch.empty_like(part_m)
+        part_acc = torch.empty((L, KV, nsplit, R, hd), dtype=torch.float32,
+                               device=dev)
+    if build.traced(q):
+        return out
     lib = build.library("paged_flash_decode")
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         scales = (k_scale.data_ptr() if quant else None,
                   v_scale.data_ptr() if quant else None)
         if route == "tensor_cores":
-            part_ml = part_acc = tickets = None
-            if nsplit > 1:
-                part_ml = torch.empty((L, KV, nsplit, R, 2), dtype=torch.float32,
-                                      device=dev)
-                part_acc = torch.empty((L, KV, nsplit, R, hd),
-                                       dtype=torch.float32, device=dev)
-                tickets = _tickets(dev, stream.value, L * KV)
+            tickets = _tickets(dev, stream.value, L * KV) if nsplit > 1 \
+                else None
             rc = lib.paged_flash_decode_tc(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
                 block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
@@ -223,13 +242,6 @@ def _decode_launch(route: str, q, k_pool, v_pool, block_table, pos, k_scale,
                 int(quant), n_pages, L, KV, R, hd, page, C, nsplit, int(window),
                 float(softcap_val), 1.0 / math.sqrt(hd), stream)
         else:
-            pps = -(-C // nsplit)          # whole pages a share
-            nsplit = -(-C // pps)
-            part_m = torch.empty((L, KV, nsplit, R), dtype=torch.float32,
-                                 device=dev)
-            part_l = torch.empty_like(part_m)
-            part_acc = torch.empty((L, KV, nsplit, R, hd), dtype=torch.float32,
-                                   device=dev)
             rc = lib.paged_flash_decode(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
                 int(q.dtype == torch.bfloat16), int(quant),
@@ -254,7 +266,9 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos,
     at pos). Returns (L, KV, R, hd) fp32. CUDA tensors launch the kernel
     ``decode_route`` names. ``paged_flash_decode.launches`` counts kernel
     launches, ``.tc_launches`` and ``.cc_launches`` those of the
-    tensor-core and CUDA-core routes.
+    tensor-core and CUDA-core routes; a traced launch (``build.traced``)
+    allocates the output and the split buffers and counts
+    ``.fake_launches``.
 
     ``plan_kv``: split each lane's pages into the shares ``decode_split``
     gives ``plan_kv`` KV heads. A serve-mesh rank holding a head slice
@@ -280,7 +294,7 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos,
         return paged_flash_decode_plain(q, k_pool, v_pool, block_table, pos,
                                         k_scale, v_scale, window=window,
                                         softcap_val=softcap_val)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
+    if not all(build.on_card(t) and t.device == q.device for t in tensors):
         raise ValueError("paged decode operands must all lie on one CUDA device")
     if q.dtype not in (torch.bfloat16, torch.float32) or (
             not quant and (k_pool.dtype != q.dtype or v_pool.dtype != q.dtype)):
@@ -297,15 +311,18 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos,
     # bytes (hd / 32 elements a lane, .cu load_row); the tensor-core route
     # asks it of every operand (TMA boxes of the pools, bulk copies of the
     # scales)
-    if any(t.data_ptr() % 16 for t in
+    if any(build.address(t) % 16 for t in
            (tensors if route == "tensor_cores" else (q, k_pool, v_pool))):
         raise ValueError(f"paged decode on the {route} route takes "
                          "16-byte-aligned operands")
     nsplit = None if plan_kv is None else decode_split(
-        L, plan_kv, block_table.shape[1], _sm_count(q.device.index))
+        L, plan_kv, block_table.shape[1], _sms(q.device))
     out = _decode_launch(route, q, k_pool, v_pool, block_table, pos, k_scale,
                          v_scale, window=window, softcap_val=softcap_val,
                          nsplit=nsplit)
+    if build.traced(*tensors):
+        paged_flash_decode.fake_launches += 1
+        return out
     paged_flash_decode.launches += 1
     if route == "tensor_cores":
         paged_flash_decode.tc_launches += 1
@@ -317,6 +334,7 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos,
 paged_flash_decode.launches = 0
 paged_flash_decode.tc_launches = 0
 paged_flash_decode.cc_launches = 0
+paged_flash_decode.fake_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +464,17 @@ def attention_tc_tiles(name: str = "paged_prefix_attention") -> AttentionTiles:
                           {r[0]: r[2] for r in rows})
 
 
+@functools.lru_cache(maxsize=None)
+def attention_source_tiles() -> AttentionTiles:
+    """The tiles as ``csrc/attention_tc.cuh`` writes them (``BQ``, ``BK``),
+    read from its text: what a traced launch (``build.traced``) plans
+    with, where no library is built. The stages and shared bytes by head
+    dim are the libraries', and left empty."""
+    (bq,), (bk,) = (build.source_ints("attention_tc.cuh", n)
+                    for n in ("BQ", "BK"))
+    return AttentionTiles(bq, bk, {}, {})
+
+
 def prefix_split(H: int, T: int, KV: int, n_tiles: int, bq: int,
                  sms: int) -> int:
     """Shares of the key window for the tensor-core route: its blocks --
@@ -460,8 +489,9 @@ def _prefix_launch(route: str, q, k_tail, v_tail, k_pool, v_pool, page_ids,
                    offset: int, prefix_len: int, length: int, k_scale,
                    v_scale, *, n_rep: int, window: int, softcap_val: float,
                    nsplit: Optional[int] = None) -> torch.Tensor:
-    """Launch the kernel of ``route`` on checked CUDA operands; counts
-    nothing. The wrapper calls it with ``prefix_route``'s answer, and the
+    """Launch the kernel of ``route`` on checked CUDA operands (a traced
+    launch allocates the same buffers and returns); counts nothing. The
+    wrapper calls it with ``prefix_route``'s answer, and the
     tensor-core route takes its shares from ``prefix_split``. ``nsplit``
     is a measurement hook that the serving path never passes: a
     measurement may time the tensor-core route with another number of
@@ -470,7 +500,23 @@ def _prefix_launch(route: str, q, k_tail, v_tail, k_pool, v_pool, page_ids,
     S, KV = k_tail.shape[:2]
     n_pages, page = k_pool.shape[:2]
     quant = k_pool.dtype == torch.int8
+    traced = build.traced(q)
     out = torch.empty((H, T, hd), dtype=torch.float32, device=q.device)
+    part_o = part_ml = None
+    if route == "tensor_cores":
+        if nsplit is None:
+            tiles = attention_source_tiles() if traced \
+                else attention_tc_tiles()
+            n_live = min(page_ids.shape[0], -(-prefix_len // page))
+            n_tiles = -(-n_live * page // tiles.bk) + -(-S // tiles.bk)
+            nsplit = prefix_split(H, T, KV, n_tiles, tiles.bq, _sms(q.device))
+        if nsplit > 1:
+            part_o = torch.empty((nsplit, H * T, hd), dtype=torch.float32,
+                                 device=q.device)
+            part_ml = torch.empty((nsplit, H * T, 2), dtype=torch.float32,
+                                  device=q.device)
+    if traced:
+        return out
     lib = build.library("paged_prefix_attention")
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
@@ -483,18 +529,6 @@ def _prefix_launch(route: str, q, k_tail, v_tail, k_pool, v_pool, page_ids,
                 prefix_len, length, int(window), float(softcap_val),
                 1.0 / math.sqrt(hd), stream)
         if route == "tensor_cores":
-            if nsplit is None:
-                tiles = attention_tc_tiles()
-                n_live = min(page_ids.shape[0], -(-prefix_len // page))
-                n_tiles = -(-n_live * page // tiles.bk) + -(-S // tiles.bk)
-                nsplit = prefix_split(H, T, KV, n_tiles, tiles.bq,
-                                      _sm_count(q.device.index))
-            part_o = part_ml = None
-            if nsplit > 1:
-                part_o = torch.empty((nsplit, H * T, hd), dtype=torch.float32,
-                                     device=q.device)
-                part_ml = torch.empty((nsplit, H * T, 2), dtype=torch.float32,
-                                      device=q.device)
             rc = lib.paged_prefix_attention_tc(
                 *ptrs, None if part_o is None else part_o.data_ptr(),
                 None if part_ml is None else part_ml.data_ptr(), int(quant),
@@ -525,7 +559,9 @@ def paged_prefix_attention(q, k_tail, v_tail, k_pool, v_pool, page_ids,
     Returns (H, T, hd) fp32. CUDA tensors launch the kernel
     ``prefix_route`` names. ``paged_prefix_attention.launches`` counts
     kernel launches, ``.tc_launches`` and ``.cc_launches`` those of the
-    tensor-core and CUDA-core kernels.
+    tensor-core and CUDA-core kernels; a traced launch (``build.traced``)
+    allocates the output and the split buffers and counts
+    ``.fake_launches``.
     """
     if q.dim() != 3 or k_tail.dim() != 3 or k_pool.dim() != 4 \
             or k_tail.shape != v_tail.shape or k_pool.shape != v_pool.shape:
@@ -555,7 +591,7 @@ def paged_prefix_attention(q, k_tail, v_tail, k_pool, v_pool, page_ids,
             q, k_tail, v_tail, k_pool, v_pool, page_ids, offset, prefix_len,
             length, k_scale, v_scale, n_rep=n_rep, window=window,
             softcap_val=softcap_val, chunk=chunk)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
+    if not all(build.on_card(t) and t.device == q.device for t in tensors):
         raise ValueError("paged prefix operands must all lie on one CUDA device")
     if q.dtype not in (torch.bfloat16, torch.float32) \
             or k_tail.dtype != q.dtype or v_tail.dtype != q.dtype \
@@ -566,13 +602,17 @@ def paged_prefix_attention(q, k_tail, v_tail, k_pool, v_pool, page_ids,
     if hd not in _HEAD_DIMS:
         raise ValueError(f"paged prefix kernel takes head_dim in {_HEAD_DIMS}, "
                          f"got {hd}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+    if not all(t.is_contiguous() and build.address(t) % 16 == 0
+               for t in tensors):
         raise ValueError("paged prefix operands must be contiguous and "
                          "16-byte aligned")
     route = prefix_route(q, k_pool)
     out = _prefix_launch(route, q, k_tail, v_tail, k_pool, v_pool, page_ids,
                          offset, prefix_len, length, k_scale, v_scale,
                          n_rep=n_rep, window=window, softcap_val=softcap_val)
+    if build.traced(*tensors):
+        paged_prefix_attention.fake_launches += 1
+        return out
     paged_prefix_attention.launches += 1
     if route == "tensor_cores":
         paged_prefix_attention.tc_launches += 1
@@ -584,3 +624,4 @@ def paged_prefix_attention(q, k_tail, v_tail, k_pool, v_pool, page_ids,
 paged_prefix_attention.launches = 0
 paged_prefix_attention.tc_launches = 0
 paged_prefix_attention.cc_launches = 0
+paged_prefix_attention.fake_launches = 0

@@ -1,0 +1,392 @@
+"""Dry run: trace one rank's step of every (architecture × input shape ×
+mesh) cell on a fake world of 256 or 512 ranks, and record its memory,
+collectives and roofline (the JAX package's ``launch/dryrun.py``).
+
+The JAX package lowers and compiles each cell on placeholder devices and
+reads XLA's memory and cost analyses and the collectives of its HLO. The
+port runs eagerly, so it traces instead: ``launch.mesh.fake_world`` starts
+torch's ``"fake"`` process-group backend at rank 0 of the production
+world, the parameters, optimizer state, cache and inputs are
+``FakeTensorMode`` tensors (shapes and dtypes, no storage; on ``meta``,
+which the kernel wrappers and ``matmul_f32`` take for the card) at this
+rank's placement, and the step runs once under
+``hlo_analysis.CollectiveRecord`` (every collective it dispatches) and
+torch's ``MemTracker`` (the peak bytes of the rank's live tensors, by
+kind). The kernel wrappers take their traced branch on fake tensors: they
+allocate what their launch allocates, build and launch nothing, and count
+``fake_launches``. The roofline's FLOPs and bytes are
+``flops_model.analytic_cell_cost``'s, on the ``hlo_analysis.H100_SXM``
+datasheet record: a prediction, not a reading. Its compute and memory
+terms model the JAX package's placement and its collective term the
+port's (the trace's record); ``roofline_placement`` says so in each
+record.
+
+Placement: the port's (``launch/shardings.py``), which shards less than
+the JAX package's cells: the batch over "pod"/"data"; in training the
+attention heads over "model" (the q/k/v columns; k/v replicated where the
+KV heads are fewer than the axis); in decode the cache rows over "model";
+the weights otherwise replicated (FSDP and the "model" split of d_ff,
+vocab and experts are not ported). A per-device peak above the JAX
+package's is expected; each record states its placement.
+
+Usage (CPU only; writes ``results/dryrun_torch/`` unless ``--out``):
+  PYTHONPATH=src python -m repro_torch.launch.dryrun                # all cells
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b \\
+      --shape decode_32k --mesh single                              # one cell
+  ... --variant '{"moe_impl": "scatter"}' --tag scatter
+  ... --calibrate      # analytic FLOPs against FlopCounterMode, loop-free
+
+The fake world belongs to the process: run one sweep a process.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.optimizer import (hybrid_optimizer, tree_leaves,
+                                        tree_map)
+from repro_torch.distributed.placement import named, place
+from repro_torch.kernels import KERNELS
+from repro_torch.models import cache_init, lm_init
+
+from .flops_model import analytic_cell_cost
+from .hlo_analysis import (CollectiveRecord, active_params,
+                           collective_breakdown, collective_bytes,
+                           model_flops, roofline_terms, total_params)
+from .mesh import PRODUCTION, fake_world
+from .shapes import SHAPES, ShapeDef, applicable, input_specs
+from .shardings import (apply_policy, kv_replicated, train_microbatches,
+                        train_param_specs)
+
+RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
+
+#: run options of ``--variant`` (keys with a leading underscore)
+_RUN_OPTS = ("_grad_accum_bf16",)
+
+
+def _fake_launches() -> dict:
+    return {k.__name__: k.fake_launches for k in KERNELS}
+
+
+def _to(tree, device):
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _placement(cfg, shape: ShapeDef, mesh) -> dict:
+    tp = mesh.shape.get("model", 1)
+    out = {"batch": list(cfg.batch_axes),
+           "weights": "replicated over the batch axes; FSDP and the "
+                      "'model' split of d_ff, vocab and experts are not "
+                      "ported"}
+    if shape.kind == "train":
+        kv = "replicated" if kv_replicated(cfg, tp) else "columns"
+        out["heads"] = (f"'model': q columns, k/v {kv}" if tp > 1
+                        else "unsharded")
+    else:
+        out["heads"] = "unsharded (every 'model' rank runs its rows' step)"
+    out["cache_seq"] = list(cfg.cache_seq_axes) if shape.kind == "decode" \
+        else []
+    if shape.kind == "prefill" and cfg.cache_seq_axes:
+        out["cache_seq_note"] = ("the prefill emits its rows' whole cache: "
+                                 "the JAX package's seq-sharded out_sharding "
+                                 "has no counterpart")
+    out["note"] = ("the JAX package's cells shard more; a per-device peak "
+                   "above theirs is expected")
+    return out
+
+
+def _track(mt, tree, kind) -> None:
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            mt._update_and_maybe_create_winfos(t, kind)
+
+
+def _inputs(cfg, shape: ShapeDef, mesh, fake_mode, variant_opts, mb,
+            dev=None):
+    """The cell's step and its arguments as fake tensors on ``dev`` (the
+    mesh's device by default) at this rank's placement -> (step, args,
+    {"param", "opt" / "cache"} trees to tag)."""
+    from repro_torch.train import (make_decode_step, make_prefill_step,
+                                   make_train_step)
+
+    dev = mesh.device if dev is None else dev
+    tp = mesh.shape.get("model", 1)
+    dp = mesh.size_of(cfg.batch_axes)        # the policy's batch axes
+    with fake_mode:
+        params = _to(lm_init(cfg, torch.Generator().manual_seed(0)), dev)
+        ins = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+               for k, v in input_specs(cfg, shape).items()}
+        if shape.kind == "train":
+            shardings = None
+            if mesh.size > 1:
+                shardings = named(mesh, train_param_specs(
+                    params, replicate_kv=kv_replicated(cfg, tp)))
+                params = place(params, shardings)
+            opt = hybrid_optimizer(eta=8.0, fp_lr=1e-3)
+            opt_state = opt.init(params)
+            gdtype = (torch.bfloat16 if variant_opts.get("_grad_accum_bf16")
+                      else torch.float32)
+            step = make_train_step(cfg, opt, microbatches=mb,
+                                   grad_accum_dtype=gdtype,
+                                   grad_shardings=shardings)
+            return step, (params, opt_state, ins), {"param": params,
+                                                    "opt": opt_state}
+        if shape.global_batch % dp:
+            raise ValueError(f"a batch of {shape.global_batch} does not "
+                             f"split over {dp} batch shards")
+        b = shape.global_batch // dp
+        ins = {k: v[:b] for k, v in ins.items()}
+        if shape.kind == "prefill":
+            return make_prefill_step(cfg), (params, ins), {"param": params}
+        n = mesh.size_of(cfg.cache_seq_axes) if cfg.cache_seq_axes else 1
+        if shape.seq_len % n:
+            raise ValueError(f"{shape.seq_len} cache rows do not split over "
+                             f"{n} ranks")
+        cache = cache_init(cfg, b, shape.seq_len // n, dev)
+        cache["pos"] = shape.seq_len - 1     # a full context
+        return (make_decode_step(cfg), (params, cache, ins),
+                {"param": params, "cache": cache})
+
+
+def trace_cell(arch: str, shape, layout, variant: dict = None,
+               trace: bool = True, microbatches: int = None) -> dict:
+    """Trace one cell on a fake world -> its record. ``shape``: a name of
+    ``SHAPES`` or a ``ShapeDef``; ``layout``: the mesh's (shape, axes);
+    ``microbatches``: train's grad-accumulation factor (default
+    ``train_microbatches``). ``trace=False`` stops after building the
+    inputs."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed._tools.mem_tracker import MemTracker, _MemRefType
+
+    t0 = time.time()
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    mshape, axes = layout
+    cfg0 = get_config(arch)
+    rec = {"arch": arch, "shape": shape.name,
+           "mesh": "x".join(map(str, mshape)), "n_chips": math.prod(mshape),
+           "variant": variant or {}}
+    if not applicable(cfg0, shape):
+        rec["skipped"] = ("long_500k needs sub-quadratic attention; "
+                          f"{arch} is full-attention")
+        return rec
+    opts = {k: v for k, v in (variant or {}).items() if k.startswith("_")}
+    unknown = set(opts) - set(_RUN_OPTS)
+    if unknown:
+        raise ValueError(f"unknown run options {sorted(unknown)}; the port "
+                         f"has {list(_RUN_OPTS)}")
+    mesh = fake_world(mshape, axes)
+    try:
+        cfg = apply_policy(cfg0, shape, mesh)
+        over = {k: v for k, v in (variant or {}).items()
+                if not k.startswith("_")}
+        if over:
+            cfg = cfg.scaled(**over)
+        mb = 1
+        if shape.kind == "train":
+            mb = microbatches or train_microbatches(cfg, shape, mesh)
+            rec["microbatches"] = mb
+        rec["placement"] = _placement(cfg, shape, mesh)
+        fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
+        step, args, tags = _inputs(cfg, shape, mesh, fake_mode, opts, mb)
+        rec["build_s"] = round(time.time() - t0, 1)
+        if not trace:
+            return rec
+
+        t1 = time.time()
+        before = _fake_launches()
+        coll = CollectiveRecord()
+        mt = MemTracker()
+        _track(mt, tags["param"], _MemRefType.PARAM)
+        _track(mt, tags.get("opt"), _MemRefType.OPT)
+        _track(mt, tags.get("cache"), _MemRefType.BUFFER)
+        _track(mt, args[-1], _MemRefType.OTH)
+        grad = torch.enable_grad() if shape.kind == "train" \
+            else torch.no_grad()
+        with fake_mode, coll, mt, grad:
+            out = step(*args)
+        del out
+        rec["trace_s"] = round(time.time() - t1, 1)
+        after = _fake_launches()
+        rec["fake_launches"] = {k: after[k] - before[k] for k in after
+                                if after[k] != before[k]}
+        snap = mt.get_tracker_snapshot("peak").get(mesh.device, {})
+        rec["peak_bytes_per_device"] = int(snap.get("Total", 0))
+        rec["mem_by_kind"] = {str(getattr(k, "name", k)): int(v)
+                              for k, v in snap.items() if k != "Total"}
+
+        cb = collective_bytes(coll)
+        rec["collectives"] = {k: int(v) for k, v in cb.items()}
+        rec["collective_top"] = collective_breakdown(coll)
+        rec["collective_sites"] = _sites(coll)
+        rec["collective_ops"] = [
+            {k: op[k] for k in ("kind", "dtype", "shape", "group", "site")}
+            for op in coll.ops]
+        ana = analytic_cell_cost(cfg, shape, mesh, microbatches=mb)
+        rec["analytic"] = {k: float(v) for k, v in ana.items()}
+        terms = roofline_terms(ana["flops_per_device"],
+                               ana["bytes_per_device"], cb["total"],
+                               mesh.size, ring_total=cb["ring_total"],
+                               record=coll)
+        rec["roofline"] = terms
+        # the terms' placements differ: the bound is neither's alone where
+        # the two part (a world of one holds the whole model in both)
+        rec["roofline_placement"] = {
+            "compute_s": "the JAX package's (analytic_cell_cost: FSDP, "
+                         "the 'model' splits)",
+            "memory_s": "the JAX package's (analytic_cell_cost)",
+            "collective_s": "the port's (this trace's CollectiveRecord: "
+                            "replicated weights, whole grads reduced)"}
+        mf = model_flops(cfg0, shape)
+        rec["model_flops_total"] = mf
+        per_dev_model = mf / mesh.size
+        rec["model_flops_per_device"] = per_dev_model
+        rec["useful_flops_ratio"] = (
+            per_dev_model / terms["hlo_flops_per_device"]
+            if terms["hlo_flops_per_device"] else 0.0)
+        rec["total_params"] = total_params(cfg0)
+        rec["active_params"] = active_params(cfg0)
+        rec["total_s"] = round(time.time() - t0, 1)
+        return rec
+    finally:
+        mesh.close()
+
+
+def _sites(coll) -> dict:
+    """Collective count by (kind, call site)."""
+    out: dict = {}
+    for op in coll.ops:
+        key = f"{op['kind']} {op['site']}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def run_and_save(arch, shape_name, multi_pod, variant=None, tag="baseline",
+                 out_dir: Path = RESULTS_DIR, trace: bool = True) -> dict:
+    mesh_tag = "multi" if multi_pod else "single"
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = out_dir / f"{arch}__{shape_name}__{mesh_tag}__{tag}.json"
+    try:
+        rec = trace_cell(arch, shape_name, PRODUCTION[multi_pod], variant,
+                         trace=trace)
+        rec["status"] = "skipped" if "skipped" in rec else "ok"
+    except Exception as e:  # record the failure, keep the sweep going
+        rec = {"arch": arch, "shape": shape_name, "mesh": mesh_tag,
+               "variant": variant or {}, "status": "error",
+               "error": f"{type(e).__name__}: {e}",
+               "traceback": traceback.format_exc()[-4000:]}
+    out.write_text(json.dumps(rec, indent=2, default=str))
+    extra = ""
+    if rec["status"] == "ok" and "roofline" in rec:
+        r = rec["roofline"]
+        extra = (f" trace={rec.get('trace_s')}s"
+                 f" bottleneck={r.get('bottleneck')}"
+                 f" bound={r.get('step_time_lower_bound_s'):.4g}s"
+                 f" mem/dev={rec.get('peak_bytes_per_device', 0)/2**30:.2f}GiB")
+    print(f"[dryrun] {arch} × {shape_name} × {mesh_tag} [{tag}]: "
+          f"{rec['status']}{extra}", flush=True)
+    return rec
+
+
+def calibrate(arch: str, shape_name: str,
+              out_dir: Path = RESULTS_DIR) -> dict:
+    """Validate the analytic FLOPs model against ``FlopCounterMode`` on a
+    LOOP-FREE config (the JAX package's: n_layers = group_size, one
+    microbatch, chunks = seq, no remat), traced on fake CPU tensors, where
+    every product is an aten op that the counter sees (the kernels' plain
+    versions). The world is one rank: the port's placement replicates the
+    model's work over "model" outside training attention, so a per-device
+    count on the production mesh would not be the analytic model's
+    per-device share; on one rank both count the whole step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    shape = SHAPES[shape_name]
+    cfg0 = get_config(arch)
+    small = ShapeDef(shape.name, min(shape.seq_len, 4096),
+                     min(shape.global_batch, 32), shape.kind)
+    overrides = dict(n_layers=cfg0.group_size, attn_chunk=small.seq_len,
+                     ssm_chunk=small.seq_len, decode_chunk=small.seq_len,
+                     remat=False)
+    mesh = fake_world((1, 1), ("data", "model"))
+    try:
+        cfg = apply_policy(cfg0.scaled(**overrides), small, mesh)
+        fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
+        step, args, _ = _inputs(cfg, small, mesh, fake_mode, {}, 1,
+                                dev=torch.device("cpu"))
+        counter = FlopCounterMode(display=False)
+        grad = torch.enable_grad() if small.kind == "train" \
+            else torch.no_grad()
+        with fake_mode, counter, grad:
+            step(*args)
+        counted = float(counter.get_total_flops())
+    finally:
+        mesh.close()
+    ana = analytic_cell_cost(cfg, small, mesh, microbatches=1)
+    rec = {"arch": arch, "shape": shape_name, "kind": "calibration",
+           "loopfree_counted_flops_per_dev": counted,
+           "loopfree_analytic_flops_per_dev": ana["flops_per_device"],
+           "ratio_analytic_over_counted": (ana["flops_per_device"] / counted
+                                           if counted else float("nan"))}
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"calibrate__{arch}__{shape_name}.json").write_text(
+        json.dumps(rec, indent=2))
+    print(f"[calibrate] {arch} × {shape_name}: analytic/counted = "
+          f"{rec['ratio_analytic_over_counted']:.3f}", flush=True)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, help="arch id or 'all'")
+    ap.add_argument("--shape", default=None, help="shape name or 'all'")
+    ap.add_argument("--mesh", default="both",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--variant", default=None,
+                    help="JSON dict of ModelConfig overrides (and the run "
+                         "option _grad_accum_bf16)")
+    ap.add_argument("--tag", default="baseline")
+    ap.add_argument("--lower-only", action="store_true",
+                    help="build the inputs, do not trace the step")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="loop-free analytic-vs-counted FLOPs validation")
+    ap.add_argument("--out", default=str(RESULTS_DIR),
+                    help="directory of the records")
+    args = ap.parse_args(argv)
+    out_dir = Path(args.out)
+
+    if args.calibrate:
+        archs = ARCH_IDS if args.arch in (None, "all") else [args.arch]
+        shapes = (["train_4k", "prefill_32k", "decode_32k"]
+                  if args.shape in (None, "all") else [args.shape])
+        for arch in archs:
+            for shape_name in shapes:
+                try:
+                    calibrate(arch, shape_name, out_dir)
+                except Exception as e:
+                    print(f"[calibrate] {arch} × {shape_name}: "
+                          f"ERROR {type(e).__name__}: {e}", flush=True)
+        return
+
+    archs = ARCH_IDS if args.arch in (None, "all") else [args.arch]
+    shapes = list(SHAPES) if args.shape in (None, "all") else [args.shape]
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+    variant = json.loads(args.variant) if args.variant else None
+    for arch in archs:
+        for shape_name in shapes:
+            for multi_pod in meshes:
+                run_and_save(arch, shape_name, multi_pod, variant, args.tag,
+                             out_dir, trace=not args.lower_only)
+
+
+if __name__ == "__main__":
+    main()

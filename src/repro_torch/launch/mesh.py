@@ -15,6 +15,15 @@ world is the one this process has joined, else the one torch's standard
 environment describes (``torchrun`` sets ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``), else a world of one
 started here. ``mesh_batch_axes`` and ``mesh_num_chips`` read any mesh.
+
+``fake_world`` is the dry run's world (``launch/dryrun.py``): torch's
+``"fake"`` backend at rank 0 of any number of ranks, whose collectives
+return at once and move nothing, for a step traced under
+``FakeTensorMode``. Its mesh's device is ``meta``: a fake tensor there
+has no storage and no device guard (a CPU-only torch cannot index a fake
+``cuda`` tensor), and the kernel wrappers take it for the card's
+(``kernels.build.traced``). A real run never starts that backend: the
+worlds above are NCCL or gloo.
 """
 from __future__ import annotations
 
@@ -157,7 +166,11 @@ def _join_world(device) -> tuple:
 
 
 def _train_mesh(shape, axes, device) -> TrainMesh:
-    dev, started = _join_world(device)
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        # fake_world's: the traced step's tensors are fake ones on meta
+        dev, started = torch.device("meta"), False
+    else:
+        dev, started = _join_world(device)
     try:
         dm = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
         mesh = TrainMesh(dm, dev, owns_world=started)
@@ -175,13 +188,39 @@ def _world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
+#: the production meshes' (shape, axes), by ``multi_pod``
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def fake_world(shape, axes) -> TrainMesh:
+    """A ``TrainMesh`` of ``shape`` named ``axes`` over a world of
+    ``prod(shape)`` ranks of torch's ``"fake"`` backend, started here at
+    rank 0 (``close()`` ends it); its device is ``meta``. For the dry run
+    only: its collectives move nothing, and tensors on its device are
+    ``FakeTensorMode``'s. ``make_production_mesh`` also builds on such a
+    world. Installs the mesh as the process's."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: this process already joined a world")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        mesh = _train_mesh(tuple(shape), tuple(axes), "cuda")
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    mesh._owns_world = True
+    return mesh
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device="cuda") -> TrainMesh:
     """The (data 16, model 16) mesh of a 256-card pod, with a leading pod
-    axis of 2 under ``multi_pod``: a world of exactly that many ranks.
-    Installs it as the process's mesh."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    axis of 2 under ``multi_pod``: a world of exactly that many ranks (or
+    ``fake_world``'s). Installs it as the process's mesh."""
+    shape, axes = PRODUCTION[multi_pod]
     want = math.prod(shape)
     n = _world_size()
     if n != want:

@@ -17,7 +17,10 @@ keeps the JAX package's math and chooses where tensors live: "pod" and
 parameters and optimizer state are replicated across them and the grads
 are reduced over them once a step; "model" is head parallel, the serve
 mesh's split below — the q/k/v projections shard on their output (head)
-axis and everything else is replicated. The JAX package's FSDP of the
+axis and everything else is replicated. Where the KV heads are fewer
+than the axis (gemma2-2b's 4 on the production meshes' 16), k/v are
+replicated as the JAX package places them (``kv_replicated``), and their
+votes are summed over "model". The JAX package's FSDP of the
 weights over "data" and its "model" split of d_ff, vocab and experts
 change only memory and are not ported yet.
 
@@ -167,8 +170,31 @@ def serve_param_specs(params):
     return walk(params)
 
 
-# training shards the same leaves as serving (the module docstring)
-train_param_specs = serve_param_specs
+def kv_replicated(cfg: ModelConfig, tp: int) -> bool:
+    """Whether a "model" axis of ``tp`` ranks replicates the k/v
+    projections in training: its KV heads do not split over it
+    (``ModelConfig.kv_heads_padded`` leaves KV heads fewer than the axis
+    unpadded, "replicated over the model axis instead")."""
+    return tp > 1 and cfg.kv_heads_padded() % tp != 0
+
+
+def train_param_specs(params, replicate_kv: bool = False):
+    """Placement tree for head-parallel training: ``serve_param_specs``'s,
+    with the k/v weights and biases replicated under ``replicate_kv``
+    (``kv_replicated``: every rank computes all KV heads and reads those
+    its q heads need; their votes are summed over "model")."""
+    specs = serve_param_specs(params)
+    if not replicate_kv:
+        return specs
+
+    def walk(node, sp):
+        if not isinstance(node, dict):
+            return sp
+        is_attn = "wo" in node and "wq" in node
+        return {k: (_replicated(v) if is_attn and k in ("wk", "wv")
+                    else walk(v, sp[k])) for k, v in node.items()}
+
+    return walk(params, specs)
 
 
 def serve_pool_specs(cfg: ModelConfig, pool):

@@ -53,7 +53,8 @@ def main(argv=None):
     from repro_torch.distributed.placement import named, place
     from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
                                          mesh_batch_axes)
-    from repro_torch.launch.shardings import (train_param_specs,
+    from repro_torch.launch.shardings import (kv_replicated,
+                                              train_param_specs,
                                               train_state_specs)
     from repro_torch.models import lm_init
     from repro_torch.serve import resolve_device
@@ -79,7 +80,8 @@ def main(argv=None):
                          .manual_seed(0))
         specs = shardings = None
         if sharded:
-            specs = train_param_specs(params)
+            specs = train_param_specs(params, replicate_kv=kv_replicated(
+                cfg, mesh.shape["model"]))
             shardings = named(mesh, specs)
             params = place(params, shardings)
         opt = hybrid_optimizer(

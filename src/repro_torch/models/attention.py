@@ -279,7 +279,11 @@ def attention_apply(cfg: ModelConfig, p, x, positions, *,
     (``_train_heads_mesh``): ``p``'s q/k/v hold this rank's hp/tp q and
     kvp/tp KV heads (contiguous, group-major, so a rank's q heads read its
     own KV heads), the padded-head mask tests global head indices, and the
-    heads are gathered before the replicated ``wo``."""
+    heads are gathered before the replicated ``wo``. With fewer KV heads
+    than ranks (tp a multiple of kvp) k/v are replicated, as the JAX
+    package places them: every rank computes all KV heads, its q heads read
+    KV head ``rank // (tp / kvp)``, and the k/v votes are summed over the
+    axis (``proj_apply(replicated=True)``)."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
     hp = cfg.heads_padded(axis_size)
@@ -291,16 +295,26 @@ def attention_apply(cfg: ModelConfig, p, x, positions, *,
         q, k, v = _qkv(cfg, p, x, positions, axis_size)
     else:
         tp = mesh.shape["model"]
-        if kvp % tp:
-            raise ValueError(f"{cfg.name}: {kvp} KV heads do not split over "
-                             f"a model axis of {tp}")
-        hp_l, kvp_l = hp // tp, kvp // tp
+        rep = kvp % tp != 0
+        if rep and (tp % kvp or hp % tp):
+            raise ValueError(f"{cfg.name}: {kvp} KV heads neither split over "
+                             f"nor evenly share a model axis of {tp}")
+        if rep and p["wk"]["w"].shape[-1] != kvp * hd:
+            raise ValueError("k/v must be replicated on a model axis wider "
+                             "than the KV heads (launch.shardings."
+                             "train_param_specs(replicate_kv=True))")
+        hp_l, kvp_l = hp // tp, (1 if rep else kvp // tp)
+        n_rep = hp_l // kvp_l
         group = mesh.group("model")
-        q, k, v = (proj_apply(cfg, p[name], x, group=group)
-                   for name in ("wq", "wk", "wv"))
+        q = proj_apply(cfg, p["wq"], x, group=group)
+        k, v = (proj_apply(cfg, p[name], x, group=group, replicated=rep)
+                .reshape(B, S, -1, hd) for name in ("wk", "wv"))
+        if rep:
+            # every KV head on every rank: this rank's q heads read one
+            j = mesh.coords["model"] // (tp // kvp)
+            k, v = k[:, :, j:j + 1], v[:, :, j:j + 1]
         q = rope(q.reshape(B, S, hp_l, hd), positions, cfg.rope_theta)
-        k = rope(k.reshape(B, S, kvp_l, hd), positions, cfg.rope_theta)
-        v = v.reshape(B, S, kvp_l, hd)
+        k = rope(k, positions, cfg.rope_theta)
         shard = (mesh.coords["model"], tp)
     out = flash_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
                           causal=True,

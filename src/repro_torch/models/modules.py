@@ -194,7 +194,8 @@ def head_init(gen: torch.Generator, cfg: ModelConfig):
 # Projection dispatch: packed Boolean, int8 Boolean, or FP — one call site.
 # ---------------------------------------------------------------------------
 def proj_apply(cfg: ModelConfig, p, x, *, scale: Optional[float] = None,
-               plan_n: Optional[int] = None, group=None):
+               plan_n: Optional[int] = None, group=None,
+               replicated: bool = False):
     """Apply a projection. Boolean path: counting GEMM, then the
     deterministic 1/√fan_in pre-activation normalizer (App C.3).
     ``plan_n``: a packed shard's whole column count, so the serving GEMV
@@ -202,7 +203,10 @@ def proj_apply(cfg: ModelConfig, p, x, *, scale: Optional[float] = None,
     (``packed_xnor_gemv``). ``group``: ``p`` holds this rank's output
     columns of a weight whose other columns live on the other ranks of
     that process group (head-parallel training); the activation grad is
-    summed over it (``boolean_dense``, ``copy_to_group``)."""
+    summed over it (``boolean_dense``, ``copy_to_group``). With
+    ``replicated`` ``p`` is the whole weight on every rank of ``group``,
+    each rank reading part of its output: the weight's grads are summed
+    over the group as well."""
     w = p["w"]
     b = p.get("b")
     if isinstance(w, PackedBool):
@@ -216,10 +220,13 @@ def proj_apply(cfg: ModelConfig, p, x, *, scale: Optional[float] = None,
         w = w.to(cfg.dtype)
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
-    shards = 1 if group is None else dist.get_world_size(group)
+    shards = 1 if group is None or replicated else dist.get_world_size(group)
+    if replicated and b is not None:
+        b = copy_to_group(b, group)
     if cfg.boolean:
         y = boolean_dense(x, w, None, cfg.bwd_norm, cfg.sign_backward,
-                          cfg.reduce_bf16, group, w.shape[-1] * shards)
+                          cfg.reduce_bf16, group, w.shape[-1] * shards,
+                          replicated)
         s = (1.0 / math.sqrt(w.shape[0])) if scale is None else scale
         y = y * torch.tensor(s, dtype=y.dtype)
         if b is not None:
@@ -227,6 +234,8 @@ def proj_apply(cfg: ModelConfig, p, x, *, scale: Optional[float] = None,
         return y
     if group is not None:
         x = copy_to_group(x, group)
+        if replicated:
+            w = copy_to_group(w, group)
     y = torch.matmul(x, w) if cfg.reduce_bf16 else matmul_f32(x, w)
     y = y.to(x.dtype)
     if b is not None:

@@ -17,7 +17,7 @@ from repro_torch.core.optimizer import (Optimizer, is_boolean_leaf,
                                         tree_leaves, tree_map,
                                         tree_unflatten)
 from repro_torch.distributed.placement import BatchRows
-from repro_torch.models import ModelConfig, lm_loss
+from repro_torch.models import ModelConfig, lm_decode_step, lm_loss, lm_prefill
 
 
 def bool_view(params, dtype=torch.bfloat16):
@@ -138,16 +138,19 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
 def _shares(batch, microbatches, rows):
     """Each microbatch's share of its global loss that this rank's rows
     carry: their ``loss_mask`` weight over the microbatch's (every row
-    weighs its tokens without a mask), from the global batch."""
+    weighs its tokens without a mask), from the global batch. 0-dim fp32
+    tensors on the batch's device (no host sync): the fp64 quotient of
+    the two fp32 sums rounded once to fp32, as a product with a Python
+    float rounds it."""
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     w = torch.ones_like(labels, dtype=torch.float32) if mask is None \
         else mask.to(torch.float32)
     mine = rows.take(w, microbatches)
     n, m = w.shape[0] // microbatches, mine.shape[0] // microbatches
-    return [float(mine[i * m:(i + 1) * m].sum())
-            / max(float(w[i * n:(i + 1) * n].sum()), 1.0)
-            for i in range(microbatches)]
+    return [(mine[i * m:(i + 1) * m].sum().double()
+             / w[i * n:(i + 1) * n].sum().double().clamp(min=1.0))
+            .to(torch.float32) for i in range(microbatches)]
 
 
 def _flip_total(opt_state):
@@ -156,3 +159,23 @@ def _flip_total(opt_state):
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
     return sum(leaves)
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Serving prefill: ``prefill_step(params, batch) -> (last-position
+    logits, cache)`` over raw int8 params (per-layer transient float
+    views), ``lm_prefill``'s cold route."""
+    def prefill_step(params, batch):
+        return lm_prefill(cfg, params, batch)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """``decode_step(params, cache, batch) -> (logits, cache)``: one token
+    (``batch["tokens"]`` or the (B, 1) tokens themselves) over a
+    contiguous cache from ``cache_init`` (after ``lm_prefill``), updated in
+    place."""
+    def decode_step(params, cache, batch):
+        tokens = batch["tokens"] if isinstance(batch, dict) else batch
+        return lm_decode_step(cfg, params, cache, tokens)
+    return decode_step

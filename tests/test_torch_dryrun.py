@@ -1,0 +1,210 @@
+"""The port's dry run (``python -m repro_torch.launch.dryrun``) on the
+CPU: each cell in a subprocess, since the fake world belongs to its
+process, writing into ``tmp_path``; the subprocesses run at once.
+
+- gemma2-2b × decode_32k × single is ``ok``: peak under 80 GiB, and its
+  recorded collectives equal, op by op, the cell's formula: per attention
+  layer the three ``seq_combines`` all-reduces over "model" of the
+  seq-sharded decode (``models/attention.py::_decode_seq_sharded``: the
+  max, the rescaled sum, the rescaled accumulator), and nothing else (the
+  weights are replicated, the batch rows independent).
+- gemma2-2b's smoke widths (``--variant``) × train_4k × single is ``ok``
+  with every collective of the head-parallel step counted: the head
+  gathers, the q/k/v activation-grad sums (and, its 2 KV heads fewer than
+  the 16 "model" ranks, the replicated k/v votes' sums), the grads and
+  votes of every leaf and the loss all-reduced over "data" once, and the
+  flip counts of the sharded Boolean leaves over "model".
+- ``--calibrate`` reports analytic / counted FLOPs within [0.5, 2] for
+  gemma2-2b's three kinds.
+- ``--lower-only`` builds the inputs and traces nothing.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.core.optimizer import tree_leaves
+from repro_torch.launch.shapes import SHAPES
+from repro_torch.launch.shardings import apply_policy
+from repro_torch.models import lm_init
+
+ROOT = Path(__file__).resolve().parents[1]
+SMOKE = get_smoke("gemma2-2b")
+# the smoke config's widths over the full config (a variant overrides
+# fields of the published config)
+VARIANT = {k: getattr(SMOKE, k) for k in (
+    "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+    "vocab_size", "sliding_window")}
+
+RUNS = {
+    "decode": ["--arch", "gemma2-2b", "--shape", "decode_32k", "--mesh",
+               "single"],
+    "train": ["--arch", "gemma2-2b", "--shape", "train_4k", "--mesh",
+              "single", "--variant", json.dumps(VARIANT), "--tag", "smoke"],
+    "lower": ["--arch", "gemma2-2b", "--shape", "train_4k", "--mesh",
+              "single", "--lower-only", "--tag", "lower"],
+    "cal-train": ["--arch", "gemma2-2b", "--calibrate", "--shape", "train_4k"],
+    "cal-prefill": ["--arch", "gemma2-2b", "--calibrate", "--shape",
+                    "prefill_32k"],
+    "cal-decode": ["--arch", "gemma2-2b", "--calibrate", "--shape",
+                   "decode_32k"],
+}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every run at once, each in its own directory -> {name: (stdout,
+    out dir)}; each must exit 0."""
+    tmp = tmp_path_factory.mktemp("dryrun")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    for name, args in RUNS.items():
+        out = tmp / name
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), out)
+    done = {}
+    try:
+        for name, (p, out) in procs.items():
+            stdout, stderr = p.communicate(timeout=400)
+            assert p.returncode == 0, f"{name}:\n{stderr[-4000:]}"
+            done[name] = (stdout, out)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return done
+
+
+def _record(runs, name, file):
+    rec = json.loads((runs[name][1] / file).read_text())
+    assert rec["status"] == "ok", rec.get("traceback", rec)
+    return rec
+
+
+def test_decode_cell_is_ok_and_its_collectives_are_the_formula(runs):
+    rec = _record(runs, "decode", "gemma2-2b__decode_32k__single__baseline.json")
+    assert rec["mesh"] == "16x16" and rec["n_chips"] == 256
+    assert 0 < rec["peak_bytes_per_device"] < 80 * 2 ** 30
+    assert rec["roofline"]["bottleneck"] in ("compute", "memory",
+                                             "collective")
+    assert rec["roofline"]["step_time_lower_bound_s"] > 0
+    assert rec["collectives"]["total"] > 0 and rec["collectives"]["count"] > 0
+
+    cfg = get_config("gemma2-2b")
+    b = 128 // 16                                   # rows of a data rank
+    kvp = cfg.kv_heads_padded()
+    r = cfg.heads_padded() // kvp
+    n_attn = cfg.n_layers                          # every layer attends
+    want = [("all-reduce", "f32", [b, kvp, r], 16),           # max
+            ("all-reduce", "f32", [b, kvp, r], 16),           # sum
+            ("all-reduce", "f32", [b, kvp, r, cfg.head_dim_], 16)] * n_attn
+    got = [(op["kind"], op["dtype"], op["shape"], op["group"])
+           for op in rec["collective_ops"]]
+    assert got == want
+    assert {op["site"] for op in rec["collective_ops"]} == \
+        {"TrainMesh.all_reduce[seq_combines]"}
+    # bytes: the operand of each all-reduce is its result
+    assert rec["collectives"]["all-reduce"] == n_attn * 4 * b * kvp * r * (
+        2 + cfg.head_dim_)
+    assert rec["collectives"]["total"] == rec["collectives"]["all-reduce"]
+    assert rec["placement"]["cache_seq"] == ["model"]
+    # the KV cache (int8 rows + scales) of this rank's slab of 2,048 rows
+    assert rec["mem_by_kind"]["BUFFER"] == n_attn * 2 * b * (32768 // 16) \
+        * kvp * (cfg.head_dim_ + 4)
+
+
+def test_smoke_train_cell_counts_every_collective(runs):
+    rec = _record(runs, "train", "gemma2-2b__train_4k__single__smoke.json")
+    cfg = apply_policy(get_config("gemma2-2b").scaled(**VARIANT),
+                       SHAPES["train_4k"], _Mesh)
+    mb = rec["microbatches"]
+    assert mb == 256 // (16 * 4)                # 4 rows a rank a microbatch
+    n_attn = cfg.n_layers
+    # 2 KV heads under 16 "model" ranks: k/v replicated, their votes summed
+    assert cfg.kv_heads_padded() == 2
+    assert rec["placement"]["heads"] == "'model': q columns, k/v replicated"
+    sites = rec["collective_sites"]
+    remat = 2 if cfg.remat else 1
+    assert sites["all-gather TrainMesh.all_gather[head_gathers]"] \
+        == n_attn * mb * remat
+    # q, k, v activation grads + the k and v votes, each microbatch
+    assert sites["all-reduce boolean_linear.all_reduce_sum"] == n_attn * mb * 5
+    # every leaf's grad (the Boolean leaves' are their votes) and the loss,
+    # over "data", once a step; the flip counts of the sharded wq leaves
+    # (one per block role) over "model"
+    n_leaves = _n_leaves(cfg)
+    assert sites["all-reduce TrainMesh.all_reduce[grad_reduces]"] \
+        == n_leaves + 1
+    assert sites["all-reduce TrainMesh.all_reduce[count_reduces]"] == 2
+    assert len(sites) == 4
+    grads = [op for op in rec["collective_ops"]
+             if op["site"].endswith("[grad_reduces]")]
+    assert {op["group"] for op in grads} == {16}
+    assert {op["dtype"] for op in grads} == {"f32"}
+    # the weight backward of 7 Boolean projections a layer a microbatch
+    assert rec["fake_launches"] == {"boolean_weight_bwd": mb * n_attn * 7}
+    kinds = rec["mem_by_kind"]
+    assert kinds["PARAM"] > 0 and kinds["OPT"] > 0
+    assert rec["peak_bytes_per_device"] >= kinds["PARAM"] + kinds["OPT"]
+
+
+class _Mesh:
+    axis_names = ("data", "model")
+    shape = {"data": 16, "model": 16}
+
+
+def _n_leaves(cfg):
+    return len(tree_leaves(lm_init(cfg, torch.Generator().manual_seed(0))))
+
+
+def test_lower_only_traces_nothing(runs):
+    rec = _record(runs, "lower", "gemma2-2b__train_4k__single__lower.json")
+    assert "build_s" in rec and "trace_s" not in rec
+    assert "collectives" not in rec and "peak_bytes_per_device" not in rec
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_calibration_ratio(runs, shape):
+    name = "cal-" + shape.split("_")[0]
+    rec = json.loads((runs[name][1] / f"calibrate__gemma2-2b__{shape}.json")
+                     .read_text())
+    ratio = rec["ratio_analytic_over_counted"]
+    assert 0.5 <= ratio <= 2.0, rec
+    assert rec["loopfree_counted_flops_per_dev"] > 0
+    assert "analytic/counted" in runs[name][0]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_mesh_on_a_fake_world(multi_pod):
+    """``make_production_mesh`` builds the (16, 16) / (2, 16, 16) mesh on a
+    fake world of that many ranks, its device ``meta``; the world's
+    backend is ``"fake"`` only because this test chose it."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_production_mesh
+
+    n = 512 if multi_pod else 256
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        try:
+            want = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+                    else {"data": 16, "model": 16})
+            assert mesh.shape == want and mesh.size == n
+            assert mesh.device == torch.device("meta")
+            assert mesh.size_of(("pod", "data") if multi_pod else "data") \
+                == n // 16
+        finally:
+            mesh.close()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
