@@ -291,13 +291,17 @@ wall seconds, each on a line of its own:
 16. train mesh -- multi-device training over torch.distributed on one
               card: make_local_mesh(1), a one-rank NCCL ("data", "model")
               world, and gemma2-2b at published widths (bf16, phase 5's
-              traffic and seed) through make_train_step(grad_shardings=)
-              and TrainLoop(shardings=), 2 warm-up and 3 timed steps in
-              turns with an unsharded run of the same steps: every loss
-              and every leaf of params and optimizer state torch.equal
-              after every step, the weight backward's launches counted
-              (182 a microbatch, all on the tensor-core route), the step
-              times and the peak memory; 3 steps of
+              traffic and seed) placed by the JAX package's training
+              specs (launch/shardings.py: FSDP over "data", the heads,
+              d_ff and vocab over "model") through
+              make_train_step(grad_shardings=) and TrainLoop(shardings=),
+              2 warm-up and 3 timed steps in turns with an unsharded run
+              of the same steps: every loss and every leaf of params and
+              optimizer state torch.equal after every step, no collective
+              of any kind issued (every split one slice), the weight
+              backward's launches counted (182 a microbatch, all on the
+              tensor-core route), the step times and the peak memory; 3
+              steps of
               ef_signsgd_compressed(hybrid_optimizer(...), ("data",)),
               layer 0's decoded votes and residuals held to
               compress_votes on the CPU (signs exact, the scale within
@@ -329,7 +333,16 @@ wall seconds, each on a line of its own:
               make_decode_step): the traced peak beside
               max_memory_allocated, the median step beside the roofline
               bound and its share of it, the card's launches a call equal
-              to the trace's; the traced launches' plans held to the
+              to the trace's; train_16x16_rank0, rank 0 of gemma2-2b's
+              train_4k on the 16 x 16 mesh under the JAX package's
+              placement (4 rows x 4,096 tokens, its 4 microbatches cut to
+              1), traced on the fake world and run on the card with real
+              tensors over the same fake backend (launch.mesh.fake_world(
+              device="cuda"): its collectives move nothing, so no value is
+              compared): max_memory_allocated within 5% of the traced
+              peak, the launches of row 3 equal to the trace's and all on
+              the tensor-core route, the median step against its bound;
+              the traced launches' plans held to the
               libraries' tiles; and the achieved bf16 matmul (8192^3) and
               device-to-device copy (4 GiB) rates beside the record's peaks.
 
@@ -5811,8 +5824,9 @@ def train_mesh(torch, seed: int, then=lambda: None):
     per_mb = 7 * cfg.n_layers
     want = total * TRAIN_MICRO * per_mb
     assert launches == tc == want, (launches, tc, want)
-    assert mesh.counts["grad_reduces"] == 0 and \
-        mesh.counts["head_gathers"] == 0, mesh.counts
+    # the JAX package's placement on a world of one: every split is one
+    # slice, so no collective of any kind is issued
+    assert not any(mesh.counts.values()), mesh.counts
     n_leaves = len(_state_leaves({"params": loop_s.params,
                                   "opt": loop_s.opt_state}))
     print(f"  make_local_mesh(1): NCCL world of one on {mesh.device} in "
@@ -5887,8 +5901,11 @@ def train_mesh(torch, seed: int, then=lambda: None):
                     for t in tree_leaves(state_ef.error))
     n_bool = sum(p.numel() for p in tree_leaves(params)
                  if is_boolean_leaf(p))
+    # the votes are taken on grads whole over "data": the Boolean leaves
+    # stay whole over it (one slice on a world of one either way)
     step_ef = make_train_step(cfg_s, opt_ef, TRAIN_MICRO,
-                              grad_shardings=grad_sh)
+                              grad_shardings=named(mesh, train_param_specs(
+                                  params, boolean_fsdp=False)))
     pipe = pipeline()
     ef_flips, ef_ms, ef_host_us, ef_loss = [], [], [], []
     torch.cuda.reset_peak_memory_stats()
@@ -6010,15 +6027,22 @@ CELL_GROUPS = (("boolean_weight_bwd", ("weight_bwd", "ring_kernel")),
                ("copy (dtype widening)", ("copy",)),
                ("mul", ("mul",)))
 MATMUL_N, COPY_BYTES = 8192, 4 << 30
-# traces one cell of CELLS on a fake world of one (argv: name, seq, batch,
-# kind, microbatches, output file)
+# phase 17's rank cell: rank 0 of gemma2-2b's train_4k on the single-pod
+# 16 x 16 mesh, the JAX package's placement (launch/shardings.py), its
+# microbatch of 4 rows x 4,096 tokens; the cell's 4 microbatches cut to 1
+# (a global batch of 16 data ranks x 4 rows): (name, seq_len, global
+# batch, microbatches, (data, model))
+RANK_CELL = ("train_16x16_rank0", 4096, 64, 1, (16, 16))
+# traces one cell on a fake world, of one or of RANK_CELL's mesh (argv:
+# name, seq, batch, kind, microbatches, output file, data, model)
 CELL_TRACE = """
 import json, sys
 from repro_torch.launch.dryrun import trace_cell
 from repro_torch.launch.shapes import ShapeDef
-name, seq, batch, kind, mb, out = sys.argv[1:7]
+name, seq, batch, kind, mb, out, data, model = sys.argv[1:9]
 rec = trace_cell("gemma2-2b", ShapeDef(name, int(seq), int(batch), kind),
-                 ((1, 1), ("data", "model")), microbatches=int(mb))
+                 ((int(data), int(model)), ("data", "model")),
+                 microbatches=int(mb))
 open(out, "w").write(json.dumps(rec, default=str))
 """
 
@@ -6027,8 +6051,8 @@ def start_dry_runs(out_dir: Path):
     """Phase 17's traces, each a process of its own (a fake world belongs
     to its process), started once phase 16's host-timed sections are done
     so that their host time runs beside the card's: (a) ``python -m repro_torch.launch.dryrun`` on
-    gemma2-2b × each of DRYRUN_SHAPES × the single-pod mesh, and (b) each
-    of CELLS on a fake world of one. -> {name: (process, record path)};
+    gemma2-2b × each of DRYRUN_SHAPES × the single-pod mesh, (b) each
+    of CELLS on a fake world of one and RANK_CELL on its mesh. -> {name: (process, record path)};
     every process is killed at exit if still running."""
     import atexit
     import os
@@ -6047,7 +6071,13 @@ def start_dry_runs(out_dir: Path):
         rec = out_dir / f"cell__{name}.json"
         procs[f"cell:{name}"] = ([sys.executable, "-c", CELL_TRACE, name,
                                   str(seq), str(batch), kind, str(mb),
-                                  str(rec)], rec)
+                                  str(rec), "1", "1"], rec)
+    name, seq, batch, mb, (dp, tp) = RANK_CELL
+    rec = out_dir / f"cell__{name}.json"
+    # the trace's shape is the cell's: train_4k at its cut batch
+    procs[f"cell:{name}"] = ([sys.executable, "-c", CELL_TRACE, "train_4k",
+                              str(seq), str(batch), "train", str(mb),
+                              str(rec), str(dp), str(tp)], rec)
     started = {}
     for name, (cmd, rec) in procs.items():
         started[name] = (subprocess.Popen(
@@ -6157,6 +6187,85 @@ def cell_run(torch, name, seq, batch, kind, mb, seed):
             "want_launches": per_call, "calls": calls, "profiled": prof}
 
 
+def rank_cell(torch, seed):
+    """RANK_CELL on the card: rank 0 of gemma2-2b's train_4k on the 16 x 16
+    mesh at published widths, bf16, real CUDA tensors over torch's "fake"
+    backend (``launch.mesh.fake_world(device="cuda")``), through the
+    entry points and config of its trace (``apply_policy``,
+    ``train_param_specs``, ``place``, ``make_train_step(grad_shardings=)``):
+    a warm-up step, then CELL_TIMED steps timed by CUDA events, the peak
+    of allocated bytes over them from a reset after the inputs exist, the
+    launches of row 3 a step by route. The collectives move nothing, so
+    the gathered weights and the sums are not the mesh's: no value is
+    compared (the gloo worlds of tests/test_torch_fsdp_step.py and
+    test_torch_split_step.py hold them on the CPU, phase 16 on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.optimizer import hybrid_optimizer
+    from repro_torch.distributed.placement import named, place
+    from repro_torch.kernels import KERNELS, boolean_weight_bwd
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.launch.shapes import ShapeDef
+    from repro_torch.launch.shardings import (apply_policy, kv_replicated,
+                                              train_param_specs)
+    from repro_torch.models import lm_init
+    from repro_torch.train import make_train_step
+
+    name, seq, batch, mb, (dp, tp) = RANK_CELL
+    gc_collect(torch)
+    t0 = time.perf_counter()
+    mesh = fake_world((dp, tp), ("data", "model"), device="cuda")
+    try:
+        cfg = apply_policy(get_config("gemma2-2b"),
+                           ShapeDef("train_4k", seq, batch, "train"), mesh)
+        params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(seed))
+        sh = named(mesh, train_param_specs(
+            params, replicate_kv=kv_replicated(cfg, tp)))
+        # this rank's slices; the whole tree goes as its leaves are replaced
+        params = place(params, sh)
+        gc_collect(torch)
+        opt = hybrid_optimizer(eta=8.0, fp_lr=1e-3)
+        state = opt.init(params)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        tok = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        data = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+        step = make_train_step(cfg, opt, mb, grad_shardings=sh)
+        for _ in range(CELL_WARMUP):
+            step(params, state, data)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        counts0 = dict(mesh.counts)
+        ms = []
+        for _ in range(CELL_TIMED):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step(params, state, data)
+            b.record()
+            del out
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated()
+        total = torch.cuda.mem_get_info()[1]
+        launches = {k.__name__: k.launches // CELL_TIMED for k in KERNELS
+                    if k.launches}
+        assert all(k.launches % CELL_TIMED == 0 for k in KERNELS)
+        tc = boolean_weight_bwd.tc_launches // CELL_TIMED
+        counts = {k: (v - counts0[k]) // CELL_TIMED
+                  for k, v in mesh.counts.items() if v != counts0[k]}
+        del step, state, params, data, tok
+    finally:
+        mesh.close()
+        gc_collect(torch)
+    return {"step_ms": ms, "median_ms": statistics.median(ms),
+            "max_memory_allocated": peak, "launches_per_call": launches,
+            "tc_launches_per_call": tc, "collectives_per_call": counts,
+            "calls": CELL_TIMED, "setup_s": setup_s, "mesh": [dp, tp],
+            "card_total_bytes": total}
+
+
 def datasheet_rates(torch):
     """(c): the achieved bf16 torch.matmul rate at MATMUL_N³ and the
     device-to-device copy rate of COPY_BYTES, CUDA events, median of 10,
@@ -6189,9 +6298,12 @@ def dry_run(torch, seed: int, procs):
     decode_32k on the single-pod fake world (each ``ok``; its peak a rank,
     bottleneck and bound; its traced launches of rows 3 and 4); (b) three
     one-rank cells at published widths, each traced on a fake world of one
-    and run on the card: the trace's peak beside max_memory_allocated,
-    the step's median ms beside the roofline bound and its share of it, the
-    card's launches equal to the trace's; (c) the achieved matmul and copy
+    and run on the card, and RANK_CELL, rank 0 of the 16 x 16 train mesh
+    (``rank_cell``): the trace's peak beside max_memory_allocated (within
+    5% for RANK_CELL), the step's median ms beside the roofline bound and
+    its share of it (RANK_CELL's bound is its compute and memory terms:
+    its collectives, on the fake backend, move nothing), the card's launches equal to the trace's (RANK_CELL's
+    all on the tensor-core route); (c) the achieved matmul and copy
     rates beside the datasheet record's. (b) and (c) run on the card while
     the sweep's traces, the longest, finish on the host."""
     from repro_torch.kernels.packed_xnor import (gemv_source_tiles,
@@ -6240,6 +6352,45 @@ def dry_run(torch, seed: int, procs):
             "fake_launches", "trace_s", "model_flops_total") if k in rec},
             "card": real, "share_of_bound": share,
             "traced_over_card_peak": traced / real["max_memory_allocated"]}
+    name, seq, batch, mb, (dp, tp) = RANK_CELL
+    t0 = time.perf_counter()
+    real = rank_cell(torch, seed)
+    cell_s = time.perf_counter() - t0
+    rec = _trace_record(procs, f"cell:{name}")
+    r = rec["roofline"]
+    # the fake backend moves no bytes: the bound of the work this run does
+    # is its compute and memory terms; the collective term was not run
+    bound_s = max(r["compute_s"], r["memory_s"])
+    bound_by = "compute" if r["compute_s"] >= r["memory_s"] else "memory"
+    share = bound_s * 1e3 / real["median_ms"]
+    traced = rec["peak_bytes_per_device"]
+    fake = rec.get("fake_launches", {})
+    ratio = traced / real["max_memory_allocated"]
+    row3 = real["launches_per_call"].get("boolean_weight_bwd", 0)
+    assert real["launches_per_call"] == fake, (real["launches_per_call"], fake)
+    assert row3 > 0 and real["tc_launches_per_call"] == row3, real
+    assert abs(ratio - 1.0) <= 0.05, (traced, real["max_memory_allocated"])
+    print(f"  (b) {name} (rank 0 of {dp} x {tp}: {batch // dp} rows x {seq} "
+          f"tokens a microbatch, {mb} microbatch, the cell's 4 cut to 1; "
+          "values not compared: the fake backend's collectives move no "
+          f"data): traced peak {traced / 2**30:.2f} GiB, card "
+          f"max_memory_allocated {real['max_memory_allocated'] / 2**30:.2f}"
+          f" GiB (traced / card {ratio:.3f}); median {real['median_ms']:.2f}"
+          f" ms against the bound of the work it ran {bound_s * 1e3:.3f} ms "
+          f"({bound_by}): {share:.4f} of it; the collective term "
+          f"{r['collective_s'] * 1e3:.3f} ms not run; launches a call "
+          f"{real['launches_per_call']} = traced {fake}, all {row3} of row 3 "
+          f"on the tensor-core route; collectives a call "
+          f"{real['collectives_per_call']}; the card's total memory "
+          f"{real['card_total_bytes'] / 2**30:.2f} GiB; {cell_s:.1f} s; "
+          f"{smi}")
+    out["rank_cell"] = {"trace": {k: rec[k] for k in (
+        "peak_bytes_per_device", "mem_by_kind", "roofline", "analytic",
+        "fake_launches", "trace_s", "collective_sites", "collectives",
+        "placement") if k in rec}, "card": real,
+        "run_bound_ms": bound_s * 1e3, "run_bound_by": bound_by,
+        "share_of_bound": share, "collective_ms": "not run",
+        "traced_over_card_peak": ratio, "wall_s": cell_s}
     rates = datasheet_rates(torch)
     print(f"  (c) bf16 torch.matmul {MATMUL_N}^3: {rates['matmul_tflops']:.1f}"
           f" TFLOP/s of the record's {rates['peak_bf16_tflops']:.1f}; "

@@ -190,7 +190,8 @@ def restore_pytree(template, directory, step: Optional[int] = None,
     leaf's device. ``shardings`` (a matching tree of
     ``distributed.placement.NamedPlacement``; leaves it leaves out are
     replicated) re-slices each full-array leaf onto the live mesh: a
-    sharded leaf becomes this rank's slice, whatever mesh wrote it — the
+    sharded leaf becomes this rank's slice over every axis it splits over
+    ("data" and "model"), whatever mesh and placement wrote it — the
     elastic restore. Every leaf's raw bytes are checksum-verified against the
     manifest before ``np.load`` reads them; a mismatch raises
     ``CheckpointCorruption`` naming the step, leaf and file. ``faults`` (a

@@ -68,9 +68,10 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 class _BooleanDense(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, bwd_norm, sign_backward, reduce_bf16, group,
-                fan_out, sum_votes):
-        y = (torch.matmul(x, w) if reduce_bf16 else matmul_f32(x, w)) \
-            .to(x.dtype)
+                fan_out, sum_votes, keep_f32):
+        y = torch.matmul(x, w) if reduce_bf16 else matmul_f32(x, w)
+        if not keep_f32:
+            y = y.to(x.dtype)
         if b is not None:
             y = y + b.to(y.dtype)
         ctx.save_for_backward(x, w)
@@ -84,6 +85,9 @@ class _BooleanDense(torch.autograd.Function):
     def backward(ctx, z):
         x, w = ctx.saved_tensors
         m, n = w.shape
+        # an fp32 output (keep_f32) reaches x's dtype by a cast, so its grad
+        # holds x-dtype values: back to x's dtype exactly
+        z = z.to(x.dtype)
         gx = None
         if ctx.needs_input_grad[0]:
             # Eq 6/8: upstream signal aggregated over fan-out, in x.dtype
@@ -100,7 +104,7 @@ class _BooleanDense(torch.autograd.Function):
             if ctx.bwd_norm:
                 gx = gx * backward_scale(ctx.fan_out or n)
             if ctx.sign_backward:
-                gx = torch.where(gx >= 0, 1.0, -1.0)
+                gx = signal_sign(gx)
             gx = gx.to(x.dtype)
         # Eq 5/7: weight votes over all batch-like rows, fp32 counts rounded
         # to the weight view's dtype
@@ -113,7 +117,14 @@ class _BooleanDense(torch.autograd.Function):
             gw = all_reduce_sum(gw, ctx.group)
             gb = None if gb is None else all_reduce_sum(gb, ctx.group)
         gb = None if gb is None else gb.to(w.dtype)
-        return gx, gw.to(w.dtype), gb, None, None, None, None, None, None
+        return (gx, gw.to(w.dtype), gb, None, None, None, None, None, None,
+                None)
+
+
+def signal_sign(gx: torch.Tensor) -> torch.Tensor:
+    """The ±1 Boolean backprop signal of ``sign_backward`` (Alg 6): +1 at
+    and above 0, as the JAX package's ``jnp.where(gx >= 0, 1, -1)``."""
+    return torch.where(gx >= 0, 1.0, -1.0)
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
@@ -129,7 +140,8 @@ def boolean_dense(x: torch.Tensor, w: torch.Tensor, b=None,
                   bwd_norm: bool = True, sign_backward: bool = False,
                   reduce_bf16: bool = False, group=None,
                   fan_out: Optional[int] = None,
-                  sum_votes: bool = False) -> torch.Tensor:
+                  sum_votes: bool = False,
+                  keep_f32: bool = False) -> torch.Tensor:
     """y = x @ w (+ b) on the ±1 weight view, fp32 counts cast to x.dtype,
     with the Boolean-variation backward.
 
@@ -149,9 +161,14 @@ def boolean_dense(x: torch.Tensor, w: torch.Tensor, b=None,
     the whole weight, replicated over ``group``, and each rank reads only
     part of its output (k/v when the KV heads are fewer than the ranks):
     the votes (and the bias grad) are also summed over ``group``, in fp32.
+    ``keep_f32``: return the fp32 counts uncast (a row slice of a wider
+    weight, whose partial counts the caller sums across ranks before the
+    cast; not under ``reduce_bf16``, whose counts are x's dtype). The
+    App-C.4 normalisation is by ``fan_out`` (default: ``w``'s columns),
+    the whole weight's column count.
     """
     return _BooleanDense.apply(x, w, b, bwd_norm, sign_backward, reduce_bf16,
-                               group, fan_out, sum_votes)
+                               group, fan_out, sum_votes, keep_f32)
 
 
 class PackedBool:

@@ -25,8 +25,12 @@ un-reduced grads, and a per-rank scale would make the replicas' Boolean
 updates, and so their weights, diverge; the wrapper uses the mean of the
 ranks' scales (one fp32 scalar a leaf, all-reduced beside the votes),
 which equals the JAX package's wherever its inputs are replicated. A
-leaf sharded over "model" (q/k/v under head parallelism) takes its whole
-leaf's scale, the mean of its slices' means, as the unsharded step does.
+leaf split over "model" (q/k/v, the FFN's and the mamba block's
+projections, the experts) takes its whole leaf's scale, the mean of its
+slices' means, as the unsharded step does. The Boolean leaves stay whole
+over "data" (``launch.shardings.train_param_specs(boolean_fsdp=False)``;
+the step refuses a placement that cuts them), as the JAX package's
+wrapper votes on grads replicated over the batch axes.
 ``compress_votes`` alone keeps the rank's own scale, as the JAX
 package's does.
 """
@@ -110,7 +114,7 @@ def ef_signsgd_compressed(inner: Optimizer, axes: Tuple[str, ...],
             for i, e in zip(keys, es)]).to(torch.float32) if keys else None
         placed = [] if shardings is None else tree_leaves(shardings)
         split = [j for j, i in enumerate(keys)
-                 if placed and placed[i].shards > 1]
+                 if placed and placed[i].over("model") > 1]
         if split:
             scales[split] = m.all_reduce(scales[split], "model",
                                          count="count_reduces") \

@@ -27,11 +27,17 @@ backward; ``torch.distributed.nn``'s gather reduce-scatters in the
 backward, which would multiply a replicated downstream grad by the
 shard count), and, for the input of a column-sharded projection, the
 grad sum over the group (``models.modules.copy_to_group`` and
-``core.boolean_dense``'s ``group``).
+``core.boolean_dense``'s ``group``). The reference's training placement
+adds three: ``fsdp_gather`` (one flat all-gather over "data" of a layer
+group's weight slices; the backward reduce-scatters their grads),
+``reduce_from_group`` (a row-split projection's partial sums over
+"model"; the identity backward) and ``vocab_embed`` (the vocab-parallel
+lookup). ``counts`` names each kind, so the dry run's record does.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Optional, Tuple
 
@@ -138,7 +144,10 @@ class TrainMesh:
             self._groups[batch] = self._subgroup(batch)
         self.counts = {"grad_reduces": 0, "head_gathers": 0,
                        "seq_combines": 0, "vote_reduces": 0,
-                       "count_reduces": 0, "leaf_gathers": 0}
+                       "count_reduces": 0, "leaf_gathers": 0,
+                       "fsdp_gathers": 0, "fsdp_scatters": 0,
+                       "model_sums": 0, "vocab_reduces": 0,
+                       "expert_gathers": 0}
 
     def _subgroup(self, axes: Tuple[str, ...]):
         """The group over ``axes`` (every rank calls this alike): the ranks
@@ -192,6 +201,26 @@ class TrainMesh:
         self.counts[count] += 1
         return out.movedim(0, dim)
 
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0,
+                       count: str = "fsdp_scatters") -> torch.Tensor:
+        """``t`` summed over the ranks of ``axes`` and cut on ``dim`` into
+        as many blocks: this rank's block, in rank order (``t`` itself on a
+        group of one)."""
+        n = self.size_of(axes)
+        if n == 1:
+            return t
+        xs = t.movedim(dim, 0).contiguous()
+        if xs.shape[0] % n:
+            raise ValueError(f"reduce_scatter: {xs.shape[0]} rows do not "
+                             f"split over {n} ranks")
+        out = torch.empty((xs.shape[0] // n,) + tuple(xs.shape[1:]),
+                          dtype=xs.dtype, device=xs.device)
+        fn = getattr(dist, "reduce_scatter_single", None) \
+            or dist.reduce_scatter_tensor
+        fn(out, xs, group=self.group(axes))
+        self.counts[count] += 1
+        return out.movedim(0, dim)
+
     def close(self) -> None:
         """Let go of the mesh's process groups, and destroy the world when
         ``make_local_mesh`` started it, every rank together. A group object
@@ -215,21 +244,118 @@ def _axes(axes) -> Tuple[str, ...]:
 
 class _GatherHeads(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, dim):
+    def forward(ctx, x, mesh, dim, count):
         ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
-        return mesh.all_gather(x, "model", dim, count="head_gathers")
+        return mesh.all_gather(x, "model", dim, count=count)
 
     @staticmethod
     def backward(ctx, g):
         r = ctx.mesh.coords["model"]
-        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+        return (g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None,
+                None)
 
 
-def gather_heads(x: torch.Tensor, mesh: TrainMesh, dim: int) -> torch.Tensor:
-    """Every "model" rank's head slice of ``x`` (heads on ``dim``) gathered
-    in the global head order; the backward takes this rank's slice of the
-    grad, which every rank holds whole."""
-    return _GatherHeads.apply(x, mesh, dim)
+def gather_heads(x: torch.Tensor, mesh: TrainMesh, dim: int,
+                 count: str = "head_gathers") -> torch.Tensor:
+    """Every "model" rank's head slice of ``x`` (heads on ``dim``; or any
+    slice the ranks hold in rank order: the experts, the router's columns)
+    gathered in the global order; the backward takes this rank's slice of
+    the grad, which every rank holds whole."""
+    if mesh.size_of("model") == 1:
+        return x
+    return _GatherHeads.apply(x, mesh, dim, count)
+
+
+class _FsdpGather(torch.autograd.Function):
+    """One flat all-gather over "data" of several leaves' slices (each cut
+    on its own dim), and in the backward one flat reduce-scatter of their
+    grads, as FSDP's flat parameter does."""
+
+    @staticmethod
+    def forward(ctx, mesh, dims, dtype, grad_dtype, *shards):
+        n = mesh.size_of("data")
+        ctx.mesh, ctx.dims, ctx.grad_dtype = mesh, dims, grad_dtype
+        ctx.shapes = [tuple(s.shape) for s in shards]
+        flat = torch.cat([s.to(dtype).reshape(-1) for s in shards])
+        rows = mesh.all_gather(flat, "data", 0, count="fsdp_gathers") \
+            .view(n, -1)
+        fulls, off = [], 0
+        for shape, d in zip(ctx.shapes, dims):
+            k = math.prod(shape)
+            # rank r's slice is block r of dim d
+            pieces = rows[:, off:off + k].reshape(n, *shape).movedim(0, d)
+            fulls.append(pieces.reshape(*shape[:d], n * shape[d],
+                                        *shape[d + 1:]).contiguous())
+            off += k
+        return tuple(fulls)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = ctx.mesh.size_of("data")
+        parts = []
+        for g, shape, d in zip(grads, ctx.shapes, ctx.dims):
+            blocks = g.to(ctx.grad_dtype).reshape(
+                *shape[:d], n, shape[d], *shape[d + 1:]).movedim(d, 0)
+            parts.append(blocks.reshape(n, -1))
+        mine = ctx.mesh.reduce_scatter(torch.cat(parts, 1).reshape(-1),
+                                       "data", 0, count="fsdp_scatters")
+        out, off = [], 0
+        for shape in ctx.shapes:
+            k = math.prod(shape)
+            out.append(mine[off:off + k].view(shape))
+            off += k
+        return (None, None, None, None, *out)
+
+
+def fsdp_gather(mesh: TrainMesh, shards, dims, dtype,
+                grad_dtype=torch.float32) -> list:
+    """The full leaves of this rank's "data" slices ``shards`` (``dims``:
+    the dim each is cut on), gathered in one all-gather over "data" at
+    ``dtype``. The backward reduce-scatters their grads over "data" in
+    one call, summed at ``grad_dtype``: each rank gets its slice of the sum
+    of every data rank's grad."""
+    if not shards:
+        return []
+    return list(_FsdpGather.apply(mesh, tuple(dims), dtype, grad_dtype,
+                                  *shards))
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, count):
+        out = x.contiguous().clone()
+        mesh.all_reduce(out, axis, count=count)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def reduce_from_group(x: torch.Tensor, mesh: TrainMesh, axis: str = "model",
+                      count: str = "model_sums") -> torch.Tensor:
+    """``x`` summed over the ranks of ``axis`` (each holds a partial sum:
+    a row-split projection's output); the backward is the identity, since
+    every rank holds the whole grad of the sum (Megatron-LM's reduce from
+    the region)."""
+    if mesh.size_of(axis) == 1:
+        return x
+    return _ReduceFromGroup.apply(x, mesh, axis, count)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
+                mesh: TrainMesh) -> torch.Tensor:
+    """A vocab-parallel embedding lookup: ``table`` holds this "model"
+    rank's rows of the vocab (rank r the rows [r·V, (r+1)·V)); each rank
+    looks up the tokens it owns, zeros elsewhere, and the rows are summed
+    over "model". The sum is exact: one term is non-zero."""
+    vl = table.shape[0]
+    idx = tokens.long() - mesh.coords["model"] * vl
+    mine = (idx >= 0) & (idx < vl)
+    rows = table[idx.clamp(0, vl - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                          device=rows.device))
+    return reduce_from_group(rows, mesh, "model")
 
 
 def set_mesh(mesh) -> None:

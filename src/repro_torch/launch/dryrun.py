@@ -16,18 +16,27 @@ kind). The kernel wrappers take their traced branch on fake tensors: they
 allocate what their launch allocates, build and launch nothing, and count
 ``fake_launches``. The roofline's FLOPs and bytes are
 ``flops_model.analytic_cell_cost``'s, on the ``hlo_analysis.H100_SXM``
-datasheet record: a prediction, not a reading. Its compute and memory
-terms model the JAX package's placement and its collective term the
-port's (the trace's record); ``roofline_placement`` says so in each
-record.
+datasheet record: a prediction, not a reading. In the train cells its
+compute and memory terms and its collective term (the trace's record)
+share one placement, the JAX package's, but for the port's two stated
+differences (``STATED_DIFFERENCES``); ``roofline_placement`` says so in
+each record.
 
-Placement: the port's (``launch/shardings.py``), which shards less than
-the JAX package's cells: the batch over "pod"/"data"; in training the
-attention heads over "model" (the q/k/v columns; k/v replicated where the
-KV heads are fewer than the axis); in decode the cache rows over "model";
-the weights otherwise replicated (FSDP and the "model" split of d_ff,
-vocab and experts are not ported). A per-device peak above the JAX
-package's is expected; each record states its placement.
+Placement: in training the JAX package's (``launch/shardings.py::
+train_param_specs``): the batch over "pod"/"data", FSDP of every large
+weight over "data" (a layer group's slices gathered per microbatch, the
+grads reduce-scattered), the "model" split of the heads, d_ff, d_inner,
+the experts and the vocab; the two stated differences are k/v replicated
+over "model" where the KV heads do not divide it, and ``wo`` replicated
+over "model". The prefill and decode cells keep the weights whole (their
+placement is not ported yet): the batch over "pod"/"data", in decode the
+cache rows over "model". Each record states its placement.
+
+The ssm and hybrid train cells trace a scan of ~72 s of CPU a layer: they
+are traced at two depths, each at one and two microbatches
+(``DEPTH_CUT``, ``--depths``), and the record's peak, collectives and launches are
+extrapolated (``trace_cut``), the record saying what it traced
+(``depth_cut``).
 
 Usage (CPU only; writes ``results/dryrun_torch/`` unless ``--out``):
   PYTHONPATH=src python -m repro_torch.launch.dryrun                # all cells
@@ -35,6 +44,8 @@ Usage (CPU only; writes ``results/dryrun_torch/`` unless ``--out``):
       --shape decode_32k --mesh single                              # one cell
   ... --variant '{"moe_impl": "scatter"}' --tag scatter
   ... --calibrate      # analytic FLOPs against FlopCounterMode, loop-free
+  ... --depths 1,2     # train: traced at 1 and 2 layers, each at 1 and 2
+                       # microbatches, extrapolated
 
 The fake world belongs to the process: run one sweep a process.
 """
@@ -79,17 +90,36 @@ def _to(tree, device):
     return tree_map(lambda t: t.to(device), tree)
 
 
+#: the train cells traced at a depth cut and extrapolated per layer: the
+#: two depths traced
+DEPTH_CUT = {"falcon-mamba-7b": (1, 2), "jamba-1.5-large-398b": (8, 16)}
+
+#: the two microbatch counts each depth of a cut is traced at
+CUT_MICROS = (1, 2)
+
+#: the port's two differences from the JAX package's training specs
+STATED_DIFFERENCES = (
+    "1: wk/wv split over 'model' when the KV heads divide it, replicated "
+    "otherwise (the JAX package: split at 16 or more KV heads)",
+    "2: wo FSDP over 'data' but replicated over 'model' (the JAX package "
+    "splits its rows): the heads are gathered before it")
+
+
 def _placement(cfg, shape: ShapeDef, mesh) -> dict:
     tp = mesh.shape.get("model", 1)
-    out = {"batch": list(cfg.batch_axes),
-           "weights": "replicated over the batch axes; FSDP and the "
-                      "'model' split of d_ff, vocab and experts are not "
-                      "ported"}
+    out = {"batch": list(cfg.batch_axes)}
     if shape.kind == "train":
         kv = "replicated" if kv_replicated(cfg, tp) else "columns"
+        out["weights"] = ("the JAX package's train specs: FSDP of every "
+                          "large weight over 'data', the 'model' split of "
+                          "the heads, d_ff, d_inner, the experts and the "
+                          "vocab")
         out["heads"] = (f"'model': q columns, k/v {kv}" if tp > 1
                         else "unsharded")
+        out["stated_differences"] = list(STATED_DIFFERENCES)
     else:
+        out["weights"] = ("whole on every rank (the prefill and decode "
+                          "placement is not ported)")
         out["heads"] = "unsharded (every 'model' rank runs its rows' step)"
     out["cache_seq"] = list(cfg.cache_seq_axes) if shape.kind == "decode" \
         else []
@@ -97,8 +127,9 @@ def _placement(cfg, shape: ShapeDef, mesh) -> dict:
         out["cache_seq_note"] = ("the prefill emits its rows' whole cache: "
                                  "the JAX package's seq-sharded out_sharding "
                                  "has no counterpart")
-    out["note"] = ("the JAX package's cells shard more; a per-device peak "
-                   "above theirs is expected")
+    if shape.kind != "train":
+        out["note"] = ("the JAX package's cells shard more; a per-device "
+                       "peak above theirs is expected")
     return out
 
 
@@ -235,14 +266,7 @@ def trace_cell(arch: str, shape, layout, variant: dict = None,
                                mesh.size, ring_total=cb["ring_total"],
                                record=coll)
         rec["roofline"] = terms
-        # the terms' placements differ: the bound is neither's alone where
-        # the two part (a world of one holds the whole model in both)
-        rec["roofline_placement"] = {
-            "compute_s": "the JAX package's (analytic_cell_cost: FSDP, "
-                         "the 'model' splits)",
-            "memory_s": "the JAX package's (analytic_cell_cost)",
-            "collective_s": "the port's (this trace's CollectiveRecord: "
-                            "replicated weights, whole grads reduced)"}
+        rec["roofline_placement"] = _roofline_placement(shape)
         mf = model_flops(cfg0, shape)
         rec["model_flops_total"] = mf
         per_dev_model = mf / mesh.size
@@ -258,6 +282,138 @@ def trace_cell(arch: str, shape, layout, variant: dict = None,
         mesh.close()
 
 
+class _Layout:
+    """A mesh's axis names and sizes, which ``apply_policy``,
+    ``train_microbatches`` and ``analytic_cell_cost`` read, without a
+    world."""
+
+    def __init__(self, layout):
+        mshape, self.axis_names = layout
+        self.shape = dict(zip(self.axis_names, mshape))
+
+
+def trace_cut(arch: str, shape, layout, variant: dict = None,
+              depths=(1, 2)) -> dict:
+    """A train cell traced at a depth and microbatch cut, extrapolated to
+    its published depth and microbatch count -> its record, with
+    ``depth_cut`` saying what was traced. Each trace runs ``n_layers`` in
+    ``depths`` and microbatches in ``CUT_MICROS`` at the cell's own rows a
+    microbatch (the global batch cut alike), so a microbatch's work and
+    activations are the cell's. A collective count, its bytes and seconds
+    and a launch count are bilinear in (layers, microbatches) — per step,
+    per layer (a stacked leaf's bytes), per microbatch, per layer and
+    microbatch — so the four traces fix them; the peak and the bytes by
+    kind are linear in the layers at the larger microbatch count (the
+    grad accumulators exist from two microbatches on)."""
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    cfg0 = get_config(arch)
+    lay = _Layout(layout)
+    cfg = apply_policy(cfg0, shape, lay)
+    over = {k: v for k, v in (variant or {}).items() if not k.startswith("_")}
+    if over:
+        cfg = cfg.scaled(**over)
+    full_l = cfg.n_layers
+    full_mb = train_microbatches(cfg, shape, lay)
+    dp = 1
+    for a in cfg.batch_axes:
+        dp *= lay.shape[a]
+    rows = shape.global_batch // (dp * full_mb)
+    (l1, l2), (m1, m2) = depths, CUT_MICROS
+    recs = {}
+    for n in (l1, l2):
+        for m in (m1, m2):
+            cut = ShapeDef(shape.name, shape.seq_len, rows * dp * m,
+                           shape.kind)
+            recs[n, m] = trace_cell(arch, cut, layout,
+                                    dict(variant or {}, n_layers=n),
+                                    microbatches=m)
+
+    def at(get):
+        """``get`` of the records, extrapolated to (full_l, full_mb)."""
+        def line(m):
+            lo, hi = get(recs[l1, m]), get(recs[l2, m])
+            return lo + (full_l - l1) * (hi - lo) / (l2 - l1)
+        a, b = line(m1), line(m2)
+        return a + (full_mb - m1) * (b - a) / (m2 - m1)
+
+    def along_layers(get):
+        lo, hi = get(recs[l1, m2]), get(recs[l2, m2])
+        return lo + (full_l - l1) * (hi - lo) / (l2 - l1)
+
+    last = recs[l2, m2]
+    rec = {k: v for k, v in last.items() if k not in (
+        "collective_ops", "collective_top", "trace_s", "build_s", "total_s")}
+    rec["variant"] = variant or {}
+    rec["microbatches"] = full_mb
+    rec["peak_bytes_per_device"] = int(round(along_layers(
+        lambda r: r["peak_bytes_per_device"])))
+    rec["mem_by_kind"] = {k: int(round(along_layers(
+        lambda r: r["mem_by_kind"].get(k, 0)))) for k in last["mem_by_kind"]}
+    rec["collectives"] = {k: int(round(at(lambda r: r["collectives"][k])))
+                          for k in last["collectives"]}
+    rec["collective_sites"] = {k: int(round(at(
+        lambda r: r["collective_sites"].get(k, 0))))
+        for k in last["collective_sites"]}
+    rec["fake_launches"] = {k: int(round(at(
+        lambda r: r["fake_launches"].get(k, 0))))
+        for k in last["fake_launches"]}
+    mesh_s = {"collective_s": at(lambda r: r["roofline"]["collective_s"]),
+              "collective_ring_s": at(
+                  lambda r: r["roofline"].get("collective_ring_s", 0.0))}
+    ana = analytic_cell_cost(cfg, shape, lay, microbatches=full_mb)
+    rec["analytic"] = {k: float(v) for k, v in ana.items()}
+    terms = roofline_terms(ana["flops_per_device"], ana["bytes_per_device"],
+                           rec["collectives"]["total"], rec["n_chips"])
+    terms.update(mesh_s)
+    dom = max(("compute_s", "memory_s", "collective_s"),
+              key=lambda k: terms[k])
+    terms["bottleneck"] = dom.replace("_s", "")
+    total = max(terms["compute_s"], terms["memory_s"], terms["collective_s"])
+    terms["step_time_lower_bound_s"] = total
+    terms["roofline_fraction_of_compute"] = terms["compute_s"] / total
+    rec["roofline"] = terms
+    rec["model_flops_total"] = model_flops(cfg0, shape)
+    per_dev = rec["model_flops_total"] / rec["n_chips"]
+    rec["model_flops_per_device"] = per_dev
+    rec["useful_flops_ratio"] = per_dev / terms["hlo_flops_per_device"]
+    rec["trace_s"] = round(sum(r["trace_s"] for r in recs.values()), 1)
+    rec["depth_cut"] = {
+        "traced": [{"n_layers": n, "microbatches": m,
+                    "global_batch": rows * dp * m,
+                    "peak_bytes_per_device": r["peak_bytes_per_device"],
+                    "trace_s": r["trace_s"]} for (n, m), r in recs.items()],
+        "extrapolated_to": {"n_layers": full_l, "microbatches": full_mb,
+                            "global_batch": shape.global_batch},
+        "note": "the peak and bytes by kind extrapolated per layer, the "
+                "collectives, call sites and launches per layer and "
+                "microbatch, from the traces listed (not a trace of the "
+                "whole cell)"}
+    return rec
+
+
+def _roofline_placement(shape: ShapeDef) -> dict:
+    """Which placement each roofline term models: in training one, the JAX
+    package's, but for the port's stated differences; elsewhere the
+    collective term is the port's whole-weight placement's (a world of one
+    holds the whole model in both)."""
+    if shape.kind == "train":
+        return {"compute_s": "the JAX package's (analytic_cell_cost: FSDP, "
+                             "the 'model' splits)",
+                "memory_s": "the JAX package's (analytic_cell_cost)",
+                "collective_s": "the same placement, traced (this trace's "
+                                "CollectiveRecord: FSDP gathers and "
+                                "reduce-scatters over 'data', the 'model' "
+                                "sums)",
+                "shared": "one placement for the three terms, but for the "
+                          "port's stated differences: "
+                          + "; ".join(STATED_DIFFERENCES)}
+    return {"compute_s": "the JAX package's (analytic_cell_cost: FSDP, the "
+                         "'model' splits)",
+            "memory_s": "the JAX package's (analytic_cell_cost)",
+            "collective_s": "the port's (this trace's CollectiveRecord: "
+                            "whole weights)"}
+
+
 def _sites(coll) -> dict:
     """Collective count by (kind, call site)."""
     out: dict = {}
@@ -268,14 +424,25 @@ def _sites(coll) -> dict:
 
 
 def run_and_save(arch, shape_name, multi_pod, variant=None, tag="baseline",
-                 out_dir: Path = RESULTS_DIR, trace: bool = True) -> dict:
+                 out_dir: Path = RESULTS_DIR, trace: bool = True,
+                 depths=None) -> dict:
+    """Trace one cell and write its record. A train cell of ``DEPTH_CUT``
+    (or any train cell given ``depths``) is traced at the cut and
+    extrapolated (``trace_cut``)."""
     mesh_tag = "multi" if multi_pod else "single"
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     out = out_dir / f"{arch}__{shape_name}__{mesh_tag}__{tag}.json"
+    if depths is None:
+        depths = DEPTH_CUT.get(arch)
+    cut = trace and depths is not None and SHAPES[shape_name].kind == "train"
     try:
-        rec = trace_cell(arch, shape_name, PRODUCTION[multi_pod], variant,
-                         trace=trace)
+        if cut:
+            rec = trace_cut(arch, shape_name, PRODUCTION[multi_pod], variant,
+                            tuple(depths))
+        else:
+            rec = trace_cell(arch, shape_name, PRODUCTION[multi_pod],
+                             variant, trace=trace)
         rec["status"] = "skipped" if "skipped" in rec else "ok"
     except Exception as e:  # record the failure, keep the sweep going
         rec = {"arch": arch, "shape": shape_name, "mesh": mesh_tag,
@@ -360,7 +527,13 @@ def main(argv=None):
                     help="loop-free analytic-vs-counted FLOPs validation")
     ap.add_argument("--out", default=str(RESULTS_DIR),
                     help="directory of the records")
+    ap.add_argument("--depths", default=None,
+                    help="train cells: trace at these two layer counts "
+                         "(e.g. 1,2) and extrapolate per layer (default: "
+                         "DEPTH_CUT's archs only)")
     args = ap.parse_args(argv)
+    depths = tuple(int(x) for x in args.depths.split(",")) \
+        if args.depths else None
     out_dir = Path(args.out)
 
     if args.calibrate:
@@ -385,7 +558,8 @@ def main(argv=None):
         for shape_name in shapes:
             for multi_pod in meshes:
                 run_and_save(arch, shape_name, multi_pod, variant, args.tag,
-                             out_dir, trace=not args.lower_only)
+                             out_dir, trace=not args.lower_only,
+                             depths=depths)
 
 
 if __name__ == "__main__":

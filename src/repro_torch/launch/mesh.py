@@ -22,8 +22,10 @@ return at once and move nothing, for a step traced under
 ``FakeTensorMode``. Its mesh's device is ``meta``: a fake tensor there
 has no storage and no device guard (a CPU-only torch cannot index a fake
 ``cuda`` tensor), and the kernel wrappers take it for the card's
-(``kernels.build.traced``). A real run never starts that backend: the
-worlds above are NCCL or gloo.
+(``kernels.build.traced``). Given a real device it runs rank 0 of the
+same mesh on real tensors, to hold a trace's memory and launches to the
+card's. A training run never starts that backend: the worlds above are
+NCCL or gloo.
 """
 from __future__ import annotations
 
@@ -165,10 +167,11 @@ def _join_world(device) -> tuple:
     return dev, started
 
 
-def _train_mesh(shape, axes, device) -> TrainMesh:
+def _train_mesh(shape, axes, device, fake_device="meta") -> TrainMesh:
     if dist.is_initialized() and dist.get_backend() == "fake":
-        # fake_world's: the traced step's tensors are fake ones on meta
-        dev, started = torch.device("meta"), False
+        # fake_world's: the traced step's tensors are fake ones on meta,
+        # or real ones on the device a caller names
+        dev, started = torch.device(fake_device), False
     else:
         dev, started = _join_world(device)
     try:
@@ -193,13 +196,15 @@ PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
-def fake_world(shape, axes) -> TrainMesh:
+def fake_world(shape, axes, device="meta") -> TrainMesh:
     """A ``TrainMesh`` of ``shape`` named ``axes`` over a world of
     ``prod(shape)`` ranks of torch's ``"fake"`` backend, started here at
-    rank 0 (``close()`` ends it); its device is ``meta``. For the dry run
-    only: its collectives move nothing, and tensors on its device are
-    ``FakeTensorMode``'s. ``make_production_mesh`` also builds on such a
-    world. Installs the mesh as the process's."""
+    rank 0 (``close()`` ends it); its device is ``meta`` (tensors there are
+    ``FakeTensorMode``'s: the dry run), or ``device`` (real tensors: rank 0
+    of a large mesh run on one card, its memory and time measured, whose
+    collectives move nothing, so its values are not the mesh's). Its
+    collectives return at once. ``make_production_mesh`` also builds on
+    such a world. Installs the mesh as the process's."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
@@ -207,7 +212,7 @@ def fake_world(shape, axes) -> TrainMesh:
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=math.prod(shape))
     try:
-        mesh = _train_mesh(tuple(shape), tuple(axes), "cuda")
+        mesh = _train_mesh(tuple(shape), tuple(axes), "cuda", device)
     except BaseException:
         dist.destroy_process_group()
         raise

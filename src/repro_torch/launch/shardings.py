@@ -11,18 +11,30 @@ Training (the JAX package's ``apply_policy``, ``train_microbatches`` and
                the decode's softmax statistics combine over "model".
   long_500k    batch = 1: KV cache seq → every axis.
 
-The placement the port gives the two training axes (``train_param_specs``)
-keeps the JAX package's math and chooses where tensors live: "pod" and
-"data" are data parallel — each rank takes its rows of the global batch,
-parameters and optimizer state are replicated across them and the grads
-are reduced over them once a step; "model" is head parallel, the serve
-mesh's split below — the q/k/v projections shard on their output (head)
-axis and everything else is replicated. Where the KV heads are fewer
-than the axis (gemma2-2b's 4 on the production meshes' 16), k/v are
-replicated as the JAX package places them (``kv_replicated``), and their
-votes are summed over "model". The JAX package's FSDP of the
-weights over "data" and its "model" split of d_ff, vocab and experts
-change only memory and are not ported yet.
+The placement the port gives a training state (``train_param_specs``) is
+the JAX package's (``lm_init``'s specs): FSDP of every large weight over
+"data" (its non-"model" dim: each data rank holds a slice, a layer
+group's slices are all-gathered per microbatch inside the group's remat
+and their grads reduce-scattered, ``distributed.fsdp_gather``), and the
+"model" split of the attention heads (q/k/v columns), of d_ff (the FFN's
+gate/up columns and down rows), of the mamba d_inner (in_x / in_z /
+dt_proj columns, x_proj / out_proj rows, the conv and the scan's
+channels), of the experts and of the vocab (the embedding's rows and the
+head's columns; the loss's softmax stays split). "pod" and "data" are the
+batch axes: each rank takes its rows of the global batch. Two stated
+differences from the JAX package's specs:
+
+  1. ``wk`` / ``wv`` over "model": split when the KV heads divide the axis,
+     replicated otherwise (``kv_replicated``), their votes then summed over
+     "model" (the JAX package replicates them under 16 KV heads whatever
+     the axis).
+  2. ``wo``: FSDP over "data" but replicated over "model" (the JAX package
+     splits its rows): the heads are gathered before it
+     (``models.attention``), so its fan-in sums in the unsharded order.
+
+Under a ``VoteOptimizer`` (EF-SignSGD) the Boolean leaves stay whole over
+"data" (``train_param_specs(boolean_fsdp=False)``): the JAX package's
+wrapper votes on grads replicated over the batch axes.
 
 The serve mesh is 1-D ("model",) (launch/mesh.py). Only the attention head
 axis shards: the q/k/v projections column-wise (the fused packed ``wqkv``
@@ -38,14 +50,15 @@ its fan-in sums in the unsharded order; a row-sharded ``wo`` summed across
 ranks would reassociate it, and ``sign()`` turns those ulps into token
 flips.
 
-A spec tree has the structure of its tree, with a placement along the
-"model" axis (``torch.distributed.tensor.Shard(dim)`` / ``Replicate()``) a
-leaf, the JAX package's ``PartitionSpec`` leaves translated; a
-``PackedBool`` leaf's spec describes its ``bits``. ``shard_tree`` takes
-one rank's slice of every leaf as a plain local tensor: the kernels take
-raw pointers, not DTensors. The JAX package's ``named`` is
-``distributed.placement.named``, which pairs each spec with its mesh for
-``place`` and ``gather_tree``.
+A serve spec tree has the structure of its tree, with a placement along
+the "model" axis (``torch.distributed.tensor.Shard(dim)`` /
+``Replicate()``) a leaf; a ``PackedBool`` leaf's spec describes its
+``bits``. ``shard_tree`` takes one rank's slice of every leaf as a plain
+local tensor: the kernels take raw pointers, not DTensors. A training
+spec tree's leaves are ``distributed.placement.PartitionSpec``s over
+("data", "model"), the JAX package's ``PartitionSpec`` leaves; the JAX
+package's ``named`` is ``distributed.placement.named``, which pairs each
+spec with its mesh for ``place`` and ``gather_tree``.
 """
 from __future__ import annotations
 
@@ -54,7 +67,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.core import PackedBool
 from repro_torch.core.optimizer import tree_map
-from repro_torch.distributed.placement import BatchRows
+from repro_torch.distributed.placement import P, BatchRows
 from repro_torch.models import ModelConfig, block_roles
 
 from .mesh import mesh_batch_axes
@@ -115,7 +128,7 @@ def train_state_specs(params, opt_state, specs=None):
     """Placement tree of a training state ``{"params", "opt"}``: an
     optimizer-state leaf shaped like its parameter (Boolean accumulators,
     Adam moments, EF residuals) is placed as the parameter, the per-leaf
-    scalars and step counters are replicated."""
+    scalars and step counters are replicated (``P()``)."""
     specs = train_param_specs(params) if specs is None else specs
 
     def walk(node):
@@ -123,8 +136,8 @@ def train_state_specs(params, opt_state, specs=None):
             return type(node)(*(walk(v) for v in node))
         if isinstance(node, dict) and node.keys() == params.keys():
             return tree_map(lambda t, p, sp: sp if t.dim() == p.dim()
-                            else Replicate(), node, params, specs)
-        return tree_map(lambda _: Replicate(), node)
+                            else P(), node, params, specs)
+        return tree_map(lambda _: P(), node)
 
     return {"params": specs, "opt": walk(opt_state)}
 
@@ -178,23 +191,83 @@ def kv_replicated(cfg: ModelConfig, tp: int) -> bool:
     return tp > 1 and cfg.kv_heads_padded() % tp != 0
 
 
-def train_param_specs(params, replicate_kv: bool = False):
-    """Placement tree for head-parallel training: ``serve_param_specs``'s,
-    with the k/v weights and biases replicated under ``replicate_kv``
-    (``kv_replicated``: every rank computes all KV heads and reads those
-    its q heads need; their votes are summed over "model")."""
-    specs = serve_param_specs(params)
-    if not replicate_kv:
-        return specs
+D, M = "data", "model"
 
-    def walk(node, sp):
-        if not isinstance(node, dict):
-            return sp
-        is_attn = "wo" in node and "wq" in node
-        return {k: (_replicated(v) if is_attn and k in ("wk", "wv")
-                    else walk(v, sp[k])) for k, v in node.items()}
 
-    return walk(params, specs)
+def train_param_specs(params, replicate_kv: bool = False,
+                      boolean_fsdp: bool = True):
+    """Placement tree (the structure of ``params``, a ``PartitionSpec`` a
+    leaf) for training: the JAX package's ``lm_init`` specs, leaf by leaf
+    (module docstring; a stacked block leaf has a leading unsplit group
+    axis, a bias follows its weight's output axis), with k/v replicated
+    over "model" under ``replicate_kv`` (``kv_replicated``) and ``wo``
+    replicated over "model". ``boolean_fsdp=False`` keeps every Boolean
+    (int8) leaf whole over "data", as a ``VoteOptimizer`` needs."""
+    lead = (None,)              # a stacked block leaf's group axis
+
+    def proj(node, spec):
+        out = {"w": P(*lead, *spec)}
+        if "b" in node:
+            out["b"] = P(*lead, spec[-1])
+        return out
+
+    def attn(node):
+        kv = (D, None) if replicate_kv else (D, M)
+        return {"wq": proj(node["wq"], (D, M)), "wk": proj(node["wk"], kv),
+                "wv": proj(node["wv"], kv),
+                "wo": proj(node["wo"], (None, D))}
+
+    def ffn(node):
+        return {"wg": proj(node["wg"], (D, M)),
+                "wu": proj(node["wu"], (D, M)),
+                "wd": proj(node["wd"], (M, D)), "tau": P(*lead, M)}
+
+    def mamba(node):
+        return {"in_x": proj(node["in_x"], (D, M)),
+                "in_z": proj(node["in_z"], (D, M)),
+                "conv_w": P(*lead, None, M), "conv_b": P(*lead, M),
+                "x_proj": proj(node["x_proj"], (M, None)),
+                "dt_proj": proj(node["dt_proj"], (D, M)),
+                "dt_bias": P(*lead, M), "A_log": P(*lead, M, None),
+                "D": P(*lead, M), "out_proj": proj(node["out_proj"], (M, D))}
+
+    def moe(node):
+        return {"router": P(*lead, None, M), "wg": P(*lead, M, D, None),
+                "wu": P(*lead, M, D, None), "wd": P(*lead, M, None, D),
+                "tau": P(*lead, None)}
+
+    rules = {"attn": attn, "ffn": ffn, "mamba": mamba, "moe": moe}
+
+    def block(node):
+        return {k: (rules[k](v) if k in rules else _whole(v))
+                for k, v in node.items()}
+
+    specs = {k: _whole(v) for k, v in params.items()}
+    specs["embed"] = {"table": P(M, D)}
+    specs["head"] = {"w": P(D, M)}
+    specs["blocks"] = {k: block(v) for k, v in params["blocks"].items()}
+    _check_keys(params, specs)
+    if not boolean_fsdp:
+        specs = tree_map(lambda t, sp: P(*(None if a == D else a for a in sp))
+                         if t.dtype == torch.int8 else sp, params, specs)
+    return specs
+
+
+def _whole(node):
+    """A replicated spec for every leaf of ``node``."""
+    if isinstance(node, dict):
+        return {k: _whole(v) for k, v in node.items()}
+    return P()
+
+
+def _check_keys(params, specs, path=""):
+    """Every leaf of ``params`` has a spec and every spec a leaf."""
+    if isinstance(params, dict):
+        if not isinstance(specs, dict) or params.keys() != specs.keys():
+            raise ValueError(f"train_param_specs: no rule for {path or '/'}: "
+                             f"{sorted(params)}")
+        for k in params:
+            _check_keys(params[k], specs[k], f"{path}/{k}")
 
 
 def serve_pool_specs(cfg: ModelConfig, pool):

@@ -14,9 +14,10 @@ the world this process is in, ``--model-axis`` ranks a data row: a world
 started by ``torchrun`` (one process a card, NCCL; gloo under ``--device
 cpu``), else a world of one. ``--mesh single`` / ``multi`` build the
 256- / 512-rank production mesh. Over more than one rank the step is
-sharded (``launch/shardings.py``: data parallel over "data", the
-attention heads over "model"), and MoE archs route in as many groups as
-batch shards:
+sharded by the JAX package's training placement (``launch/shardings.py``:
+the batch and FSDP of the large weights over "data", the heads, d_ff,
+d_inner, the experts and the vocab over "model"), and MoE archs route in
+as many groups as batch shards:
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch gemma2-2b --smoke --steps 10 --device cpu --model-axis 2

@@ -19,8 +19,10 @@ Under a training mesh (``cfg.use_sharding_constraints``, the launcher's
 ``TrainMesh``) the training attention runs head-parallel over its "model"
 axis: this rank's column slices of q/k/v (``launch.shardings.
 train_param_specs``), attention at the head-local counts, the heads
-gathered before the replicated ``wo`` (``distributed.gather_heads``), the
-activation grad of the q/k/v input summed over the axis. With
+gathered before the ``wo`` replicated over "model"
+(``distributed.gather_heads``), the activation grad of the q/k/v input
+summed over the axis. Their FSDP slices over "data" are gathered with
+the layer group's (``models.lm``) before the block runs. With
 ``cfg.cache_seq_axes`` the contiguous decode runs seq-sharded instead:
 each rank holds a slab of the cache rows and the softmax statistics
 combine across the slabs (``attention_decode``).
@@ -34,13 +36,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import PackedBool
-from repro_torch.distributed import (TrainMesh, active_mesh, gather_heads,
-                                     get_mesh)
+from repro_torch.distributed import active_mesh, gather_heads, get_mesh
 from repro_torch.kernels import paged_flash_decode, paged_prefix_attention
 from repro_torch.kernels.paged_attention import (  # noqa: F401 (reference names)
     flash_attention_abs, gather_prefix_rows)
 
-from .modules import ModelConfig, proj_apply, proj_init, rope, softcap
+from .modules import (ModelConfig, proj_apply, proj_init, rope, softcap,
+                      train_model_mesh)
 
 
 def attention_init(gen: torch.Generator, cfg: ModelConfig, lead=(),
@@ -257,26 +259,12 @@ def flash_prefix_attention_paged(cfg: ModelConfig, bcache, page_ids, q, k, v,
     return out.transpose(0, 1)[None].to(q.dtype)
 
 
-def _train_heads_mesh(cfg: ModelConfig) -> Optional[TrainMesh]:
-    """The training mesh whose "model" axis the training attention's heads
-    shard over, or None: a ``TrainMesh`` installed under
-    ``use_sharding_constraints`` with a "model" axis of more than one rank
-    that does not shard the cache rows instead."""
-    if not cfg.use_sharding_constraints or "model" in cfg.cache_seq_axes:
-        return None
-    mesh = get_mesh()
-    if not isinstance(mesh, TrainMesh):
-        raise RuntimeError("use_sharding_constraints outside a training "
-                           "mesh (the launcher installs one: set_mesh)")
-    return mesh if mesh.shape.get("model", 1) > 1 else None
-
-
 def attention_apply(cfg: ModelConfig, p, x, positions, *,
                     local: bool = False, axis_size: int = 16):
     """Full training/prefill attention block body (no residual/norm).
 
     Head-parallel under a training mesh of tp "model" ranks
-    (``_train_heads_mesh``): ``p``'s q/k/v hold this rank's hp/tp q and
+    (``modules.train_model_mesh``): ``p``'s q/k/v hold this rank's hp/tp q and
     kvp/tp KV heads (contiguous, group-major, so a rank's q heads read its
     own KV heads), the padded-head mask tests global head indices, and the
     heads are gathered before the replicated ``wo``. With fewer KV heads
@@ -289,7 +277,7 @@ def attention_apply(cfg: ModelConfig, p, x, positions, *,
     hp = cfg.heads_padded(axis_size)
     kvp = cfg.kv_heads_padded(axis_size)
     n_rep = _group(cfg, axis_size)
-    mesh = _train_heads_mesh(cfg)
+    mesh = train_model_mesh(cfg)
     shard = (0, 1)
     if mesh is None:
         q, k, v = _qkv(cfg, p, x, positions, axis_size)

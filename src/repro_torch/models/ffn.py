@@ -3,6 +3,12 @@
 The gate path goes through the Boolean threshold activation and its ±1
 output sign-modulates the up path; all three projections carry Boolean
 weights. ``act_boolean=False`` falls back to SiLU on the scaled counts.
+
+Under a training mesh's "model" split (``modules.train_model_mesh``) d_ff
+splits: this rank's columns of ``wg`` / ``wu`` and its slice of ``tau``
+make its slice of the hidden, and its rows of ``wd`` a partial output,
+summed over "model" (``proj_apply(rows=)``), as the JAX package's
+``P(FSDP, MODEL)`` / ``P(MODEL, FSDP)`` specs imply.
 """
 from __future__ import annotations
 
@@ -10,7 +16,7 @@ import torch
 
 from repro_torch.core import boolean_activation
 
-from .modules import ModelConfig, proj_apply, proj_init
+from .modules import ModelConfig, proj_apply, proj_init, train_model_mesh
 
 
 def ffn_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0, lead=()):
@@ -24,16 +30,19 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0, lead=()):
 
 
 def ffn_apply(cfg: ModelConfig, p, x):
+    mesh = None
     if "wgu" in p:
         # packed serving layout (pack_weights): gate+up fused into one GEMV
         gu = proj_apply(cfg, p["wgu"], x)
         g, u = torch.chunk(gu, 2, dim=-1)
     else:
-        g = proj_apply(cfg, p["wg"], x)  # scaled counts, Var≈1
-        u = proj_apply(cfg, p["wu"], x)
+        mesh = train_model_mesh(cfg)
+        group = None if mesh is None else mesh.group("model")
+        g = proj_apply(cfg, p["wg"], x, group=group)  # scaled counts, Var≈1
+        u = proj_apply(cfg, p["wu"], x, group=group)
     if cfg.boolean and cfg.act_boolean:
         # s is pre-normalised to unit variance by proj_apply: fan_in=1
         h = boolean_activation(g, p["tau"].to(g.dtype), 1) * u
     else:
         h = torch.nn.functional.silu(g.to(torch.float32)).to(u.dtype) * u
-    return proj_apply(cfg, p["wd"], h)
+    return proj_apply(cfg, p["wd"], h, rows=mesh)

@@ -15,9 +15,12 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from repro_torch.core import PackedBool
+from repro_torch.core.optimizer import tree_leaves, tree_unflatten
+from repro_torch.distributed import fsdp_gather, reduce_from_group
 from repro_torch.kernels import flash_attention_fwd
 
 from . import attention as A
@@ -25,7 +28,8 @@ from . import ffn as F
 from . import mamba as M
 from . import moe as MOE
 from .modules import (ModelConfig, embed_apply, embed_init, head_apply,
-                      head_init, rmsnorm_apply, rmsnorm_init)
+                      head_init, rmsnorm_apply, rmsnorm_init,
+                      train_model_mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -247,11 +251,54 @@ def _apply_block(cfg: ModelConfig, bp, role, x, positions):
     return (x if out is None else x + out), aux
 
 
-def _apply_group(cfg: ModelConfig, roles, gp, x, positions):
-    """One group's blocks. ``block_grad_barriers`` changes nothing here: the
-    JAX package's barrier between the blocks orders XLA's scheduling of
+class _Fsdp:
+    """The FSDP gathers of one training forward: ``shardings`` is the
+    params' placement tree (``distributed.placement.named``); a leaf cut
+    over "data" into more than one slice is gathered at ``dtype`` before
+    use, its grad reduce-scattered at ``grad_dtype``. ``of(tree, where)``
+    -> ``tree`` (a dict of leaves) with those leaves whole over "data":
+    one flat gather (``distributed.fsdp_gather``); ``where`` is the
+    placement subtree and ``lead`` the leading axes ``tree``'s leaves
+    have dropped (1 for a group's slice of the stacked blocks)."""
+
+    def __init__(self, mesh, shardings, dtype, grad_dtype):
+        self.mesh, self.dtype, self.grad_dtype = mesh, dtype, grad_dtype
+        self.shardings = shardings
+
+    def of(self, tree, where, lead: int = 0):
+        leaves = tree_leaves(tree)
+        dims = [sh.dim("data") - lead if sh.fsdp() else -1
+                for sh in tree_leaves(where)]
+        cut = [i for i, d in enumerate(dims) if d >= 0]
+        fulls = fsdp_gather(self.mesh, [leaves[i] for i in cut],
+                            [dims[i] for i in cut], self.dtype,
+                            self.grad_dtype)
+        for i, f in zip(cut, fulls):
+            leaves[i] = f
+        return tree_unflatten(tree, leaves)
+
+
+def _fsdp_of(cfg: ModelConfig, shardings, grad_dtype=torch.float32):
+    """The forward's ``_Fsdp`` for ``shardings`` (None when no leaf is cut
+    over "data" into more than one slice)."""
+    if shardings is None:
+        return None
+    placed = tree_leaves(shardings)
+    if not any(sh.fsdp() for sh in placed):
+        return None
+    return _Fsdp(placed[0].mesh, shardings, cfg.dtype, grad_dtype)
+
+
+def _apply_group(cfg: ModelConfig, roles, gp, x, positions, fsdp=None):
+    """One group's blocks. Under FSDP (``fsdp``, an ``_Fsdp``) the group's
+    weight slices are gathered first: inside the group's remat, they are
+    freed after its forward and gathered again in its recompute, as the
+    JAX package's scan does. ``block_grad_barriers`` changes nothing here:
+    the JAX package's barrier between the blocks orders XLA's scheduling of
     their grad reductions, and eager autograd runs them as it reaches
     them."""
+    if fsdp is not None:
+        gp = fsdp.of(gp, fsdp.shardings["blocks"], lead=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, role in enumerate(roles):
         x, a = _apply_block(cfg, gp[f"b{i}"], role, x, positions)
@@ -259,23 +306,41 @@ def _apply_group(cfg: ModelConfig, roles, gp, x, positions):
     return x, aux
 
 
-def _inputs_to_h(cfg: ModelConfig, params, batch):
-    """The first block's input: the scaled token embeddings, or with an
-    embeddings frontend (the audio/vlm stub) ``batch["embeddings"]``
-    (B, S, d_model) as given."""
+def _inputs_to_h(cfg: ModelConfig, params, batch, mesh=None, fsdp=None):
+    """The first block's input: the scaled token embeddings (vocab-parallel
+    over ``mesh``'s "model" axis, the table gathered over "data" under
+    ``fsdp``), or with an embeddings frontend (the audio/vlm stub)
+    ``batch["embeddings"]`` (B, S, d_model) as given."""
     if cfg.frontend == "embeddings":
         return batch["embeddings"].to(cfg.dtype)
-    return embed_apply(cfg, params["embed"], batch["tokens"]).to(cfg.dtype)
+    embed = params["embed"]
+    if fsdp is not None:
+        embed = fsdp.of(embed, fsdp.shardings["embed"])
+    return embed_apply(cfg, embed, batch["tokens"], mesh).to(cfg.dtype)
 
 
-def lm_forward(cfg: ModelConfig, params, batch):
+def lm_forward(cfg: ModelConfig, params, batch, shardings=None,
+               grad_dtype=torch.float32):
     """-> (logits fp32 (B, S, Vp), aux loss: the MoE blocks' load-balancing
     losses summed). With ``cfg.remat`` each group runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward (the JAX
     package's ``jax.checkpoint`` of the scanned body); under
     ``remat_policy="save_block_outs"`` each residual branch is instead
-    (``_saved``)."""
-    h = _inputs_to_h(cfg, params, batch)
+    (``_saved``).
+
+    On a training mesh ``params`` are this rank's slices and ``shardings``
+    their placement tree (``make_train_step(grad_shardings=)``): the
+    weights cut over "data" are gathered per use (``_Fsdp``; their grads
+    reduce-scattered at ``grad_dtype``), and under a "model" split
+    (``train_model_mesh``) the logits are this rank's vocab columns,
+    (B, S, Vp / tp)."""
+    mesh = train_model_mesh(cfg)
+    if mesh is not None and shardings is None:
+        raise ValueError("a training mesh splits the model over 'model': "
+                         "the params must be placed (launch.shardings."
+                         "train_param_specs) and their placement given")
+    fsdp = _fsdp_of(cfg, shardings, grad_dtype)
+    h = _inputs_to_h(cfg, params, batch, mesh, fsdp)
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=h.device) \
         .expand(B, S)
@@ -284,28 +349,57 @@ def lm_forward(cfg: ModelConfig, params, batch):
     for gp in unbind_tree(params["blocks"], cfg.n_groups):
         if cfg.remat and cfg.remat_policy != "save_block_outs":
             h, a = torch.utils.checkpoint.checkpoint(
-                _apply_group, cfg, roles, gp, h, positions,
+                _apply_group, cfg, roles, gp, h, positions, fsdp,
                 use_reentrant=False)
         else:
-            h, a = _apply_group(cfg, roles, gp, h, positions)
+            h, a = _apply_group(cfg, roles, gp, h, positions, fsdp)
         aux = aux + a
     h = rmsnorm_apply(params["final_norm"], h)
-    return head_apply(cfg, params["head"], h), aux
+    head = params["head"]
+    if fsdp is not None:
+        head = fsdp.of(head, fsdp.shardings["head"])
+    return head_apply(cfg, head, h, mesh), aux
 
 
-def lm_loss(cfg: ModelConfig, params, batch):
+def _vocab_nll(cfg: ModelConfig, logits, labels, mesh=None):
+    """The token NLLs from this "model" rank's vocab columns of the logits
+    (rank r the columns [r·V, (r+1)·V)), never gathered: the padded slots
+    masked by global id, the max over "model" (exact), the sum of
+    exponentials over "model" (reassociated), the picked logit from the
+    rank that owns the label, summed (exact: one term is non-zero). With
+    no mesh the logits are the whole vocab and nothing is reduced."""
+    vl = logits.shape[-1]
+    lo = 0 if mesh is None else mesh.coords["model"] * vl
+    ids = lo + torch.arange(vl, device=logits.device)
+    logits = logits.masked_fill(~(ids < cfg.vocab_size), -1e30)
+    # the shift cancels in the log-sum-exp: no grad flows through it
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    if mesh is not None:
+        mesh.all_reduce(m, "model", op=dist.ReduceOp.MAX,
+                        count="vocab_reduces")
+    se = torch.exp(logits - m).sum(dim=-1)
+    idx = labels - lo
+    mine = (idx >= 0) & (idx < vl)
+    picked = torch.gather(logits, -1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+    picked = torch.where(mine, picked, torch.zeros(
+        (), dtype=picked.dtype, device=picked.device))
+    if mesh is not None:
+        se = reduce_from_group(se, mesh, count="vocab_reduces")
+        picked = reduce_from_group(picked, mesh, count="vocab_reduces")
+    return torch.log(se) + m[..., 0] - picked
+
+
+def lm_loss(cfg: ModelConfig, params, batch, shardings=None,
+            grad_dtype=torch.float32):
     """Cross-entropy over the padded vocab with the padded slots masked,
     a max-shifted log-sum-exp, optional ``loss_mask`` weights, and
-    ``+ 0.01 · aux``. -> (loss, {"nll", "aux"})."""
-    logits, aux = lm_forward(cfg, params, batch)
+    ``+ 0.01 · aux``. -> (loss, {"nll", "aux"}). ``shardings`` and
+    ``grad_dtype``: ``lm_forward``'s; under a "model" split the vocab
+    stays split through the softmax (``_vocab_nll``), as the JAX package
+    keeps it: the (B, S, Vp) logits are never gathered."""
+    logits, aux = lm_forward(cfg, params, batch, shardings, grad_dtype)
     labels = batch["labels"].long()
-    pad_mask = torch.arange(cfg.vocab_padded, device=logits.device) \
-        < cfg.vocab_size
-    logits = logits.masked_fill(~pad_mask, -1e30)
-    m = logits.amax(dim=-1, keepdim=True)
-    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = lse - picked
+    nll = _vocab_nll(cfg, logits, labels, train_model_mesh(cfg))
     weights = batch.get("loss_mask")
     if weights is None:
         weights = torch.ones_like(labels, dtype=torch.float32)

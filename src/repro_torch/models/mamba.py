@@ -17,6 +17,14 @@ of one chunk are the largest live.
 
 Decode: the O(1) single-step state update; the state is lane-indexed in a
 serving pool and never paged.
+
+Under a training mesh's "model" split (``modules.train_model_mesh``)
+d_inner splits, as the JAX package's specs place it: this rank's columns
+of ``in_x`` / ``in_z`` / ``dt_proj``, its channels of the conv, of
+``dt_bias``, ``A_log`` and ``D`` and so of the scan, and its rows of
+``x_proj`` and ``out_proj``, whose partial outputs (dt, B, C and the
+block's output) are summed over "model". B and C feed every rank's
+channels: their grads are summed over "model" too.
 """
 from __future__ import annotations
 
@@ -25,7 +33,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .modules import ModelConfig, fp_weight, proj_apply, proj_init
+from .modules import (ModelConfig, copy_to_group, fp_weight, proj_apply,
+                      proj_init, train_model_mesh)
 
 
 def mamba_init(gen: torch.Generator, cfg: ModelConfig, lead=()):
@@ -73,12 +82,20 @@ def _causal_conv(x, w, b, conv0=None):
     return out + b[None, None, :]
 
 
-def _ssm_params(cfg: ModelConfig, p, xc):
-    """xc: (..., DI) conv-activated input -> (dt, Bmat, Cmat), fp32."""
+def _ssm_params(cfg: ModelConfig, p, xc, mesh=None):
+    """xc: (..., DI) conv-activated input -> (dt, Bmat, Cmat), fp32. Under
+    a "model" split (``mesh``) xc and dt are this rank's channels."""
     N, R = cfg.ssm_state, cfg.dt_rank_
-    dbc = proj_apply(cfg, p["x_proj"], xc)
-    dt_r, Bm, Cm = torch.split(dbc, [R, N, N], dim=-1)
-    dt = proj_apply(cfg, p["dt_proj"], dt_r)
+    dbc = proj_apply(cfg, p["x_proj"], xc, rows=mesh)
+    if mesh is None:
+        dt_r, Bm, Cm = torch.split(dbc, [R, N, N], dim=-1)
+        group = None
+    else:
+        group = mesh.group("model")
+        dt_r = dbc[..., :R]
+        Bm, Cm = torch.split(copy_to_group(dbc[..., R:], group), [N, N],
+                             dim=-1)
+    dt = proj_apply(cfg, p["dt_proj"], dt_r, group=group)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"].to(torch.float32))
     return dt, Bm.to(torch.float32), Cm.to(torch.float32)
 
@@ -151,19 +168,21 @@ def mamba_apply(cfg: ModelConfig, p, x, h0=None, conv0=None,
     frozen state at ``length`` and garbage conv rows, which callers drop.
     """
     W, S = cfg.conv_width, x.shape[1]
-    xin = proj_apply(cfg, p["in_x"], x)
-    z = proj_apply(cfg, p["in_z"], x)
+    mesh = train_model_mesh(cfg)
+    group = None if mesh is None else mesh.group("model")
+    xin = proj_apply(cfg, p["in_x"], x, group=group)
+    z = proj_apply(cfg, p["in_z"], x, group=group)
     xconv = _causal_conv(xin, p["conv_w"].to(torch.float32), p["conv_b"],
                          conv0=conv0).to(x.dtype)
     xc = F.silu(xconv.to(torch.float32)).to(x.dtype)
-    dt, Bm, Cm = _ssm_params(cfg, p, xc)
+    dt, Bm, Cm = _ssm_params(cfg, p, xc, mesh)
     if length is not None:
         live = torch.arange(S, device=x.device) < int(length)
         dt = torch.where(live[None, :, None], dt, 0.0)
     y, h_last, *hs = mamba_ssm(cfg, p, xc, dt, Bm, Cm, h0,
                                chunk=cfg.ssm_chunk, hs_at=state_at)
     y = y * F.silu(z.to(torch.float32)).to(y.dtype)
-    out = proj_apply(cfg, p["out_proj"], y)
+    out = proj_apply(cfg, p["out_proj"], y, rows=mesh)
     if not return_state:
         return out
     # conv history with conv0 (or zeros) prepended: rows [b-W+1, b) of the

@@ -8,9 +8,11 @@ over leaf by leaf (``repro_torch.bridge``).
 The JAX package's ``constrain`` (a ``with_sharding_constraint`` against the
 launcher's mesh) has no counterpart: the port computes eagerly on local
 tensors, which have no layout to constrain. ``use_sharding_constraints``
-selects the mesh paths, as in the JAX package: head-parallel training
-attention and the seq-sharded contiguous decode (``models/attention.py``)
-under the training mesh the launcher installs (``distributed.set_mesh``).
+selects the mesh paths, as in the JAX package: the training forward on
+this rank's "model" slices (``train_model_mesh``: the heads, d_ff, the
+mamba d_inner, the experts and the vocab; ``launch/shardings.py``) and
+the seq-sharded contiguous decode (``models/attention.py``) under the
+training mesh the launcher installs (``distributed.set_mesh``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from repro_torch.core import (PackedBool, boolean_dense,
                               boolean_dense_inference, matmul_f32,
                               random_boolean)
 from repro_torch.core.boolean_linear import all_reduce_sum
+from repro_torch.distributed import (TrainMesh, get_mesh, reduce_from_group,
+                                     vocab_embed)
 
 
 # ---------------------------------------------------------------------------
@@ -193,20 +197,40 @@ def head_init(gen: torch.Generator, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # Projection dispatch: packed Boolean, int8 Boolean, or FP — one call site.
 # ---------------------------------------------------------------------------
+def train_model_mesh(cfg: ModelConfig) -> Optional[TrainMesh]:
+    """The training mesh whose "model" axis the training forward splits
+    over (the heads, d_ff, d_inner, the experts, the vocab), or None: a
+    ``TrainMesh`` installed under ``use_sharding_constraints`` with a
+    "model" axis of more than one rank that does not shard the cache rows
+    instead (the prefill and decode cells keep their weights whole)."""
+    if not cfg.use_sharding_constraints or "model" in cfg.cache_seq_axes:
+        return None
+    mesh = get_mesh()
+    if not isinstance(mesh, TrainMesh):
+        raise RuntimeError("use_sharding_constraints outside a training "
+                           "mesh (the launcher installs one: set_mesh)")
+    return mesh if mesh.shape.get("model", 1) > 1 else None
+
+
 def proj_apply(cfg: ModelConfig, p, x, *, scale: Optional[float] = None,
                plan_n: Optional[int] = None, group=None,
-               replicated: bool = False):
+               replicated: bool = False, rows: Optional[TrainMesh] = None):
     """Apply a projection. Boolean path: counting GEMM, then the
-    deterministic 1/√fan_in pre-activation normalizer (App C.3).
-    ``plan_n``: a packed shard's whole column count, so the serving GEMV
-    sums each column as the unsharded launch does
+    deterministic 1/√fan_in pre-activation normalizer (App C.3), fan_in
+    the whole weight's. ``plan_n``: a packed shard's whole column count,
+    so the serving GEMV sums each column as the unsharded launch does
     (``packed_xnor_gemv``). ``group``: ``p`` holds this rank's output
     columns of a weight whose other columns live on the other ranks of
     that process group (head-parallel training); the activation grad is
     summed over it (``boolean_dense``, ``copy_to_group``). With
     ``replicated`` ``p`` is the whole weight on every rank of ``group``,
     each rank reading part of its output: the weight's grads are summed
-    over the group as well."""
+    over the group as well. ``rows``: ``p`` holds this rank's input rows
+    of a weight whose other rows live on the other "model" ranks of that
+    training mesh (``x`` is this rank's slice of the input features): the
+    partial products are summed over "model" before the cast to x's dtype
+    (``reduce_from_group``; fp32 partials, x's dtype under
+    ``reduce_bf16``), the bias added once after."""
     w = p["w"]
     b = p.get("b")
     if isinstance(w, PackedBool):
@@ -221,13 +245,16 @@ def proj_apply(cfg: ModelConfig, p, x, *, scale: Optional[float] = None,
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
     shards = 1 if group is None or replicated else dist.get_world_size(group)
+    fan_in = w.shape[0] * (1 if rows is None else rows.shape["model"])
     if replicated and b is not None:
         b = copy_to_group(b, group)
     if cfg.boolean:
         y = boolean_dense(x, w, None, cfg.bwd_norm, cfg.sign_backward,
                           cfg.reduce_bf16, group, w.shape[-1] * shards,
-                          replicated)
-        s = (1.0 / math.sqrt(w.shape[0])) if scale is None else scale
+                          replicated, keep_f32=rows is not None)
+        if rows is not None:
+            y = reduce_from_group(y, rows).to(x.dtype)
+        s = (1.0 / math.sqrt(fan_in)) if scale is None else scale
         y = y * torch.tensor(s, dtype=y.dtype)
         if b is not None:
             y = y + b.to(y.dtype)
@@ -237,6 +264,8 @@ def proj_apply(cfg: ModelConfig, p, x, *, scale: Optional[float] = None,
         if replicated:
             w = copy_to_group(w, group)
     y = torch.matmul(x, w) if cfg.reduce_bf16 else matmul_f32(x, w)
+    if rows is not None:
+        y = reduce_from_group(y, rows)
     y = y.to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
@@ -286,7 +315,11 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def embed_apply(cfg: ModelConfig, p, tokens):
+def embed_apply(cfg: ModelConfig, p, tokens, mesh: Optional[TrainMesh] = None):
+    """The scaled token embeddings. ``mesh``: ``p`` holds this "model"
+    rank's vocab rows, looked up vocab-parallel (``vocab_embed``: exact)."""
+    if mesh is not None:
+        return vocab_embed(p["table"], tokens, mesh) * math.sqrt(cfg.d_model)
     return p["table"][tokens.long()] * math.sqrt(cfg.d_model)
 
 
@@ -294,6 +327,10 @@ def softcap(x, cap: float):
     return cap * torch.tanh(x / cap) if cap > 0 else x
 
 
-def head_apply(cfg: ModelConfig, p, x):
-    """fp32 (B, S, vocab_padded) logits with the final softcap."""
+def head_apply(cfg: ModelConfig, p, x, mesh: Optional[TrainMesh] = None):
+    """fp32 (B, S, vocab_padded) logits with the final softcap. ``mesh``:
+    ``p`` holds this "model" rank's vocab columns, and so do the logits
+    (B, S, vocab_padded / tp); the grad of ``x`` is summed over "model"."""
+    if mesh is not None:
+        x = copy_to_group(x, mesh.group("model"))
     return softcap(matmul_f32(x, p["w"]), cfg.final_logit_softcap)

@@ -13,6 +13,15 @@ group:
 
 The expert products are plain torch on the ±1 views summed in fp32; the
 JAX package leaves them to XLA too (no Pallas kernel).
+
+Under a training mesh's "model" split (``modules.train_model_mesh``) the
+experts split, as the JAX package's specs place them (its EP layout):
+the router's columns are gathered first (small), so the routing is the
+unsharded routing; each rank builds the same dispatch, runs its E / tp
+experts on their rows, and the expert outputs are gathered over "model"
+before the combine, which then sums in the unsharded order. The grads of
+the dispatched tokens and of the replicated ``tau`` are summed over
+"model" (each rank's experts see part of them).
 """
 from __future__ import annotations
 
@@ -22,8 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import boolean_activation, random_boolean
+from repro_torch.distributed import gather_heads
 
-from .modules import ModelConfig, fp_weight
+from .modules import ModelConfig, copy_to_group, fp_weight, train_model_mesh
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0, lead=()):
@@ -60,7 +70,8 @@ def _bmm(cfg: ModelConfig, x, w):
 
 
 def _expert_mlp(cfg: ModelConfig, p, xin):
-    """xin: (E, C, D) -> (E, C, D) through each expert's gated MLP."""
+    """xin: (E, C, D) -> (E, C, D) through each expert's gated MLP (E: the
+    experts ``p`` holds)."""
     d_ff = p["wg"].shape[-1]
     scale_in = 1.0 / math.sqrt(p["wg"].shape[-2]) if cfg.boolean else 1.0
     scale_hid = 1.0 / math.sqrt(d_ff) if cfg.boolean else 1.0
@@ -103,7 +114,20 @@ def _arrival(onehot):
     return ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
 
 
-def _moe_einsum_group(cfg: ModelConfig, p, xf):
+def _local_experts(cfg: ModelConfig, p, xin, mesh):
+    """The expert MLP on this rank's experts' rows of the dispatched
+    ``xin`` (E, C, D), the outputs of every expert gathered over "model"
+    (the whole (E, C, D), this rank's slice of the grad in the backward);
+    ``mesh`` None: every expert here."""
+    if mesh is None:
+        return _expert_mlp(cfg, p, xin)
+    el = p["wg"].shape[0]
+    lo = mesh.coords["model"] * el
+    out = _expert_mlp(cfg, p, xin[lo:lo + el])
+    return gather_heads(out, mesh, 0, count="expert_gathers")
+
+
+def _moe_einsum_group(cfg: ModelConfig, p, xf, mesh=None):
     T, _ = xf.shape
     gates, experts, aux = _route(cfg, p, xf)
     E, k, C = cfg.n_experts, cfg.top_k, _capacity(cfg, T)
@@ -118,13 +142,14 @@ def _moe_einsum_group(cfg: ModelConfig, p, xf):
                         pos_oh * keep[..., None].to(xf.dtype))
     comb = torch.einsum("tke,tkc->tec", onehot * gates[..., None],
                         pos_oh.to(torch.float32))
-    xin = torch.einsum("td,tec->ecd", xf, disp)              # (E, C, D)
-    out = _expert_mlp(cfg, p, xin)
+    xd = xf if mesh is None else copy_to_group(xf, mesh.group("model"))
+    xin = torch.einsum("td,tec->ecd", xd, disp)              # (E, C, D)
+    out = _local_experts(cfg, p, xin, mesh)
     y = torch.einsum("ecd,tec->td", out.to(torch.float32), comb)
     return y, aux
 
 
-def _moe_scatter_group(cfg: ModelConfig, p, xf):
+def _moe_scatter_group(cfg: ModelConfig, p, xf, mesh=None):
     T, D = xf.shape
     gates, experts, aux = _route(cfg, p, xf)
     E, k, C = cfg.n_experts, cfg.top_k, _capacity(cfg, T)
@@ -134,9 +159,10 @@ def _moe_scatter_group(cfg: ModelConfig, p, xf):
     keep = pos < C
     pos_c = torch.where(keep, pos, C)            # overflow -> scratch slot C
     tok_idx = torch.arange(T, device=xf.device).repeat_interleave(k)
+    xd = xf if mesh is None else copy_to_group(xf, mesh.group("model"))
     buf = torch.zeros((E, C + 1, D), dtype=xf.dtype, device=xf.device)
-    buf.index_put_((e_flat, pos_c), xf[tok_idx], accumulate=True)
-    out = _expert_mlp(cfg, p, buf[:, :C])
+    buf.index_put_((e_flat, pos_c), xd[tok_idx], accumulate=True)
+    out = _local_experts(cfg, p, buf[:, :C], mesh)
     out_pad = torch.cat([out, torch.zeros((E, 1, D), dtype=out.dtype,
                                           device=out.device)], dim=1)
     got = out_pad[e_flat, pos_c]                 # (T·k, D)
@@ -151,6 +177,13 @@ def moe_apply(cfg: ModelConfig, p, x):
     routing groups)."""
     group = _moe_scatter_group if cfg.moe_impl == "scatter" \
         else _moe_einsum_group
-    ys, auxs = zip(*(group(cfg, p, xg) for xg in _group_tokens(cfg, x)))
+    mesh = train_model_mesh(cfg)
+    if mesh is not None:
+        model = mesh.group("model")
+        p = dict(p, router=gather_heads(p["router"], mesh, p["router"].dim()
+                                        - 1, count="expert_gathers"),
+                 tau=copy_to_group(p["tau"], model))
+    ys, auxs = zip(*(group(cfg, p, xg, mesh)
+                     for xg in _group_tokens(cfg, x)))
     return torch.stack(ys).reshape(x.shape).to(x.dtype), \
         torch.stack(auxs).mean()

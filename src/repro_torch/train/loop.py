@@ -16,7 +16,7 @@ Batches move to the device of the params. On a training mesh every rank
 runs the loop with its own params and state and the same global batch
 (batches are pure functions of the step; the step takes the rank's rows);
 rank 0 alone writes the checkpoints, of full arrays, the sharded leaves
-gathered first. Signals and straggler logging stay per rank.
+gathered first over both axes ("data" and "model"). Signals and straggler logging stay per rank.
 """
 from __future__ import annotations
 

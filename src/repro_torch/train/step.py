@@ -20,14 +20,22 @@ from repro_torch.distributed.placement import BatchRows
 from repro_torch.models import ModelConfig, lm_decode_step, lm_loss, lm_prefill
 
 
-def bool_view(params, dtype=torch.bfloat16):
+def bool_view(params, dtype=torch.bfloat16, wide=None, wide_dtype=None):
     """The tree to differentiate: int8 ±1 leaves viewed as ``dtype`` (a
     transient copy, bitwise determined by the Boolean weight), FP leaves
-    detached; every leaf a leaf tensor with ``requires_grad``."""
-    def view(p):
+    detached; every leaf a leaf tensor with ``requires_grad``. ``wide``
+    (a tree of bools like ``params``) marks leaves viewed at least as wide
+    as ``wide_dtype``: the FSDP slices, whose reduce-scattered grads
+    arrive summed at the accumulation dtype (``models.lm``) and must not
+    be rounded again, and whose values the view keeps exactly."""
+    def view(p, w=False):
         v = p.to(dtype) if is_boolean_leaf(p) else p.detach()
+        if w:
+            v = v.to(torch.promote_types(v.dtype, wide_dtype))
         return v.requires_grad_(True)
-    return tree_map(view, params)
+    if wide is None:
+        return tree_map(view, params)
+    return tree_map(view, params, wide)
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
@@ -56,9 +64,20 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     times the batch shard count, the rank's estimate of the global grad.
     ``cfg.moe_groups`` counts the global batch's routing groups; a rank's
     rows hold ``moe_groups`` / (its batch shards) of them.
-    ``grad_shardings=None`` is the single-device step."""
+    ``grad_shardings=None`` is the single-device step.
+
+    A leaf cut over "data" (FSDP) is gathered in the forward and its grad
+    reduce-scattered over "data" each microbatch, at ``grad_accum_dtype``
+    (``models.lm``): it is not all-reduced over the batch axes again, only
+    over "pod" where the mesh has one. Every other leaf's grad is
+    all-reduced over the batch axes once, after the microbatches. A
+    ``VoteOptimizer`` votes on grads whole over "data", as the JAX
+    package's wrapper does: a placement that cuts a Boolean leaf over
+    "data" raises (``train_param_specs(boolean_fsdp=False)``)."""
     mesh = axes = rows = None
     dp = 1
+    fsdp = wide = None
+    votes_reduced = getattr(optimizer, "vote_axes", None) is not None
     if grad_shardings is not None:
         mesh = next(sh.mesh for sh in tree_leaves(grad_shardings))
         axes = tuple(cfg.batch_axes)
@@ -68,10 +87,12 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                              f"not split over {dp} batch shards")
         cfg = cfg.scaled(moe_groups=max(cfg.moe_groups // dp, 1))
         rows = BatchRows(mesh, axes)
-    votes_reduced = getattr(optimizer, "vote_axes", None) is not None
+        wide = tree_map(lambda sh: sh.fsdp(), grad_shardings)
+        fsdp = tree_leaves(wide)
+    rest = tuple(a for a in (axes or ()) if a != "data")
 
     def grads_of(pf, leaves, mb, share):
-        loss, parts = lm_loss(cfg, pf, mb)
+        loss, parts = lm_loss(cfg, pf, mb, grad_shardings, grad_accum_dtype)
         if share is not None:
             # this rank's share of the global microbatch's loss
             loss = parts["nll"] * share + 0.01 * parts["aux"] / dp
@@ -84,7 +105,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         if rows is not None and dp > 1:
             shares = _shares(batch, microbatches, rows)
             batch = {k: rows.take(v, microbatches) for k, v in batch.items()}
-        pf = bool_view(params, cfg.dtype)
+        if votes_reduced and fsdp is not None:
+            _check_votes_whole(params, grad_shardings, fsdp)
+        pf = bool_view(params, cfg.dtype, wide, grad_accum_dtype)
         leaves = tree_leaves(pf)
         if microbatches == 1:
             loss, grads = grads_of(pf, leaves, batch, shares[0])
@@ -114,10 +137,13 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
             loss = loss / microbatches
         if dp > 1:
             # the grads cross the batch ranks once, after the microbatches
+            # (an FSDP slice's crossed "data" in its reduce-scatters)
             bool_leaves = tree_leaves(tree_map(is_boolean_leaf, params))
-            for g, is_bool in zip(grads, bool_leaves):
+            for g, is_bool, cut in zip(grads, bool_leaves, fsdp):
                 if votes_reduced and is_bool:
                     g.mul_(dp)
+                elif cut:
+                    mesh.all_reduce(g, rest)
                 else:
                     mesh.all_reduce(g, axes)
             loss = mesh.all_reduce(loss.reshape(1).clone(), axes)[0]
@@ -133,6 +159,20 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         return new_params, new_state, metrics
 
     return train_step
+
+
+def _check_votes_whole(params, shardings, fsdp) -> None:
+    """Raise ``ValueError`` when a Boolean leaf is cut over "data" (a
+    ``VoteOptimizer`` votes on grads whole over the batch axes)."""
+    bad = [sh.name for sh, p, cut in zip(tree_leaves(shardings),
+                                         tree_leaves(params), fsdp)
+           if cut and is_boolean_leaf(p)]
+    if bad:
+        raise ValueError(
+            "a VoteOptimizer votes on grads whole over 'data', but the "
+            f"placement cuts Boolean leaves over it: {', '.join(bad[:3])}"
+            + (f" and {len(bad) - 3} more" if len(bad) > 3 else "")
+            + " (launch.shardings.train_param_specs(boolean_fsdp=False))")
 
 
 def _shares(batch, microbatches, rows):

@@ -222,7 +222,10 @@ mesh = make_local_mesh(int(sys.argv[4]), "cpu")
 cfg = get_smoke("gemma2-2b").scaled(dtype=torch.float32,
                                     use_sharding_constraints=True)
 params = lm_init(cfg, torch.Generator().manual_seed(0))
-specs = train_param_specs(params)
+full_params = params
+# the votes are taken on grads whole over "data": the Boolean leaves stay
+# whole over it; the FP leaves' FSDP and the "model" splits apply
+specs = train_param_specs(params, boolean_fsdp=False)
 sh = named(mesh, specs)
 params = place(params, sh)
 opt = ef_signsgd_compressed(hybrid_optimizer(eta=1000.0, fp_lr=1e-3),
@@ -230,8 +233,15 @@ opt = ef_signsgd_compressed(hybrid_optimizer(eta=1000.0, fp_lr=1e-3),
 state = opt.init(params)
 step = make_train_step(cfg, opt, 2, grad_shardings=sh)
 pipe = make_pipeline(cfg, 16, 8)
-n_bool = sum(is_boolean_leaf(p) for p in tree_leaves(params))
-n_fp = len(tree_leaves(params)) - n_bool
+placed = tree_leaves(sh)
+bools = [is_boolean_leaf(p) for p in tree_leaves(params)]
+n_bool = sum(bools)
+n_fp = len(bools) - n_bool
+# the FP leaves cut over "data" (the embedding, the head) take their grads
+# from the reduce-scatters; the others' are all-reduced
+n_fp_cut = sum(p.over("data") > 1 for p, b in zip(placed, bools) if not b)
+keys = [tuple(mesh.coords[a] for a in ("data", "model") if p.over(a) > 1)
+        for p in placed]
 flips = []
 for i in range(3):
     before = dict(mesh.counts)
@@ -239,14 +249,17 @@ for i in range(3):
         k: torch.from_numpy(v) for k, v in pipe.batch_at(i).items()})
     d = {k: mesh.counts[k] - before[k] for k in before}
     assert d["vote_reduces"] == 1 + n_bool, d
-    assert d["grad_reduces"] == n_fp + 1, d       # + the loss
-    # the params are replicas; each rank's residual is its own
+    assert d["grad_reduces"] == n_fp - n_fp_cut + 1, d       # + the loss
+    assert d["fsdp_scatters"] == 2 * n_fp_cut, d       # two microbatches
+    # the ranks holding the same slices hold the same params; each rank's
+    # residual is its own
     sums = [float(t.double().sum()) for t in tree_leaves(params)]
     every = [None] * WORLD
-    dist.all_gather_object(every, (mesh.coords["model"], sums))
-    for coord, s in every:
-        if coord == mesh.coords["model"]:
-            assert s == sums, i
+    dist.all_gather_object(every, (keys, sums))
+    for k2, s in every:
+        for j, (a, b) in enumerate(zip(s, sums)):
+            if k2[j] == keys[j]:
+                assert a == b, (i, placed[j].name)
     flips.append(sum(float(f) for f in
                      tree_leaves(state.inner.boolean.flips)))
 full = [t.numpy() for t in tree_leaves(gather_tree(params, sh))]
@@ -254,13 +267,23 @@ err = [t.float().numpy() for t in tree_leaves(gather_tree(state.error, sh))]
 every = [None] * WORLD
 dist.all_gather_object(every, (mesh.coords["data"], mesh.coords["model"],
                                err))
+# a placement that cuts the Boolean leaves over "data" is refused
+cut = named(mesh, train_param_specs(full_params))
+refused = ""
+try:
+    make_train_step(cfg, opt, 2, grad_shardings=cut)(
+        place(full_params, cut), opt.init(place(full_params, cut)),
+        {k: torch.from_numpy(v) for k, v in pipe.batch_at(0).items()})
+except ValueError as e:
+    refused = str(e)
 if RANK == 0:
     out = {f"p{j}": t for j, t in enumerate(full)}
     for d, mc, e in every:
         if mc == 0:
             out.update({f"e{d}_{j}": t for j, t in enumerate(e)})
     np.savez(sys.argv[5], **out)
-print(json.dumps({"flips": flips, "n_bool": n_bool, "n_fp": n_fp}))
+print(json.dumps({"flips": flips, "n_bool": n_bool, "n_fp": n_fp,
+                  "n_fp_cut": n_fp_cut, "refused": refused}))
 mesh.close()
 """
 
@@ -292,6 +315,20 @@ def test_wrapper_keeps_replicas_identical(wrapped):
     assert sum(rec["flips"]) > 0, rec
 
 
+def test_vote_optimizer_refuses_boolean_leaves_cut_over_data(wrapped):
+    """The JAX package's wrapper votes on grads replicated over the batch
+    axes: ``make_train_step`` with a ``VoteOptimizer`` refuses a placement
+    that cuts a Boolean leaf over "data", naming the leaf; with the
+    Boolean leaves whole over "data" the FP leaves' FSDP still applies
+    (the embedding and the head, reduce-scattered)."""
+    for tp in (2, 1):
+        rec = wrapped[tp][0]
+        assert "VoteOptimizer" in rec["refused"], rec
+        assert "blocks/" in rec["refused"] and "boolean_fsdp=False" in \
+            rec["refused"], rec
+        assert rec["n_fp_cut"] == 2, rec
+
+
 def test_head_sharded_wrapper_matches_the_unsharded_one(wrapped):
     """The wrapper's 3 steps on (data 2, model 2), q/k/v column-sharded,
     against the same steps on (data 2, model 1): the scale of a sharded
@@ -312,5 +349,7 @@ def test_head_sharded_wrapper_matches_the_unsharded_one(wrapped):
             np.testing.assert_allclose(b, a, rtol=0, atol=1e-5,
                                        err_msg=key)
         else:
-            np.testing.assert_allclose(b, a, rtol=ERR_RTOL, atol=1e-6,
-                                       err_msg=key)
+            d = np.abs(b - a)
+            tie = d > ERR_RTOL * np.abs(a) + 1e-6
+            assert tie.sum() <= 1e-3 * a.size, (key, int(tie.sum()))
+            assert (d[tie] <= ERR_RTOL * np.abs(a).max()).all(), key

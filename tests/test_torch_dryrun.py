@@ -9,11 +9,21 @@ process, writing into ``tmp_path``; the subprocesses run at once.
   max, the rescaled sum, the rescaled accumulator), and nothing else (the
   weights are replicated, the batch rows independent).
 - gemma2-2b's smoke widths (``--variant``) × train_4k × single is ``ok``
-  with every collective of the head-parallel step counted: the head
-  gathers, the q/k/v activation-grad sums (and, its 2 KV heads fewer than
-  the 16 "model" ranks, the replicated k/v votes' sums), the grads and
-  votes of every leaf and the loss all-reduced over "data" once, and the
-  flip counts of the sharded Boolean leaves over "model".
+  with every collective of the step under the JAX package's placement
+  counted: per microbatch the FSDP all-gathers over "data" (the
+  embedding, each layer group's slices in its forward and again in its
+  recompute, the head) and their grads' reduce-scatters, the "model" sums
+  (the vocab-parallel lookup, each row-split ``wd``), the three loss
+  statistics over the vocab shards, the head gathers, the activation-grad
+  sums of the column-split q/k/v/gate/up and of the head's input (and, its
+  2 KV heads fewer than the 16 "model" ranks, the replicated k/v votes'
+  sums); once a step the grads of the leaves whole over "data" and the
+  loss all-reduced over "data", and the flip counts of the split Boolean
+  leaves over each axis they split over. The record states the placement
+  and its two differences from the JAX package's.
+- The same cell traced at 2 and 6 layers and 1 and 2 microbatches
+  (``--depths``) and extrapolated equals the whole trace's collectives,
+  call sites and launches exactly, and its peak within 1%.
 - ``--calibrate`` reports analytic / counted FLOPs within [0.5, 2] for
   gemma2-2b's three kinds.
 - ``--lower-only`` builds the inputs and traces nothing.
@@ -46,6 +56,9 @@ RUNS = {
                "single"],
     "train": ["--arch", "gemma2-2b", "--shape", "train_4k", "--mesh",
               "single", "--variant", json.dumps(VARIANT), "--tag", "smoke"],
+    "cut": ["--arch", "gemma2-2b", "--shape", "train_4k", "--mesh",
+            "single", "--variant", json.dumps(VARIANT), "--tag", "cut",
+            "--depths", "2,6"],
     "lower": ["--arch", "gemma2-2b", "--shape", "train_4k", "--mesh",
               "single", "--lower-only", "--tag", "lower"],
     "cal-train": ["--arch", "gemma2-2b", "--calibrate", "--shape", "train_4k"],
@@ -131,29 +144,69 @@ def test_smoke_train_cell_counts_every_collective(runs):
     # 2 KV heads under 16 "model" ranks: k/v replicated, their votes summed
     assert cfg.kv_heads_padded() == 2
     assert rec["placement"]["heads"] == "'model': q columns, k/v replicated"
+    assert len(rec["placement"]["stated_differences"]) == 2
+    assert "one placement" in rec["roofline_placement"]["shared"]
     sites = rec["collective_sites"]
     remat = 2 if cfg.remat else 1
+    groups = cfg.n_groups
+    # the embedding, each group (forward and recompute) and the head
+    assert sites["all-gather TrainMesh.all_gather[fsdp_gathers]"] \
+        == mb * (2 + groups * remat)
+    assert sites["reduce-scatter TrainMesh.reduce_scatter[fsdp_scatters]"] \
+        == mb * (2 + groups)
+    # the vocab-parallel lookup and each layer's row-split wd
+    assert sites["all-reduce TrainMesh.all_reduce[model_sums]"] \
+        == mb * (1 + n_attn * remat)
+    # the loss's max, sum of exponentials and picked logit
+    assert sites["all-reduce TrainMesh.all_reduce[vocab_reduces]"] == 3 * mb
     assert sites["all-gather TrainMesh.all_gather[head_gathers]"] \
         == n_attn * mb * remat
-    # q, k, v activation grads + the k and v votes, each microbatch
-    assert sites["all-reduce boolean_linear.all_reduce_sum"] == n_attn * mb * 5
-    # every leaf's grad (the Boolean leaves' are their votes) and the loss,
-    # over "data", once a step; the flip counts of the sharded wq leaves
-    # (one per block role) over "model"
-    n_leaves = _n_leaves(cfg)
+    # q, k, v, gate, up activation grads + the k and v votes, each layer,
+    # and the head's input, each microbatch
+    assert sites["all-reduce boolean_linear.all_reduce_sum"] \
+        == n_attn * mb * 7 + mb
+    # the grads of the leaves whole over "data" (each block role's two
+    # norms and FFN tau, the final norm) and the loss, over "data", once a
+    # step; the flip counts of each Boolean leaf over each axis it splits
+    # over (q, gate, up, down: both; k, v, o: "data"), each block role
+    roles = len(lm_init(cfg, torch.Generator().manual_seed(0))["blocks"])
     assert sites["all-reduce TrainMesh.all_reduce[grad_reduces]"] \
-        == n_leaves + 1
-    assert sites["all-reduce TrainMesh.all_reduce[count_reduces]"] == 2
-    assert len(sites) == 4
+        == 3 * roles + 1 + 1
+    assert sites["all-reduce TrainMesh.all_reduce[count_reduces]"] \
+        == (4 * 2 + 3 * 1) * roles
+    assert len(sites) == 8
     grads = [op for op in rec["collective_ops"]
              if op["site"].endswith("[grad_reduces]")]
     assert {op["group"] for op in grads} == {16}
     assert {op["dtype"] for op in grads} == {"f32"}
+    scatters = [op for op in rec["collective_ops"]
+                if op["site"].endswith("[fsdp_scatters]")]
+    assert {(op["group"], op["dtype"]) for op in scatters} == {(16, "f32")}
+    gathers = [op for op in rec["collective_ops"]
+               if op["site"].endswith("[fsdp_gathers]")]
+    assert {(op["group"], op["dtype"]) for op in gathers} == {(16, "bf16")}
     # the weight backward of 7 Boolean projections a layer a microbatch
     assert rec["fake_launches"] == {"boolean_weight_bwd": mb * n_attn * 7}
     kinds = rec["mem_by_kind"]
     assert kinds["PARAM"] > 0 and kinds["OPT"] > 0
     assert rec["peak_bytes_per_device"] >= kinds["PARAM"] + kinds["OPT"]
+
+
+def test_depth_cut_extrapolates_the_whole_trace(runs):
+    whole = _record(runs, "train", "gemma2-2b__train_4k__single__smoke.json")
+    cut = _record(runs, "cut", "gemma2-2b__train_4k__single__cut.json")
+    traced = cut["depth_cut"]["traced"]
+    assert sorted((t["n_layers"], t["microbatches"]) for t in traced) == \
+        [(2, 1), (2, 2), (6, 1), (6, 2)]
+    assert cut["depth_cut"]["extrapolated_to"]["n_layers"] == 4
+    assert cut["microbatches"] == whole["microbatches"]
+    assert cut["collectives"] == whole["collectives"]
+    assert cut["collective_sites"] == whole["collective_sites"]
+    assert cut["fake_launches"] == whole["fake_launches"]
+    assert abs(cut["peak_bytes_per_device"] / whole["peak_bytes_per_device"]
+               - 1) < 0.01
+    assert cut["roofline"]["collective_s"] == pytest.approx(
+        whole["roofline"]["collective_s"], rel=1e-9)
 
 
 class _Mesh:

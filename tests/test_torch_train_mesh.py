@@ -157,7 +157,6 @@ def run_world(n: int, script: str, tmp_path, *args: str,
 # and the loss; every rank's local leaves are checksummed and compared
 # across the ranks that must hold the same slice
 _STEP = """
-from torch.distributed.tensor import Shard
 from repro_torch.configs import get_smoke
 from repro_torch.core.optimizer import hybrid_optimizer, tree_leaves
 from repro_torch.launch.mesh import make_local_mesh
@@ -181,12 +180,15 @@ for case in json.loads(sys.argv[4]):
     batch = {k: torch.from_numpy(v) for k, v in np.load(case["batch"]).items()}
     new, state, m = step(local, opt.init(local), batch)
     sums = [float(t.double().sum()) for t in tree_leaves(new)]
+    # the ranks holding the same slice of a leaf: the same coordinate on
+    # each axis it splits over
+    keys = [tuple(mesh.coords[a] for a in ("data", "model")
+                  if p.over(a) > 1) for p in tree_leaves(sh)]
     every = [None] * WORLD
-    dist.all_gather_object(every, (mesh.coords["model"], sums))
-    shard = [isinstance(s, Shard) for s in tree_leaves(specs)]
-    for coord, s in every:
+    dist.all_gather_object(every, (keys, sums))
+    for k2, s in every:
         for j, (a, b) in enumerate(zip(s, sums)):
-            if coord == mesh.coords["model"] or not shard[j]:
+            if k2[j] == keys[j]:
                 assert a == b, (case["name"], j, a, b)
     full = gather_tree(new, sh)
     if RANK == 0:
