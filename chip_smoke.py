@@ -342,9 +342,20 @@ wall seconds, each on a line of its own:
               compared): max_memory_allocated within 5% of the traced
               peak, the launches of row 3 equal to the trace's and all on
               the tensor-core route, the median step against its bound;
-              the traced launches' plans held to the
-              libraries' tiles; and the achieved bf16 matmul (8192^3) and
-              device-to-device copy (4 GiB) rates beside the record's peaks.
+              prefill_16x16_rank0 and decode_16x16_rank0, rank 0 of
+              gemma2-2b's prefill_32k (2 rows x 32,768 tokens, 1 of 16 q
+              heads) and decode_32k (8 rows over a 2,048-row int8 slab, 16
+              steps) under the same placement through
+              make_prefill_step / make_decode_step(cfg, shardings), their
+              traces the sweep's records: max_memory_allocated within 5%
+              of the traced peak, the launches a call equal to the
+              trace's (the prefill's 26 of row 4 all on the tensor-core
+              route), the median against its bound, and row 4 at the
+              prefill rank's head-local shape against its plain version at
+              4,096 and 8,192 tokens; the traced launches' plans held to
+              the libraries' tiles; and the achieved bf16 matmul (8192^3)
+              and device-to-device copy (4 GiB) rates beside the record's
+              peaks.
 
 The last lines are one JSON object of kernel results, the card's name and
 power limit as nvidia-smi reports them, and the result object.
@@ -3026,10 +3037,10 @@ def decode_route_check(torch, eng, prompt, token: int, page: int = 16):
     dec = {"x": 0, "qkv": [], "out": []}
     block_dec, decode = LM._apply_block_decode, A.paged_flash_decode
 
-    def forced(cfg_, bp, role, bcache, x, pos, block_table):
+    def forced(cfg_, bp, role, bcache, x, pos, block_table, *route):
         x = ref["x"][dec["x"]][:, S:S + 1].clone()
         dec["x"] += 1
-        return block_dec(cfg_, bp, role, bcache, x, pos, block_table)
+        return block_dec(cfg_, bp, role, bcache, x, pos, block_table, *route)
 
     def keep_decode(*args, **kw):
         out = decode(*args, **kw)
@@ -3991,9 +4002,9 @@ def moe_block_check(torch, eng, prompt, layers=(0, MOON_LAYERS // 2)):
     seen = []
     apply = MOE.moe_apply
 
-    def keep(c, p, x):
+    def keep(c, p, x, *route):
         seen.append((p, x.detach().clone()))
-        return apply(c, p, x)
+        return apply(c, p, x, *route)
 
     MOE.moe_apply = keep
     try:
@@ -6033,6 +6044,18 @@ MATMUL_N, COPY_BYTES = 8192, 4 << 30
 # (a global batch of 16 data ranks x 4 rows): (name, seq_len, global
 # batch, microbatches, (data, model))
 RANK_CELL = ("train_16x16_rank0", 4096, 64, 1, (16, 16))
+# phase 17's serving rank cells: rank 0 of gemma2-2b's prefill_32k (2 rows
+# x 32,768 tokens, 1 of 16 q heads over 1 KV head) and decode_32k (8 rows
+# over a 2,048-row int8 slab, DECODE_STEPS steps) on the 16 x 16 mesh under
+# the JAX package's placement; their traces are the sweep's (a) records of
+# the same cells: (name, the sweep's shape)
+SERVE_RANK_CELLS = (("prefill_16x16_rank0", "prefill_32k"),
+                    ("decode_16x16_rank0", "decode_32k"))
+# row 4 at the prefill rank's head-local shape (2 rows x 1 q head over 1
+# KV head, hd 256, bf16, softcap 50) against its plain version, at
+# sequences whose 64 x 32 blocks the plain version runs in seconds (the
+# cell's 32,768 would take minutes): (label, S, window)
+RANK_FLASH_CASES = (("global", 4096, 0), ("local", 8192, 4096))
 # traces one cell on a fake world, of one or of RANK_CELL's mesh (argv:
 # name, seq, batch, kind, microbatches, output file, data, model)
 CELL_TRACE = """
@@ -6094,13 +6117,19 @@ def start_dry_runs(out_dir: Path):
     return started
 
 
+_RECORDS = {}
+
+
 def _trace_record(procs, name, timeout=900.0) -> dict:
+    if name in _RECORDS:
+        return _RECORDS[name]
     p, path = procs[name]
     out, err = p.communicate(timeout=timeout)
     assert p.returncode == 0, f"{name}: exit {p.returncode}\n{err[-3000:]}"
     rec = json.loads(Path(path).read_text())
     assert rec.get("status", "ok") == "ok" and "roofline" in rec, \
         (name, rec.get("error"), rec.get("traceback", "")[-2000:])
+    _RECORDS[name] = rec
     return rec
 
 
@@ -6266,6 +6295,226 @@ def rank_cell(torch, seed):
             "card_total_bytes": total}
 
 
+def serve_rank_cells(torch, seed: int, procs, smi: str, n_layers: int):
+    """SERVE_RANK_CELLS on the card (``serve_rank_cell``), each against the
+    sweep's trace of its cell: the card's peak (what the cell itself
+    allocated) within 5% of the traced one, its launches a call equal to
+    the trace's (the prefill's row 4 once
+    a layer, all on tensor cores), its median against the bound of the
+    work it runs (the trace's compute and memory terms: the fake backend
+    moves no bytes). -> {name: the cell's readings}."""
+    out = {}
+    dp, tp = RANK_CELL[4]
+    for name, shape in SERVE_RANK_CELLS:
+        t0 = time.perf_counter()
+        real = serve_rank_cell(torch, seed, shape)
+        cell_s = time.perf_counter() - t0
+        rec = _trace_record(procs, shape)
+        r = rec["roofline"]
+        bound_s = max(r["compute_s"], r["memory_s"])
+        bound_by = "compute" if r["compute_s"] >= r["memory_s"] else "memory"
+        share = bound_s * 1e3 / real["median_ms"]
+        traced = rec["peak_bytes_per_device"]
+        fake = rec.get("fake_launches", {})
+        ratio = traced / real["cell_peak"]
+        row4 = real["launches_per_call"].get("flash_attention_fwd", 0)
+        assert real["launches_per_call"] == fake, \
+            (name, real["launches_per_call"], fake)
+        assert abs(ratio - 1.0) <= 0.05, \
+            (name, traced, real["cell_peak"], real["held_before_cell"])
+        if shape == "prefill_32k":
+            # row 4 once a layer, on the rank's q head, on tensor cores
+            assert row4 == n_layers and real["tc_launches_per_call"] == row4, \
+                real
+        print(f"  (b) {name} (rank 0 of {dp} x {tp}: {real['rows']} rows"
+              + (f" x 32,768 tokens, {real['calls']} prefills" if
+                 shape == "prefill_32k" else
+                 f" over a 2,048-row int8 slab, {real['calls']} steps")
+              + "; values not compared: the fake backend's collectives move "
+              f"no data): traced peak {traced / 2**30:.2f} GiB, card "
+              f"max_memory_allocated {real['max_memory_allocated'] / 2**30:.2f}"
+              f" GiB less {real['held_before_cell'] / 2**30:.2f} GiB held "
+              f"before the cell (traced / card {ratio:.3f}); median "
+              f"{real['median_ms']:.2f} ms against the bound of the work it "
+              f"ran {bound_s * 1e3:.3f} ms ({bound_by}): {share:.4f} of it; "
+              f"the collective term {r['collective_s'] * 1e3:.3f} ms not "
+              f"run; launches a call {real['launches_per_call']} = traced "
+              f"{fake}" + (f", all {row4} of row 4 on the tensor-core route"
+                           if row4 else "")
+              + f"; collectives a call {real['collectives_per_call']}; "
+              f"{cell_s:.1f} s; {smi}")
+        out[name] = {
+            "trace": {k: rec[k] for k in (
+                "peak_bytes_per_device", "mem_by_kind", "roofline",
+                "analytic", "fake_launches", "trace_s", "collective_sites",
+                "collectives", "placement") if k in rec},
+            "card": real, "run_bound_ms": bound_s * 1e3,
+            "run_bound_by": bound_by, "share_of_bound": share,
+            "collective_ms": "not run", "traced_over_card_peak": ratio,
+            "wall_s": cell_s}
+    return out
+
+
+def serve_rank_cell(torch, seed, shape_name):
+    """One of SERVE_RANK_CELLS on the card: rank 0 of gemma2-2b's
+    ``shape_name`` cell on the 16 x 16 mesh at published widths, bf16,
+    real CUDA tensors over the fake backend, through the entry points and
+    config of its trace (``apply_policy``, ``train_param_specs``,
+    ``place``, ``make_prefill_step`` / ``make_decode_step(cfg,
+    shardings)``, the decode's cache ``cache_init`` at the slab's rows): a
+    warm-up call, then CELL_TIMED prefills or DECODE_STEPS decode steps
+    timed by CUDA events, the peak of allocated bytes over them from a
+    reset after the inputs exist, less what the process held before the
+    cell began (the earlier phases' tensors, which the cell's trace does
+    not hold), the launches a call by route. No value is compared (the
+    fake backend's collectives move nothing; the gloo worlds of
+    tests/test_torch_split_serve.py hold the values on the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.placement import named, place
+    from repro_torch.kernels import KERNELS, flash_attention_fwd
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.shardings import (apply_policy, kv_replicated,
+                                              train_param_specs)
+    from repro_torch.models import cache_init, lm_init
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    shape = SHAPES[shape_name]
+    dp, tp = RANK_CELL[4]
+    gc_collect(torch)
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mesh = fake_world((dp, tp), ("data", "model"), device="cuda")
+    try:
+        cfg = apply_policy(get_config("gemma2-2b"), shape, mesh)
+        params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(seed))
+        sh = named(mesh, train_param_specs(
+            params, replicate_kv=kv_replicated(cfg, tp)))
+        # this rank's slices; the whole tree goes as its leaves are replaced
+        params = place(params, sh)
+        gc_collect(torch)
+        b = shape.global_batch // dp
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        seq = shape.seq_len if shape.kind == "prefill" else 1
+        tok = torch.randint(0, cfg.vocab_size, (b, seq), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        if shape.kind == "prefill":
+            step, calls = make_prefill_step(cfg, sh), CELL_TIMED
+
+            def fn():
+                return step(params, {"tokens": tok})[0]
+        else:
+            step, calls = make_decode_step(cfg, sh), DECODE_STEPS
+            state = {"cache": cache_init(cfg, b, shape.seq_len // tp,
+                                         "cuda")}
+            # the last steps of a full context (rank 0's slab holds the
+            # first rows: the new rows land in the last rank's)
+            state["cache"]["pos"] = shape.seq_len - DECODE_STEPS - CELL_WARMUP
+
+            def fn():
+                logits, state["cache"] = step(params, state["cache"],
+                                              {"tokens": tok})
+                return logits
+        for _ in range(CELL_WARMUP):
+            fn()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        counts0 = dict(mesh.counts)
+        ms = []
+        for _ in range(calls):
+            a = torch.cuda.Event(enable_timing=True)
+            b_ = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b_.record()
+            del out
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b_))
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k.__name__: k.launches // calls for k in KERNELS
+                    if k.launches}
+        assert all(k.launches % calls == 0 for k in KERNELS)
+        tc = flash_attention_fwd.tc_launches // calls
+        counts = {k: (v - counts0.get(k, 0)) // calls
+                  for k, v in mesh.counts.items() if v != counts0.get(k, 0)}
+        flash = rank_flash_check(torch, gen, cfg, b, tp) \
+            if shape.kind == "prefill" else None
+        del step, params, tok, fn
+    finally:
+        mesh.close()
+        gc_collect(torch)
+    return {"step_ms": ms, "median_ms": statistics.median(ms),
+            "max_memory_allocated": peak, "held_before_cell": held,
+            "cell_peak": peak - held, "launches_per_call": launches,
+            "tc_launches_per_call": tc, "collectives_per_call": counts,
+            "calls": calls, "setup_s": setup_s, "mesh": [dp, tp],
+            "rows": b, "flash_check": flash}
+
+
+def rank_flash_check(torch, gen, cfg, rows: int, tp: int):
+    """Row 4 at the prefill rank's head-local shape (``rows`` x hp / tp q
+    heads over their KV heads: gemma2-2b's k/v replicated, one KV head a
+    rank) against its plain version at RANK_FLASH_CASES, per element (the
+    bf16 tolerance of check_flash), on the tensor-core route; the kernel's
+    ms (median of 20) beside one timed plain call and the bound. These
+    launches are not the cell's: the cell's counts were read before."""
+    from repro_torch.kernels import (flash_attention_fwd, flash_attention_plain,
+                                     flash_route)
+
+    hd = cfg.head_dim_
+    H = rows * cfg.heads_padded() // tp
+    KV = rows * (cfg.kv_heads_padded() // tp or 1)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out_rows, worst = [], 0.0
+    for label, S, window in RANK_FLASH_CASES:
+        q = (8 * torch.randn((H, S, hd), generator=gen, device="cuda")) \
+            .to(torch.bfloat16)
+        k = torch.randn((KV, S, hd), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        v = torch.randn((KV, S, hd), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        kw = dict(causal=True, window=window, softcap=cfg.attn_logit_softcap,
+                  n_rep=H // KV)
+        route = flash_route(q)
+        assert route == "tensor_cores", route
+        got = flash_attention_fwd(q, k, v, **kw).float()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ref = flash_attention_plain(q, k, v, **kw)
+        b.record()
+        ref = ref.float()
+        absv = flash_attention_plain(q, k, v.abs(), **kw).float()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        tol = (2.0 ** -7 + 2.0 ** -12) * absv \
+            + 2.0 ** -7 * torch.maximum(got.abs(), ref.abs())
+        diff = (got - ref).abs()
+        err, ratio = diff.max().item(), (diff / tol).max().item()
+        assert bool(torch.isfinite(got).all()) and ratio <= 1.0, \
+            f"rank flash {label} S={S}: err/tol {ratio}"
+        ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, **kw), flush)
+        pairs = H * _live_pairs(S, window)
+        b_ms, b_by = bound((q.numel() * 2 + k.numel() * 2) * q.element_size(),
+                           4.0 * hd * pairs, "bf16")
+        worst = max(worst, err)
+        out_rows.append({"case": label, "S": S, "window": window, "BH": H,
+                         "KV": KV, "hd": hd, "route": route,
+                         "max_abs_err": err, "max_err_over_tol": ratio,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by})
+        print(f"      row 4 at the rank's shape, {label} S={S} window "
+              f"{window}: {H} q over {KV} KV heads, route {route}, "
+              f"max_abs_err={err:.3g} (err/tol {ratio:.3g}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})")
+        del q, k, v, got, ref, absv, diff, tol
+    del flush
+    return {"rows": out_rows, "max_abs_err": worst}
+
+
 def datasheet_rates(torch):
     """(c): the achieved bf16 torch.matmul rate at MATMUL_N³ and the
     device-to-device copy rate of COPY_BYTES, CUDA events, median of 10,
@@ -6303,9 +6552,13 @@ def dry_run(torch, seed: int, procs):
     5% for RANK_CELL), the step's median ms beside the roofline bound and
     its share of it (RANK_CELL's bound is its compute and memory terms:
     its collectives, on the fake backend, move nothing), the card's launches equal to the trace's (RANK_CELL's
-    all on the tensor-core route); (c) the achieved matmul and copy
-    rates beside the datasheet record's. (b) and (c) run on the card while
-    the sweep's traces, the longest, finish on the host."""
+    all on the tensor-core route); SERVE_RANK_CELLS, rank 0 of the 16 x 16
+    prefill and decode cells (``serve_rank_cell``), against the sweep's
+    records of the same cells alike (the prefill's row-4 launches all on
+    tensor cores, row 4 at its head-local shape against its plain
+    version); (c) the achieved matmul and copy rates beside the datasheet
+    record's. (b) and (c) run on the card while the sweep's traces, the
+    longest, finish on the host."""
     from repro_torch.kernels.packed_xnor import (gemv_source_tiles,
                                                  gemv_tc_tiles)
     from repro_torch.kernels.paged_attention import (attention_source_tiles,
@@ -6321,6 +6574,7 @@ def dry_run(torch, seed: int, procs):
           "(read from csrc/packed_xnor_gemv.cu and csrc/attention_tc.cuh)")
     smi = smi_line()
     out = {"sweep": {}, "cells": {}}
+    n_layers = 26
     # the card's work first, the sweep's longest traces still running
     for name, seq, batch, kind, mb in CELLS:
         real = cell_run(torch, name, seq, batch, kind, mb, seed)
@@ -6391,6 +6645,8 @@ def dry_run(torch, seed: int, procs):
         "run_bound_ms": bound_s * 1e3, "run_bound_by": bound_by,
         "share_of_bound": share, "collective_ms": "not run",
         "traced_over_card_peak": ratio, "wall_s": cell_s}
+    out["serve_rank_cells"] = serve_rank_cells(torch, seed, procs, smi,
+                                               n_layers)
     rates = datasheet_rates(torch)
     print(f"  (c) bf16 torch.matmul {MATMUL_N}^3: {rates['matmul_tflops']:.1f}"
           f" TFLOP/s of the record's {rates['peak_bf16_tflops']:.1f}; "
@@ -6398,7 +6654,6 @@ def dry_run(torch, seed: int, procs):
           f"{rates['copy_gb_s']:.1f} GB/s of {rates['peak_hbm_gb_s']:.0f}; "
           f"{smi}")
     out["rates"] = rates
-    n_layers = 26
     for shape in DRYRUN_SHAPES:
         rec = _trace_record(procs, shape)
         r = rec["roofline"]
@@ -6586,10 +6841,14 @@ def main() -> int:
         gc_collect(torch)
 
     with phase(17, "dry run and roofline: gemma2-2b's single-pod cells traced "
-                   "on a fake world, three one-rank cells traced and run on "
-                   "the card, the datasheet rates"):
+                   "on a fake world, three one-rank cells and rank 0 of the "
+                   "16 x 16 train, prefill and decode cells traced and run "
+                   "on the card, the datasheet rates"):
         dry_metrics = dry_run(torch, args.seed, traces)
 
+    rank_prefill = dry_metrics["serve_rank_cells"]["prefill_16x16_rank0"][
+        "card"]
+    rank_flash = rank_prefill["flash_check"]
     decode_m8 = [r for r in gemv_rows if r["M"] == 8]
     layer_votes = [r for r in wbwd_rows if r["alpha"] == 0.0
                    and r["x_dtype"] == "torch.bfloat16"
@@ -6818,7 +7077,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:87",
          "launches": p7["flash_attention_fwd"],
-         "max_abs_err": max(flash_err, qwen_flash_err, moon_flash_err),
+         "max_abs_err": max(flash_err, qwen_flash_err, moon_flash_err,
+                            rank_flash["max_abs_err"]),
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": None, "kernel_route": flash["route"],
@@ -6840,6 +7100,12 @@ def main() -> int:
          "phase15_launches": s_launch["flash_attention_fwd"],
          "phase17_launches": dry_metrics["cells"]["prefill"]["card"][
              "launches_per_call"]["flash_attention_fwd"] * CELL_TIMED,
+         "phase17_rank_launches": rank_prefill["launches_per_call"][
+             "flash_attention_fwd"] * rank_prefill["calls"],
+         "phase17_rank_tc_launches": rank_prefill["tc_launches_per_call"]
+         * rank_prefill["calls"],
+         **{f"phase17_rank_{r['case']}_{k}": r[k] for r in rank_flash["rows"]
+            for k in ("S", "ms", "plain_ms", "bound_ms", "max_abs_err")},
          **tp_cols("flash_attention"),
          "shape": f"one layer's cold prefill: {flash['BH']} q heads over "
                   f"{flash['KV']} KV heads, S={flash['S']}, head_dim "
@@ -6857,7 +7123,12 @@ def main() -> int:
                   "13's launches; phase14_launches / phase14_soak_launches: phase 14's over HTTP, its main traffic and its soak; "
                   "phase15_launches: phase 15's through the one-rank serve "
                   "mesh; phase15_tp2_* / phase15_tp4_*: rank 0's head slice "
-                  "of a 1,024-token prefill, global"},
+                  "of a 1,024-token prefill, global; phase17_rank_launches: "
+                  "prefill_16x16_rank0's (rank 0 of the 16 x 16 prefill_32k "
+                  "cell, 2 rows x 1 q head over 1 KV head at 32,768 "
+                  "tokens); phase17_rank_global_* / phase17_rank_local_*: "
+                  "row 4 at that head-local shape at S tokens (window 4096 "
+                  "on local) against its plain version"},
         {"name": "paged_prefix_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_prefix_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:335",

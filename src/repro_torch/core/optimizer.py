@@ -62,13 +62,16 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(like, leaves):
     """Nested dict shaped like ``like`` from leaves in ``tree_leaves``
     order (``None`` stays ``None``)."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return None if node is None else next(it)
-    return build(like)
+
+def _unflatten(node, it):
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, which would keep ``leaves`` (a step's gathered
+    # weights) alive until the cyclic collector runs
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    return None if node is None else next(it)
 
 
 def _placements(shardings, params):

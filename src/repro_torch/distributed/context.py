@@ -33,9 +33,19 @@ group's weight slices; the backward reduce-scatters their grads),
 ``reduce_from_group`` (a row-split projection's partial sums over
 "model"; the identity backward) and ``vocab_embed`` (the vocab-parallel
 lookup). ``counts`` names each kind, so the dry run's record does.
+
+The JAX package places its prefill and decode steps as it places
+training, and so does the port (``models.lm.lm_prefill`` /
+``lm_decode_step(shardings=)``): ``fsdp_gather`` without a grad (one
+flat all-gather a layer group, no autograd function, no reduce-scatter),
+``all_to_all`` over "model" where a prefill trades its KV heads for its
+slab of cache rows, the gather of the logits' vocab shards and, in a
+decode whose one routing group spans the batch ranks, of the tokens'
+expert choices (``models.moe``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import math
 import threading
@@ -142,12 +152,12 @@ class TrainMesh:
         batch = tuple(a for a in self.axis_names if a in ("pod", "data"))
         if len(batch) > 1 and batch not in self._groups:
             self._groups[batch] = self._subgroup(batch)
-        self.counts = {"grad_reduces": 0, "head_gathers": 0,
-                       "seq_combines": 0, "vote_reduces": 0,
-                       "count_reduces": 0, "leaf_gathers": 0,
-                       "fsdp_gathers": 0, "fsdp_scatters": 0,
-                       "model_sums": 0, "vocab_reduces": 0,
-                       "expert_gathers": 0}
+        # the training step's kinds; a serving step's own ("vocab_gathers",
+        # "route_gathers", "cache_exchanges") appear at their first call
+        self.counts = collections.Counter(dict.fromkeys((
+            "grad_reduces", "head_gathers", "seq_combines", "vote_reduces",
+            "count_reduces", "leaf_gathers", "fsdp_gathers", "fsdp_scatters",
+            "model_sums", "vocab_reduces", "expert_gathers"), 0))
 
     def _subgroup(self, axes: Tuple[str, ...]):
         """The group over ``axes`` (every rank calls this alike): the ranks
@@ -221,6 +231,23 @@ class TrainMesh:
         self.counts[count] += 1
         return out.movedim(0, dim)
 
+    def all_to_all(self, t: torch.Tensor, axes,
+                   count: str = "cache_exchanges") -> torch.Tensor:
+        """``t``'s dim 0 holds one block for each rank of ``axes``, in rank
+        order: block r goes to rank r, and the result's block r is the one
+        rank r sent here (``t`` itself on a group of one)."""
+        n = self.size_of(axes)
+        if n == 1:
+            return t
+        if t.shape[0] != n:
+            raise ValueError(f"all_to_all: {t.shape[0]} blocks for {n} "
+                             "ranks")
+        x = t.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group(axes))
+        self.counts[count] += 1
+        return out
+
     def close(self) -> None:
         """Let go of the mesh's process groups, and destroy the world when
         ``make_local_mesh`` started it, every rank together. A group object
@@ -266,6 +293,25 @@ def gather_heads(x: torch.Tensor, mesh: TrainMesh, dim: int,
     return _GatherHeads.apply(x, mesh, dim, count)
 
 
+def _gather_flat(mesh: TrainMesh, shards, dims, dtype) -> tuple:
+    """The full leaves of the "data" slices ``shards`` (each cut on its
+    dim of ``dims``), gathered in one flat all-gather over "data" at
+    ``dtype``."""
+    n = mesh.size_of("data")
+    flat = torch.cat([s.to(dtype).reshape(-1) for s in shards])
+    rows = mesh.all_gather(flat, "data", 0, count="fsdp_gathers").view(n, -1)
+    fulls, off = [], 0
+    for s, d in zip(shards, dims):
+        shape = tuple(s.shape)
+        k = math.prod(shape)
+        # rank r's slice is block r of dim d
+        pieces = rows[:, off:off + k].reshape(n, *shape).movedim(0, d)
+        fulls.append(pieces.reshape(*shape[:d], n * shape[d],
+                                    *shape[d + 1:]).contiguous())
+        off += k
+    return tuple(fulls)
+
+
 class _FsdpGather(torch.autograd.Function):
     """One flat all-gather over "data" of several leaves' slices (each cut
     on its own dim), and in the backward one flat reduce-scatter of their
@@ -273,21 +319,9 @@ class _FsdpGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mesh, dims, dtype, grad_dtype, *shards):
-        n = mesh.size_of("data")
         ctx.mesh, ctx.dims, ctx.grad_dtype = mesh, dims, grad_dtype
         ctx.shapes = [tuple(s.shape) for s in shards]
-        flat = torch.cat([s.to(dtype).reshape(-1) for s in shards])
-        rows = mesh.all_gather(flat, "data", 0, count="fsdp_gathers") \
-            .view(n, -1)
-        fulls, off = [], 0
-        for shape, d in zip(ctx.shapes, dims):
-            k = math.prod(shape)
-            # rank r's slice is block r of dim d
-            pieces = rows[:, off:off + k].reshape(n, *shape).movedim(0, d)
-            fulls.append(pieces.reshape(*shape[:d], n * shape[d],
-                                        *shape[d + 1:]).contiguous())
-            off += k
-        return tuple(fulls)
+        return _gather_flat(mesh, shards, dims, dtype)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -307,15 +341,25 @@ class _FsdpGather(torch.autograd.Function):
         return (None, None, None, None, *out)
 
 
-def fsdp_gather(mesh: TrainMesh, shards, dims, dtype,
+def fsdp_gather(mesh: TrainMesh, shards, dims, dtype=None,
                 grad_dtype=torch.float32) -> list:
     """The full leaves of this rank's "data" slices ``shards`` (``dims``:
     the dim each is cut on), gathered in one all-gather over "data" at
-    ``dtype``. The backward reduce-scatters their grads over "data" in
-    one call, summed at ``grad_dtype``: each rank gets its slice of the sum
-    of every data rank's grad."""
+    ``dtype`` (None: the slices' own, which must be one). The backward
+    reduce-scatters their grads over "data" in one call, summed at
+    ``grad_dtype``: each rank gets its slice of the sum of every data
+    rank's grad. ``grad_dtype=None`` is the serving steps' form: the
+    gather alone, no autograd function and so no reduce-scatter."""
     if not shards:
         return []
+    if dtype is None:
+        dtypes = {s.dtype for s in shards}
+        if len(dtypes) != 1:
+            raise ValueError(f"fsdp_gather: slices of {sorted(map(str, dtypes))}"
+                             " in one gather need a dtype")
+        dtype = dtypes.pop()
+    if grad_dtype is None:
+        return list(_gather_flat(mesh, shards, tuple(dims), dtype))
     return list(_FsdpGather.apply(mesh, tuple(dims), dtype, grad_dtype,
                                   *shards))
 

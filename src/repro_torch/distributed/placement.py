@@ -1,15 +1,16 @@
-"""Where a training tree's leaves live on a training mesh.
+"""Where a training or serving tree's leaves live on a training mesh.
 
-A training leaf's placement is a ``PartitionSpec``: for each dim of the
-leaf, the mesh axis it splits over ("data" or "model") or None, as the
-JAX package's ``PartitionSpec`` reads (``launch.shardings.
-train_param_specs`` / ``train_state_specs`` build the trees). Every leaf
-is replicated across "pod". ``named(mesh, specs)`` pairs each spec with
-its mesh and the leaf's path (``NamedPlacement``, the counterpart of the
-JAX package's ``NamedSharding``); ``place`` and ``gather_tree`` move a
-tree between its full and its local form under such a tree, and
-``BatchRows`` is a batch leaf's placement, this rank's rows of each
-microbatch.
+A leaf's placement is a ``PartitionSpec``: for each dim of the leaf, the
+mesh axis it splits over ("data" or "model"), a tuple of axes it splits
+over in row-major order (a cache's batch over ("pod", "data"), its rows
+over every axis), or None, as the JAX package's ``PartitionSpec`` reads
+(``launch.shardings.train_param_specs`` / ``train_state_specs`` /
+``cache_specs`` build the trees). An axis a spec does not name holds the
+leaf whole. ``named(mesh, specs)`` pairs each spec with its mesh and the
+leaf's path (``NamedPlacement``, the counterpart of the JAX package's
+``NamedSharding``); ``place`` and ``gather_tree`` move a tree between its
+full and its local form under such a tree, and ``BatchRows`` is a batch
+leaf's placement, this rank's rows of each microbatch.
 """
 from __future__ import annotations
 
@@ -20,30 +21,51 @@ import torch
 
 from repro_torch.core.optimizer import _is_namedtuple, tree_map
 
-#: the mesh axes a training leaf may split over, in the order ``local``
-#: cuts them (``full`` gathers in the reverse order)
-SPLIT_AXES = ("data", "model")
+#: the mesh axes a leaf may split over, in the order ``local`` cuts them
+#: (``full`` gathers in the reverse order); a dim split over several names
+#: them in this order, so that its slices are row-major over them
+SPLIT_AXES = ("pod", "data", "model")
+
+
+def _entry_axes(entry) -> tuple:
+    """The axes one dim of a spec splits over: () for None."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 class PartitionSpec(tuple):
-    """Per dim of a leaf, the mesh axis it splits over, or None (a dim past
-    the spec's length is whole). A tuple that the tree utilities take for a
-    leaf: ``PartitionSpec("data", "model")`` is the JAX package's
-    ``P("data", "model")``."""
+    """Per dim of a leaf, the mesh axis (or tuple of axes) it splits over,
+    or None (a dim past the spec's length is whole). A tuple that the tree
+    utilities take for a leaf: ``PartitionSpec("data", "model")`` is the
+    JAX package's ``P("data", "model")``, ``PartitionSpec(("data",))`` its
+    ``P(("data",))``."""
 
     def __new__(cls, *dims):
+        named = [a for d in dims for a in _entry_axes(d)]
         for d in dims:
-            if d is not None and d not in SPLIT_AXES:
-                raise ValueError(f"a training leaf splits over {SPLIT_AXES}, "
-                                 f"not {d!r}")
+            axes = _entry_axes(d)
+            if any(a not in SPLIT_AXES for a in axes) or \
+                    list(axes) != sorted(axes, key=SPLIT_AXES.index):
+                raise ValueError(f"a leaf splits over axes of {SPLIT_AXES} "
+                                 f"in that order, not {d!r}")
+        if len(set(named)) != len(named):
+            raise ValueError(f"a spec names an axis twice: {dims!r}")
         return super().__new__(cls, dims)
 
     def __repr__(self) -> str:
         return "P" + tuple.__repr__(self)
 
     def dim(self, axis: str) -> Optional[int]:
-        """The dim split over ``axis``, or None."""
-        return self.index(axis) if axis in self else None
+        """The dim split over ``axis`` (alone or among others), or None."""
+        for i, d in enumerate(self):
+            if axis in _entry_axes(d):
+                return i
+        return None
+
+    def axes(self) -> tuple:
+        """Every axis the spec splits over."""
+        return tuple(a for d in self for a in _entry_axes(d))
 
 
 P = PartitionSpec
@@ -64,7 +86,8 @@ class NamedPlacement:
 
     def over(self, axis: str) -> int:
         """How many slices the leaf has along ``axis`` (1: whole)."""
-        return self.mesh.shape.get(axis, 1) if axis in self.spec else 1
+        return self.mesh.shape.get(axis, 1) if axis in self.spec.axes() \
+            else 1
 
     @property
     def shards(self) -> int:
@@ -80,23 +103,25 @@ class NamedPlacement:
 
     def check(self, shape) -> None:
         """Raise ``ValueError`` naming the leaf when a split dim of
-        ``shape`` (the full leaf's) does not divide its axis."""
-        for axis in SPLIT_AXES:
-            d = self.dim(axis)
-            if d is None:
+        ``shape`` (the full leaf's) does not divide its axes."""
+        for d, entry in enumerate(self.spec):
+            axes = _entry_axes(entry)
+            if not axes:
                 continue
             if d >= len(shape):
                 raise ValueError(f"{self.name}: {self.spec} places a leaf of "
                                  f"{len(shape)} dims")
-            n = self.mesh.shape.get(axis, 1)
+            n = 1
+            for axis in axes:
+                n *= self.mesh.shape.get(axis, 1)
             if shape[d] % n:
                 raise ValueError(f"{self.name}: dim {d} of {tuple(shape)} "
-                                 f"does not split {n} ways over {axis!r}")
+                                 f"does not split {n} ways over {entry!r}")
 
     def local(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the full leaf (the leaf itself when it is
         whole on every rank; a contiguous copy otherwise)."""
-        if not any(a in self.spec for a in SPLIT_AXES):
+        if not self.spec.axes():
             return full
         self.check(full.shape)
         t = full
@@ -122,7 +147,7 @@ class NamedPlacement:
         t = local
         for axis in reversed(SPLIT_AXES):
             d = self.dim(axis)
-            if d is not None:
+            if d is not None and self.over(axis) > 1:
                 t = self.mesh.all_gather(t.contiguous(), axis, d)
         return t
 

@@ -16,21 +16,23 @@ kind). The kernel wrappers take their traced branch on fake tensors: they
 allocate what their launch allocates, build and launch nothing, and count
 ``fake_launches``. The roofline's FLOPs and bytes are
 ``flops_model.analytic_cell_cost``'s, on the ``hlo_analysis.H100_SXM``
-datasheet record: a prediction, not a reading. In the train cells its
-compute and memory terms and its collective term (the trace's record)
-share one placement, the JAX package's, but for the port's two stated
-differences (``STATED_DIFFERENCES``); ``roofline_placement`` says so in
-each record.
+datasheet record: a prediction, not a reading. In every cell its compute
+and memory terms and its collective term (the trace's record) share one
+placement, the JAX package's, but for the port's two stated differences
+(``STATED_DIFFERENCES``); ``roofline_placement`` says so in each record.
 
-Placement: in training the JAX package's (``launch/shardings.py::
-train_param_specs``): the batch over "pod"/"data", FSDP of every large
-weight over "data" (a layer group's slices gathered per microbatch, the
-grads reduce-scattered), the "model" split of the heads, d_ff, d_inner,
-the experts and the vocab; the two stated differences are k/v replicated
-over "model" where the KV heads do not divide it, and ``wo`` replicated
-over "model". The prefill and decode cells keep the weights whole (their
-placement is not ported yet): the batch over "pod"/"data", in decode the
-cache rows over "model". Each record states its placement.
+Placement: the JAX package's (``launch/shardings.py::train_param_specs``),
+in every cell: FSDP of every large weight over "data", the "model" split
+of the heads, d_ff, d_inner, the experts and the vocab; the two stated
+differences are k/v replicated over "model" where the KV heads do not
+divide it, and ``wo`` replicated over "model". Training: the batch over
+"pod"/"data", a layer group's slices gathered per microbatch, the grads
+reduce-scattered. Prefill and decode (no grad, no optimizer state): the
+batch over "pod"/"data" (long_500k: over no axis), each layer group's
+slices gathered once, the cache the JAX package's ``cache_init`` specs
+(``cache_specs``: the rows over "model", long_500k's over every axis;
+every KV head; the SSM state's d_inner over "model"), the logits gathered
+whole over the vocab. Each record states its placement.
 
 The ssm and hybrid train cells trace a scan of ~72 s of CPU a layer: they
 are traced at two depths, each at one and two microbatches
@@ -107,29 +109,26 @@ STATED_DIFFERENCES = (
 
 def _placement(cfg, shape: ShapeDef, mesh) -> dict:
     tp = mesh.shape.get("model", 1)
-    out = {"batch": list(cfg.batch_axes)}
-    if shape.kind == "train":
-        kv = "replicated" if kv_replicated(cfg, tp) else "columns"
-        out["weights"] = ("the JAX package's train specs: FSDP of every "
-                          "large weight over 'data', the 'model' split of "
-                          "the heads, d_ff, d_inner, the experts and the "
-                          "vocab")
-        out["heads"] = (f"'model': q columns, k/v {kv}" if tp > 1
-                        else "unsharded")
-        out["stated_differences"] = list(STATED_DIFFERENCES)
-    else:
-        out["weights"] = ("whole on every rank (the prefill and decode "
-                          "placement is not ported)")
-        out["heads"] = "unsharded (every 'model' rank runs its rows' step)"
-    out["cache_seq"] = list(cfg.cache_seq_axes) if shape.kind == "decode" \
-        else []
-    if shape.kind == "prefill" and cfg.cache_seq_axes:
-        out["cache_seq_note"] = ("the prefill emits its rows' whole cache: "
-                                 "the JAX package's seq-sharded out_sharding "
-                                 "has no counterpart")
+    kv = "replicated" if kv_replicated(cfg, tp) else "columns"
+    out = {"batch": list(cfg.batch_axes),
+           "weights": ("the JAX package's lm_init specs: FSDP of every "
+                       "large weight over 'data', the 'model' split of the "
+                       "heads, d_ff, d_inner, the experts and the vocab"),
+           "heads": f"'model': q columns, k/v {kv}" if tp > 1
+           else "unsharded",
+           "stated_differences": list(STATED_DIFFERENCES),
+           "cache_seq": list(cfg.cache_seq_axes)
+           if shape.kind != "train" else []}
     if shape.kind != "train":
-        out["note"] = ("the JAX package's cells shard more; a per-device "
-                       "peak above theirs is expected")
+        out["cache"] = ("the JAX package's cache_init specs: the rows over "
+                        f"{list(cfg.cache_seq_axes)}, every KV head; the "
+                        "SSM state's d_inner over 'model'")
+        out["logits"] = "gathered over 'model': whole over the vocab"
+    if shape.kind == "prefill":
+        out["cache_rows"] = ("k/v replicated: each rank keeps its slab's "
+                             "rows, no collective" if kv == "replicated"
+                             else "k/v split: one all-to-all over 'model' "
+                             "a layer trades heads for rows")
     return out
 
 
@@ -154,12 +153,14 @@ def _inputs(cfg, shape: ShapeDef, mesh, fake_mode, variant_opts, mb,
         params = _to(lm_init(cfg, torch.Generator().manual_seed(0)), dev)
         ins = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
                for k, v in input_specs(cfg, shape).items()}
+        # every cell's params take the training placement (a serving
+        # step's without optimizer state)
+        shardings = None
+        if mesh.size > 1:
+            shardings = named(mesh, train_param_specs(
+                params, replicate_kv=kv_replicated(cfg, tp)))
+            params = place(params, shardings)
         if shape.kind == "train":
-            shardings = None
-            if mesh.size > 1:
-                shardings = named(mesh, train_param_specs(
-                    params, replicate_kv=kv_replicated(cfg, tp)))
-                params = place(params, shardings)
             opt = hybrid_optimizer(eta=8.0, fp_lr=1e-3)
             opt_state = opt.init(params)
             gdtype = (torch.bfloat16 if variant_opts.get("_grad_accum_bf16")
@@ -175,14 +176,17 @@ def _inputs(cfg, shape: ShapeDef, mesh, fake_mode, variant_opts, mb,
         b = shape.global_batch // dp
         ins = {k: v[:b] for k, v in ins.items()}
         if shape.kind == "prefill":
-            return make_prefill_step(cfg), (params, ins), {"param": params}
+            return (make_prefill_step(cfg, shardings), (params, ins),
+                    {"param": params})
         n = mesh.size_of(cfg.cache_seq_axes) if cfg.cache_seq_axes else 1
         if shape.seq_len % n:
             raise ValueError(f"{shape.seq_len} cache rows do not split over "
                              f"{n} ranks")
+        # this rank's slice under cache_specs: its rows and slab, its
+        # d_inner channels of the SSM state
         cache = cache_init(cfg, b, shape.seq_len // n, dev)
         cache["pos"] = shape.seq_len - 1     # a full context
-        return (make_decode_step(cfg), (params, cache, ins),
+        return (make_decode_step(cfg, shardings), (params, cache, ins),
                 {"param": params, "cache": cache})
 
 
@@ -392,26 +396,32 @@ def trace_cut(arch: str, shape, layout, variant: dict = None,
 
 
 def _roofline_placement(shape: ShapeDef) -> dict:
-    """Which placement each roofline term models: in training one, the JAX
-    package's, but for the port's stated differences; elsewhere the
-    collective term is the port's whole-weight placement's (a world of one
-    holds the whole model in both)."""
-    if shape.kind == "train":
-        return {"compute_s": "the JAX package's (analytic_cell_cost: FSDP, "
-                             "the 'model' splits)",
-                "memory_s": "the JAX package's (analytic_cell_cost)",
-                "collective_s": "the same placement, traced (this trace's "
-                                "CollectiveRecord: FSDP gathers and "
-                                "reduce-scatters over 'data', the 'model' "
-                                "sums)",
-                "shared": "one placement for the three terms, but for the "
-                          "port's stated differences: "
-                          + "; ".join(STATED_DIFFERENCES)}
+    """Which placement each roofline term models: one, the JAX package's,
+    but for the port's stated differences (the analytic terms count the
+    JAX package's shares: k/v and ``wo`` split over "model")."""
+    traced = {"train": "FSDP gathers and reduce-scatters over 'data', the "
+                       "'model' sums",
+              "prefill": "FSDP gathers over 'data', the 'model' sums, the "
+                         "head gathers, the heads traded for cache rows "
+                         "where k/v split, the vocab gather",
+              "decode": "FSDP gathers over 'data', the 'model' sums, the "
+                        "q (and split k/v) gathers, the slabs' softmax "
+                        "combines, the vocab gather"}[shape.kind]
     return {"compute_s": "the JAX package's (analytic_cell_cost: FSDP, the "
                          "'model' splits)",
             "memory_s": "the JAX package's (analytic_cell_cost)",
-            "collective_s": "the port's (this trace's CollectiveRecord: "
-                            "whole weights)"}
+            "collective_s": f"the same placement, traced (this trace's "
+                            f"CollectiveRecord: {traced})",
+            "shared": "one placement for the three terms, but for the "
+                      "port's stated differences: "
+                      + "; ".join(STATED_DIFFERENCES),
+            "not_in_analytic": "the compute and memory terms count every "
+                               "piece at its 1/chips share and the MoE "
+                               "dispatch einsums' FLOPs; the trace runs k/v "
+                               "(where replicated), wo and the MoE router "
+                               "whole over 'model', in decode each data "
+                               "rank's capacity slots of its experts, and "
+                               "the dispatch by index"}
 
 
 def _sites(coll) -> dict:
@@ -468,8 +478,9 @@ def calibrate(arch: str, shape_name: str,
     LOOP-FREE config (the JAX package's: n_layers = group_size, one
     microbatch, chunks = seq, no remat), traced on fake CPU tensors, where
     every product is an aten op that the counter sees (the kernels' plain
-    versions). The world is one rank: the port's placement replicates the
-    model's work over "model" outside training attention, so a per-device
+    versions). The world is one rank: the port's placement replicates
+    some of the model's work over "model" (the stated differences: k/v
+    where the KV heads do not divide the axis, ``wo``), so a per-device
     count on the production mesh would not be the analytic model's
     per-device share; on one rank both count the whole step."""
     from torch._subclasses.fake_tensor import FakeTensorMode

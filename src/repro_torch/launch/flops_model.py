@@ -16,8 +16,15 @@ Conventions:
   Bytes: weights are sharded over "model" only (each device reads P/16 per
   pass); activations shard over all axes. Boolean weights move as int8 (+ a
   once-per-step bf16 view in training); FP leaves as bf16. These are the
-  JAX package's placements; the port's own (``launch/shardings.py``) shard
-  less, which the dry run's ``placement`` states.
+  JAX package's placements, and the port's (``launch/shardings.py``) in
+  every cell but for what a rank does whole over "model", which these
+  terms count at its 1/chips share: the dry run's two stated differences
+  (k/v where the KV heads do not divide the axis, ``wo``), the MoE router
+  and, in decode, whose one routing group spans the batch ranks, each
+  rank's C capacity slots of its experts. The MoE dispatch einsums are
+  counted, though the port computes their function by index
+  (``models/moe.py``). The formulas stay the JAX package's (its tests
+  hold them equal): the dry run's ``roofline_placement`` says so.
 """
 from __future__ import annotations
 

@@ -11,6 +11,15 @@ Training (the JAX package's ``apply_policy``, ``train_microbatches`` and
                the decode's softmax statistics combine over "model".
   long_500k    batch = 1: KV cache seq → every axis.
 
+The prefill and decode steps take the training placement of the params
+(``train_param_specs``, no optimizer state; ``train.make_prefill_step`` /
+``make_decode_step(shardings=)``), as the JAX package's dry run gives
+its prefill and decode the specs of ``lm_init``, and the cache the JAX
+package's ``cache_init`` specs (``cache_specs``): an attention block's
+rows over ``cfg.cache_seq_axes`` and its batch over ``cfg.batch_axes``,
+every KV head on every rank; a mamba block's state over the batch and
+d_inner over "model".
+
 The placement the port gives a training state (``train_param_specs``) is
 the JAX package's (``lm_init``'s specs): FSDP of every large weight over
 "data" (its non-"model" dim: each data rank holds a slice, a layer
@@ -56,9 +65,10 @@ the "model" axis (``torch.distributed.tensor.Shard(dim)`` /
 ``bits``. ``shard_tree`` takes one rank's slice of every leaf as a plain
 local tensor: the kernels take raw pointers, not DTensors. A training
 spec tree's leaves are ``distributed.placement.PartitionSpec``s over
-("data", "model"), the JAX package's ``PartitionSpec`` leaves; the JAX
-package's ``named`` is ``distributed.placement.named``, which pairs each
-spec with its mesh for ``place`` and ``gather_tree``.
+("data", "model") (a cache's also over tuples of the mesh's axes), the
+JAX package's ``PartitionSpec`` leaves; the JAX package's ``named`` is
+``distributed.placement.named``, which pairs each spec with its mesh for
+``place`` and ``gather_tree``.
 """
 from __future__ import annotations
 
@@ -251,6 +261,33 @@ def train_param_specs(params, replicate_kv: bool = False,
         specs = tree_map(lambda t, sp: P(*(None if a == D else a for a in sp))
                          if t.dtype == torch.int8 else sp, params, specs)
     return specs
+
+
+def cache_specs(cfg: ModelConfig, cache):
+    """Placement tree of a ``models.cache_init`` tree (its structure): the
+    JAX package's ``cache_init`` specs. An attention block's k/v (and
+    their scales under ``kv_cache_quant``) (G, batch, rows, KVp[, hd]):
+    the batch over ``cfg.batch_axes``, the rows over
+    ``cfg.cache_seq_axes``, the KV heads over "model" only where the rows
+    are whole and the KV heads are 16 or more; a mamba block's ``h`` (G,
+    batch, DI, N) and ``conv`` (G, batch, W-1, DI): the batch over the
+    batch axes, d_inner over "model"; ``pos`` replicated."""
+    def entry(axes):            # as the JAX package's spec reads them
+        axes = tuple(axes)
+        return axes[0] if len(axes) == 1 else (axes or None)
+
+    batch, seq = entry(cfg.batch_axes), entry(cfg.cache_seq_axes)
+    kv = M if cfg.n_kv_heads >= 16 and seq is None else None
+    out = {}
+    for i, role in enumerate(block_roles(cfg)):
+        blk = cache["blocks"][f"b{i}"]
+        if role["mixer"] == "mamba":
+            out[f"b{i}"] = {"h": P(None, batch, M, None),
+                            "conv": P(None, batch, None, M)}
+        else:
+            out[f"b{i}"] = {k: P(*(None, batch, seq, kv, None)[:t.dim()])
+                            for k, t in blk.items()}
+    return {"blocks": out, "pos": P()}
 
 
 def _whole(node):

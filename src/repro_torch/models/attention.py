@@ -22,10 +22,14 @@ train_param_specs``), attention at the head-local counts, the heads
 gathered before the ``wo`` replicated over "model"
 (``distributed.gather_heads``), the activation grad of the q/k/v input
 summed over the axis. Their FSDP slices over "data" are gathered with
-the layer group's (``models.lm``) before the block runs. With
-``cfg.cache_seq_axes`` the contiguous decode runs seq-sharded instead:
-each rank holds a slab of the cache rows and the softmax statistics
-combine across the slabs (``attention_decode``).
+the layer group's (``models.lm``) before the block runs. The prefill
+and decode steps split alike (the JAX package places them as it places
+training) and hold the cache rows over ``cfg.cache_seq_axes``: the
+prefill runs the flash-prefill kernel on this rank's q heads, gathers
+the heads before ``wo`` and keeps its slab of the prompt's rows, every
+KV head (``attention_prefill_mesh``); the decode gathers q (and split
+k/v) over "model", writes the new row into its slab, reads the slab and
+combines the softmax statistics across the slabs (``attention_decode``).
 """
 from __future__ import annotations
 
@@ -37,12 +41,13 @@ import torch.distributed as dist
 
 from repro_torch.core import PackedBool
 from repro_torch.distributed import active_mesh, gather_heads, get_mesh
-from repro_torch.kernels import paged_flash_decode, paged_prefix_attention
+from repro_torch.kernels import (flash_attention_fwd, paged_flash_decode,
+                                 paged_prefix_attention)
 from repro_torch.kernels.paged_attention import (  # noqa: F401 (reference names)
     flash_attention_abs, gather_prefix_rows)
 
-from .modules import (ModelConfig, proj_apply, proj_init, rope, softcap,
-                      train_model_mesh)
+from .modules import (ModelConfig, model_mesh, proj_apply, proj_init, rope,
+                      softcap)
 
 
 def attention_init(gen: torch.Generator, cfg: ModelConfig, lead=(),
@@ -259,51 +264,64 @@ def flash_prefix_attention_paged(cfg: ModelConfig, bcache, page_ids, q, k, v,
     return out.transpose(0, 1)[None].to(q.dtype)
 
 
+def _qkv_split(cfg: ModelConfig, p, x, positions, mesh, axis_size: int = 16):
+    """q/k/v under a "model" split of tp ranks, RoPE applied -> (q (B, S,
+    hp/tp, hd): this rank's q heads; k, v (B, S, kvp/tp, hd): its KV heads,
+    or every KV head where they are replicated; the KV head this rank's q
+    heads read then, else None). ``p``'s q/k/v hold this rank's columns
+    (contiguous, group-major, so a rank's q heads read its own KV heads),
+    or k/v whole when the KV heads do not divide the axis (tp a multiple of
+    kvp), as the JAX package places them; the activation grad of ``x`` is
+    summed over the axis and replicated k/v's votes too."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim_
+    hp, kvp = cfg.heads_padded(axis_size), cfg.kv_heads_padded(axis_size)
+    tp = mesh.shape["model"]
+    rep = kvp % tp != 0
+    if rep and (tp % kvp or hp % tp):
+        raise ValueError(f"{cfg.name}: {kvp} KV heads neither split over "
+                         f"nor evenly share a model axis of {tp}")
+    if rep and p["wk"]["w"].shape[-1] != kvp * hd:
+        raise ValueError("k/v must be replicated on a model axis wider "
+                         "than the KV heads (launch.shardings."
+                         "train_param_specs(replicate_kv=True))")
+    group = mesh.group("model")
+    q = proj_apply(cfg, p["wq"], x, group=group)
+    k, v = (proj_apply(cfg, p[name], x, group=group, replicated=rep)
+            .reshape(B, S, -1, hd) for name in ("wk", "wv"))
+    q = rope(q.reshape(B, S, hp // tp, hd), positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    j = mesh.coords["model"] // (tp // kvp) if rep else None
+    return q, k, v, j
+
+
 def attention_apply(cfg: ModelConfig, p, x, positions, *,
                     local: bool = False, axis_size: int = 16):
     """Full training/prefill attention block body (no residual/norm).
 
     Head-parallel under a training mesh of tp "model" ranks
-    (``modules.train_model_mesh``): ``p``'s q/k/v hold this rank's hp/tp q and
-    kvp/tp KV heads (contiguous, group-major, so a rank's q heads read its
-    own KV heads), the padded-head mask tests global head indices, and the
-    heads are gathered before the replicated ``wo``. With fewer KV heads
-    than ranks (tp a multiple of kvp) k/v are replicated, as the JAX
-    package places them: every rank computes all KV heads, its q heads read
-    KV head ``rank // (tp / kvp)``, and the k/v votes are summed over the
+    (``modules.model_mesh``): this rank's hp/tp q and kvp/tp KV heads
+    (``_qkv_split``), the padded-head mask on global head indices, and the
+    heads gathered before the replicated ``wo``. With fewer KV heads than
+    ranks (tp a multiple of kvp) k/v are replicated, as the JAX package
+    places them: every rank computes all KV heads, its q heads read KV
+    head ``rank // (tp / kvp)``, and the k/v votes are summed over the
     axis (``proj_apply(replicated=True)``)."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
     hp = cfg.heads_padded(axis_size)
-    kvp = cfg.kv_heads_padded(axis_size)
     n_rep = _group(cfg, axis_size)
-    mesh = train_model_mesh(cfg)
+    mesh = model_mesh(cfg)
     shard = (0, 1)
     if mesh is None:
         q, k, v = _qkv(cfg, p, x, positions, axis_size)
     else:
-        tp = mesh.shape["model"]
-        rep = kvp % tp != 0
-        if rep and (tp % kvp or hp % tp):
-            raise ValueError(f"{cfg.name}: {kvp} KV heads neither split over "
-                             f"nor evenly share a model axis of {tp}")
-        if rep and p["wk"]["w"].shape[-1] != kvp * hd:
-            raise ValueError("k/v must be replicated on a model axis wider "
-                             "than the KV heads (launch.shardings."
-                             "train_param_specs(replicate_kv=True))")
-        hp_l, kvp_l = hp // tp, (1 if rep else kvp // tp)
-        n_rep = hp_l // kvp_l
-        group = mesh.group("model")
-        q = proj_apply(cfg, p["wq"], x, group=group)
-        k, v = (proj_apply(cfg, p[name], x, group=group, replicated=rep)
-                .reshape(B, S, -1, hd) for name in ("wk", "wv"))
-        if rep:
+        q, k, v, j = _qkv_split(cfg, p, x, positions, mesh, axis_size)
+        if j is not None:
             # every KV head on every rank: this rank's q heads read one
-            j = mesh.coords["model"] // (tp // kvp)
             k, v = k[:, :, j:j + 1], v[:, :, j:j + 1]
-        q = rope(q.reshape(B, S, hp_l, hd), positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        shard = (mesh.coords["model"], tp)
+        n_rep = q.shape[2] // k.shape[2]
+        shard = (mesh.coords["model"], mesh.shape["model"])
     out = flash_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
                           causal=True,
                           window=cfg.sliding_window if local else 0,
@@ -313,6 +331,89 @@ def attention_apply(cfg: ModelConfig, p, x, positions, *,
     if mesh is not None:
         out = gather_heads(out, mesh, 2)
     return proj_apply(cfg, p["wo"], out.reshape(B, S, hp * hd))
+
+
+def attention_prefill_mesh(cfg: ModelConfig, p, x, positions, mesh,
+                           rows: int, *, local: bool = False,
+                           axis_size: int = 16):
+    """The cold prefill's attention under a "model" split -> (its output
+    (B, S, D), this rank's cache entry: ``kv_cache_entry``'s leaves of its
+    slab of a cache of ``rows`` rows over ``cfg.cache_seq_axes``, every KV
+    head, (B, rows / n, KVp, ...); the prompt's rows past S are zeros).
+
+    The flash-prefill kernel runs on this rank's q heads over their KV
+    heads (``_qkv_split``: for gemma2-2b on 16 ranks one q head over one KV
+    head, n_rep 1); the heads are gathered before ``wo``. The slab: where
+    k/v are replicated every rank holds every KV head at every position
+    and keeps its rows, no collective; where they are split the ranks
+    trade heads for rows in one all-to-all over "model" a layer (k and v
+    together, and their scales under ``kv_cache_quant``): a rank sends each
+    other rank its heads at that rank's rows, (n - 1) / n of its k/v."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim_
+    q, k, v, j = _qkv_split(cfg, p, x, positions, mesh, axis_size)
+    ka, va = (k, v) if j is None else (k[:, :, j:j + 1], v[:, :, j:j + 1])
+    hp_l = q.shape[2]
+
+    def heads(t):                 # (B, S, heads, hd) -> (B*heads, S, hd)
+        return t.transpose(1, 2).reshape(-1, S, hd).contiguous()
+
+    out = flash_attention_fwd(
+        heads(q), heads(ka), heads(va), causal=True,
+        window=cfg.sliding_window if local else 0,
+        softcap=cfg.attn_logit_softcap, n_rep=hp_l // ka.shape[2])
+    out = out.reshape(B, hp_l, S, hd).transpose(1, 2)
+    out = _head_mask(cfg, out, axis_size,
+                     (mesh.coords["model"], mesh.shape["model"]))
+    out = gather_heads(out, mesh, 2)
+    y = proj_apply(cfg, p["wo"], out.reshape(B, S, -1))
+    return y, cache_slab(cfg, kv_cache_entry(cfg, k, v), rows,
+                         split=j is None)
+
+
+def cache_slab(cfg: ModelConfig, entry, rows: int, split: bool = False):
+    """This rank's slab of a cache of ``rows`` rows over
+    ``cfg.cache_seq_axes`` (slab r: rows [r·rows/n, (r+1)·rows/n), r the
+    rank's row-major index over those axes) from a prefill's cache entry
+    ``entry`` ({"k", "v"[, "k_scale", "v_scale"]}: (B, S, heads, ...),
+    S <= rows). ``split``: the entry holds this "model" rank's slice of
+    the KV heads, and "model" is the last of the slabs' axes: the rank
+    takes the block of rows its other axes index (long_500k's rows over
+    every axis; every rank of that block holds them), and one all-to-all
+    over "model" a pair of leaves trades heads for every head at the
+    slab's rows (the prompt's rows padded with zeros to ``rows``); else
+    every rank holds every head and slices its rows (the slab's leaves are
+    shorter than rows / n where the prompt ends inside or before it)."""
+    mesh = get_mesh()
+    axes = tuple(cfg.cache_seq_axes)
+    n, r = mesh.size_of(axes), mesh.index(axes)
+    if rows % n:
+        raise ValueError(f"{rows} cache rows do not split over {n} slabs")
+    s_loc = rows // n
+    if not split:
+        return {k: t[:, r * s_loc:(r + 1) * s_loc] for k, t in entry.items()}
+    if axes[-1:] != ("model",):
+        raise ValueError("split KV heads trade for cache rows over 'model', "
+                         f"the last of the slabs' axes, not {axes}")
+    tp = mesh.size_of("model")
+    lo = mesh.index(axes[:-1]) * tp * s_loc      # this block's first row
+    out = {}
+    for a, b in (("k", "v"), ("k_scale", "v_scale")):
+        if a not in entry:
+            continue
+        kv = torch.stack([entry[a], entry[b]], 2)   # (B, S, 2, heads, ...)
+        B, S = kv.shape[:2]
+        if S < rows:
+            kv = torch.cat([kv, kv.new_zeros((B, rows - S) + kv.shape[2:])],
+                           1)
+        kv = kv[:, lo:lo + tp * s_loc]
+        blocks = kv.reshape(B, tp, s_loc, *kv.shape[2:]).movedim(1, 0)
+        got = mesh.all_to_all(blocks, "model")   # block i: rank i's heads
+        # (n, B, s_loc, 2, heads, ...) -> (2, B, s_loc, n * heads, ...)
+        got = got.movedim(3, 0).movedim(1, 3)
+        got = got.reshape(2, B, s_loc, -1, *got.shape[5:])
+        out[a], out[b] = got[0], got[1]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +478,10 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
     ``_flash_decode_local``. Returns (out, cache). Under
     ``use_sharding_constraints`` with ``cache_seq_axes`` the cache holds
     this rank's slab of the rows and ``pos`` is global
-    (``_decode_seq_sharded``).
+    (``_decode_seq_sharded``); under a "model" split (``model_mesh``) q/k/v
+    are this rank's heads, gathered over "model" first (``_qkv_gathered``),
+    so the read, the head mask and the ``wo`` (whole over "model") see
+    every head, as the unsharded decode does.
 
     The cache has the paged pool's layout (B pages of Smax rows, block
     table ``arange(B)[:, None]``), but this read stays its own copy: the
@@ -392,7 +496,11 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
     hp, kvp = cfg.heads_padded(), cfg.kv_heads_padded()
     n_rep = _group(cfg)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _qkv(cfg, p, x, positions)
+    mesh = model_mesh(cfg)
+    if mesh is None:
+        q, k_new, v_new = _qkv(cfg, p, x, positions)
+    else:
+        q, k_new, v_new = _qkv_gathered(cfg, p, x, positions, mesh)
     qg = q[:, 0].reshape(B, kvp, n_rep, hd).to(torch.float32)
     sharded = cfg.use_sharding_constraints and bool(cfg.cache_seq_axes)
     row, here = pos, True
@@ -420,6 +528,27 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos: int, *,
     out = out.reshape(B, 1, hp, hd).to(x.dtype)
     out = _head_mask(cfg, out)
     return _wo_project(cfg, p["wo"], out.reshape(B, 1, hp * hd)), cache
+
+
+def _qkv_gathered(cfg: ModelConfig, p, x, positions, mesh):
+    """A decode token's q/k/v under a "model" split, every head on every
+    rank: this rank's heads (``_qkv_split``) gathered over "model" in one
+    all-gather, q with k/v where they are split (replicated k/v are whole
+    already) -> (q (B, 1, hp, hd), k, v (B, 1, kvp, hd))."""
+    q, k, v, j = _qkv_split(cfg, p, x, positions, mesh)
+    hp_l, kv_l = q.shape[2], (0 if j is not None else k.shape[2])
+    parts = [q] if j is not None else [q, k, v]
+    got = mesh.all_gather(torch.cat(parts, 2)[None], "model", 0,
+                          count="head_gathers")      # (tp, B, 1, heads, hd)
+    tp = got.shape[0]
+
+    def whole(lo, n):
+        return got[:, :, :, lo:lo + n].movedim(0, 2).reshape(
+            got.shape[1], got.shape[2], tp * n, -1)
+
+    if j is not None:
+        return whole(0, hp_l), k, v
+    return whole(0, hp_l), whole(hp_l, kv_l), whole(hp_l + kv_l, kv_l)
 
 
 def _flash_decode_local(cfg: ModelConfig, qg, cache, pos: int, offset: int,

@@ -4,11 +4,12 @@ The gate path goes through the Boolean threshold activation and its ±1
 output sign-modulates the up path; all three projections carry Boolean
 weights. ``act_boolean=False`` falls back to SiLU on the scaled counts.
 
-Under a training mesh's "model" split (``modules.train_model_mesh``) d_ff
-splits: this rank's columns of ``wg`` / ``wu`` and its slice of ``tau``
-make its slice of the hidden, and its rows of ``wd`` a partial output,
-summed over "model" (``proj_apply(rows=)``), as the JAX package's
-``P(FSDP, MODEL)`` / ``P(MODEL, FSDP)`` specs imply.
+Under a mesh's "model" split (``modules.model_mesh``: training, and the
+prefill and decode steps) d_ff splits: this rank's columns of ``wg`` /
+``wu`` and its slice of ``tau`` make its slice of the hidden, and its
+rows of ``wd`` a partial output, summed over "model"
+(``proj_apply(rows=)``), as the JAX package's ``P(FSDP, MODEL)`` /
+``P(MODEL, FSDP)`` specs imply.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.core import boolean_activation
 
-from .modules import ModelConfig, proj_apply, proj_init, train_model_mesh
+from .modules import ModelConfig, model_mesh, proj_apply, proj_init
 
 
 def ffn_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0, lead=()):
@@ -36,7 +37,7 @@ def ffn_apply(cfg: ModelConfig, p, x):
         gu = proj_apply(cfg, p["wgu"], x)
         g, u = torch.chunk(gu, 2, dim=-1)
     else:
-        mesh = train_model_mesh(cfg)
+        mesh = model_mesh(cfg)
         group = None if mesh is None else mesh.group("model")
         g = proj_apply(cfg, p["wg"], x, group=group)  # scaled counts, Var≈1
         u = proj_apply(cfg, p["wu"], x, group=group)

@@ -9,6 +9,14 @@ loop over groups that indexes each stacked leaf. A group holds
 jamba's 1:7 mamba:attention groups with MoE on odd indices). The decode
 step updates the preallocated page pool and the lane-indexed SSM state in
 place, the counterpart of the donated scan carry.
+
+On a training mesh the prefill and decode steps run one rank's part of
+the JAX package's placement (``lm_prefill`` / ``lm_decode_step
+(shardings=)``): its rows of the batch, its FSDP slices gathered a layer
+group at a time (no grad), its "model" slices of the heads, d_ff,
+d_inner, the experts and the vocab, its slab of the cache rows over
+``cfg.cache_seq_axes`` and its d_inner channels of the SSM state; the
+logits leave whole over the vocab.
 """
 from __future__ import annotations
 
@@ -20,7 +28,8 @@ import torch.utils.checkpoint
 
 from repro_torch.core import PackedBool
 from repro_torch.core.optimizer import tree_leaves, tree_unflatten
-from repro_torch.distributed import fsdp_gather, reduce_from_group
+from repro_torch.distributed import (fsdp_gather, get_mesh,
+                                     reduce_from_group)
 from repro_torch.kernels import flash_attention_fwd
 
 from . import attention as A
@@ -28,8 +37,7 @@ from . import ffn as F
 from . import mamba as M
 from . import moe as MOE
 from .modules import (ModelConfig, embed_apply, embed_init, head_apply,
-                      head_init, rmsnorm_apply, rmsnorm_init,
-                      train_model_mesh)
+                      head_init, model_mesh, rmsnorm_apply, rmsnorm_init)
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +107,11 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int, device):
     """Stacked (n_groups, batch, ...) caches + pos scalar: K/V rows
     (n_groups, batch, max_len, KVp, hd) for attention blocks, the O(1)
     state {"h", "conv"} for mamba blocks. The batch-1 prefill scratch of
-    the serving session, or ``generate``'s contiguous cache."""
+    the serving session, or ``generate``'s contiguous cache. On a mesh
+    that splits the model (``model_mesh``) ``batch`` and ``max_len`` are
+    this rank's rows and its slab's rows, and the mamba state holds its
+    d_inner channels: its slice of the whole cache under
+    ``launch.shardings.cache_specs``."""
     lead = (cfg.n_groups,)
     blocks = {f"b{i}": (M.mamba_cache_init(cfg, batch, device, lead)
                         if role["mixer"] == "mamba" else
@@ -112,33 +124,39 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int, device):
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
-def _ffn_branch(cfg: ModelConfig, bp, role, x):
+def _ffn_branch(cfg: ModelConfig, bp, role, x, route=()):
     """The block's FFN branch (MoE, dense or both) on ``x`` -> (its output,
-    MoE aux loss); (None, 0) for a block without one."""
+    MoE aux loss); (None, 0) for a block without one. ``route``: the mesh
+    axes the MoE's one routing group spans (``moe.moe_apply``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if role["ffn"] is None:
         return None, aux
     h = rmsnorm_apply(bp["norm2"], x)
     out = None
     if "moe" in role["ffn"]:
-        out, aux = MOE.moe_apply(cfg, bp["moe"], h)
+        out, aux = MOE.moe_apply(cfg, bp["moe"], h, route)
     if "dense" in role["ffn"]:
         d = F.ffn_apply(cfg, bp["ffn"], h)
         out = d if out is None else out + d
     return out, aux
 
 
-def _ffn_residual(cfg: ModelConfig, bp, role, x):
+def _ffn_residual(cfg: ModelConfig, bp, role, x, route=()):
     """x + the block's FFN (MoE, dense or both) -> (x, MoE aux loss)."""
-    out, aux = _ffn_branch(cfg, bp, role, x)
+    out, aux = _ffn_branch(cfg, bp, role, x, route)
     return (x if out is None else x + out), aux
 
 
 def _apply_block_prefill(cfg: ModelConfig, bp, role, x, positions,
                          length=None, offset: int = 0, prefix_len=None,
                          prefix_pages=None, prefix_ids=None, ssm_init=None,
-                         state_at=None):
+                         state_at=None, mesh=None, rows=None):
     """One block of (possibly tail-) prefill -> (x, cache entry, snap).
+
+    ``mesh``: the "model" split of a sharded cold prefill; the attention
+    block's entry is then this rank's slab of a cache of ``rows`` rows
+    (``attention.attention_prefill_mesh``), a mamba block's state its
+    d_inner channels.
 
     Attention, cold (``prefix_pages`` None): the flash-prefill kernel over
     the block's own rows, the q rows (batch, head) reading KV head
@@ -167,6 +185,11 @@ def _apply_block_prefill(cfg: ModelConfig, bp, role, x, positions,
         x, _ = _ffn_residual(cfg, bp, role, x + mix)
         return x, entry, snap
     local = role["mixer"] == "attn_local"
+    if mesh is not None:
+        mix, entry = A.attention_prefill_mesh(cfg, bp["attn"], h, positions,
+                                              mesh, rows, local=local)
+        x, _ = _ffn_residual(cfg, bp, role, x + mix)
+        return x, entry, snap
     q, k, v = A._qkv(cfg, bp["attn"], h, positions)
     hp, hd = A._tp_heads(cfg)[0], cfg.head_dim_
     if prefix_pages is not None:
@@ -189,7 +212,7 @@ def _apply_block_prefill(cfg: ModelConfig, bp, role, x, positions,
 
 
 def _apply_block_decode(cfg: ModelConfig, bp, role, bcache, x, pos,
-                        block_table):
+                        block_table, route=()):
     """One block of a decode step; ``bcache`` (the group's views of the
     cache) is updated in place."""
     h = rmsnorm_apply(bp["norm1"], x)
@@ -205,7 +228,7 @@ def _apply_block_decode(cfg: ModelConfig, bp, role, bcache, x, pos,
     else:
         mix, _ = A.attention_decode_paged(cfg, bp["attn"], h, bcache,
                                           block_table, pos, local=local)
-    return _ffn_residual(cfg, bp, role, x + mix)[0]
+    return _ffn_residual(cfg, bp, role, x + mix, route)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -280,13 +303,59 @@ class _Fsdp:
 
 def _fsdp_of(cfg: ModelConfig, shardings, grad_dtype=torch.float32):
     """The forward's ``_Fsdp`` for ``shardings`` (None when no leaf is cut
-    over "data" into more than one slice)."""
+    over "data" into more than one slice). ``grad_dtype=None``: a serving
+    step's, which gathers each leaf at its own dtype (int8 Boolean
+    weights as int8) and differentiates nothing."""
     if shardings is None:
         return None
     placed = tree_leaves(shardings)
     if not any(sh.fsdp() for sh in placed):
         return None
-    return _Fsdp(placed[0].mesh, shardings, cfg.dtype, grad_dtype)
+    return _Fsdp(placed[0].mesh, shardings,
+                 None if grad_dtype is None else cfg.dtype, grad_dtype)
+
+
+def _serve_split(cfg: ModelConfig, shardings):
+    """A prefill or decode step's part of the placement -> (its config:
+    ``moe_groups`` this rank's routing groups, the "model" split
+    (``model_mesh``), its FSDP gathers (``_Fsdp``), the batch axes one
+    routing group spans (a decode's one group over every batch rank:
+    ``moe.moe_apply``) or ()). ``cfg.moe_groups`` counts the GLOBAL
+    batch's routing groups, as the policy sets it."""
+    mesh = model_mesh(cfg)
+    if shardings is None:
+        if mesh is not None:
+            raise ValueError("a mesh splits the model over 'model': the "
+                             "params must be placed (launch.shardings."
+                             "train_param_specs) and their placement given")
+        return cfg, None, None, ()
+    placed_on = tree_leaves(shardings)[0].mesh
+    dp = placed_on.size_of(cfg.batch_axes) if cfg.batch_axes else 1
+    route = ()
+    if cfg.n_experts and dp > 1:
+        if cfg.moe_groups % dp == 0:
+            cfg = cfg.scaled(moe_groups=cfg.moe_groups // dp)
+        elif cfg.moe_groups == 1:
+            route = tuple(cfg.batch_axes)
+        else:
+            raise ValueError(f"moe_groups={cfg.moe_groups} routing groups "
+                             f"neither split over nor span {dp} batch "
+                             "shards")
+    return cfg, mesh, _fsdp_of(cfg, shardings, grad_dtype=None), route
+
+
+def _logits(cfg: ModelConfig, params, h, mesh, fsdp):
+    """The fp32 logits of ``h`` with the final norm applied by the caller:
+    under a "model" split this rank's vocab columns, gathered over "model"
+    to the whole vocab (the JAX package's logits leave the step whole)."""
+    head = params["head"]
+    if fsdp is not None:
+        head = fsdp.of(head, fsdp.shardings["head"])
+    logits = head_apply(cfg, head, h, mesh)
+    if mesh is not None:
+        logits = mesh.all_gather(logits, "model", logits.dim() - 1,
+                                 count="vocab_gathers")
+    return logits
 
 
 def _apply_group(cfg: ModelConfig, roles, gp, x, positions, fsdp=None):
@@ -332,9 +401,9 @@ def lm_forward(cfg: ModelConfig, params, batch, shardings=None,
     their placement tree (``make_train_step(grad_shardings=)``): the
     weights cut over "data" are gathered per use (``_Fsdp``; their grads
     reduce-scattered at ``grad_dtype``), and under a "model" split
-    (``train_model_mesh``) the logits are this rank's vocab columns,
+    (``model_mesh``) the logits are this rank's vocab columns,
     (B, S, Vp / tp)."""
-    mesh = train_model_mesh(cfg)
+    mesh = model_mesh(cfg)
     if mesh is not None and shardings is None:
         raise ValueError("a training mesh splits the model over 'model': "
                          "the params must be placed (launch.shardings."
@@ -399,7 +468,7 @@ def lm_loss(cfg: ModelConfig, params, batch, shardings=None,
     keeps it: the (B, S, Vp) logits are never gathered."""
     logits, aux = lm_forward(cfg, params, batch, shardings, grad_dtype)
     labels = batch["labels"].long()
-    nll = _vocab_nll(cfg, logits, labels, train_model_mesh(cfg))
+    nll = _vocab_nll(cfg, logits, labels, model_mesh(cfg))
     weights = batch.get("loss_mask")
     if weights is None:
         weights = torch.ones_like(labels, dtype=torch.float32)
@@ -414,7 +483,8 @@ def lm_prefill(cfg: ModelConfig, params, batch, cache=None,
                max_len: Optional[int] = None, length: Optional[int] = None,
                offset: Optional[int] = None, prefix=None,
                prefix_len: Optional[int] = None, prefix_pages=None,
-               prefix_ids=None, ssm_init=None, state_at=None):
+               prefix_ids=None, ssm_init=None, state_at=None,
+               shardings=None):
     """Prefill over (B, S) inputs (``batch["tokens"]``, or
     ``batch["embeddings"]`` with an embeddings frontend) -> (last-position
     logits (B, 1, Vp) fp32, cache with the prompt's K/V rows written at
@@ -441,6 +511,17 @@ def lm_prefill(cfg: ModelConfig, params, batch, cache=None,
     request donates to the prefix index. All None is exactly the cold
     prefill. The JAX package's gathered ``prefix=`` route (its gather
     fallback) is the plain version of ``paged_prefix_attention`` here.
+
+    On a training mesh ``params`` are this rank's slices, ``shardings``
+    their placement (``distributed.placement.named(mesh,
+    launch.shardings.train_param_specs(...))``) and ``batch`` this rank's
+    rows: each layer group's FSDP slices are gathered over "data" (one
+    flat gather, no grad), the model runs on its "model" slices, the
+    cache holds its slab of ``max_len`` (default S) rows over
+    ``cfg.cache_seq_axes`` (``cache_init`` at the slab's rows) and its
+    d_inner channels of each mamba state, and the logits are gathered
+    over "model" to the whole vocab. A sharded prefill is the cold one
+    (no prefix, ``offset`` or ``state_at``).
     """
     if prefix is not None:
         raise NotImplementedError(
@@ -451,10 +532,20 @@ def lm_prefill(cfg: ModelConfig, params, batch, cache=None,
     if tail and (prefix_ids is None or prefix_len is None or offset is None):
         raise ValueError("a tail prefill needs offset, prefix_len, "
                          "prefix_pages and prefix_ids")
-    h = _inputs_to_h(cfg, params, batch)
+    cfg, mesh, fsdp, _ = _serve_split(cfg, shardings)
+    if shardings is not None and (tail or offset or ssm_init is not None
+                                  or state_at is not None):
+        raise NotImplementedError("a sharded prefill is the cold prefill")
+    h = _inputs_to_h(cfg, params, batch, mesh, fsdp)
     B, S = h.shape[:2]
+    rows = max_len or S
+    seq = cfg.use_sharding_constraints and bool(cfg.cache_seq_axes)
     if cache is None:
-        cache = cache_init(cfg, B, max_len or S, h.device)
+        n = get_mesh().size_of(cfg.cache_seq_axes) if seq else 1
+        if rows % n:
+            raise ValueError(f"{rows} cache rows do not split over {n} "
+                             "slabs")
+        cache = cache_init(cfg, B, rows // n, h.device)
     off = 0 if offset is None else int(offset)
     positions = (torch.arange(S, dtype=torch.int32, device=h.device) + off) \
         .expand(B, S)
@@ -462,6 +553,8 @@ def lm_prefill(cfg: ModelConfig, params, batch, cache=None,
     snaps: Dict[str, Dict[str, list]] = {}
     for g in range(cfg.n_groups):
         gp = index_tree(params["blocks"], g)
+        if fsdp is not None:
+            gp = fsdp.of(gp, fsdp.shardings["blocks"], lead=1)
         for i, role in enumerate(roles):
             bi = f"b{i}"
             pages = None
@@ -473,18 +566,22 @@ def lm_prefill(cfg: ModelConfig, params, batch, cache=None,
             h, c, snap = _apply_block_prefill(
                 cfg, gp[bi], role, h, positions, length=length, offset=off,
                 prefix_len=prefix_len, prefix_pages=pages,
-                prefix_ids=prefix_ids, ssm_init=init, state_at=state_at)
-            for name, rows in c.items():
+                prefix_ids=prefix_ids, ssm_init=init, state_at=state_at,
+                mesh=mesh, rows=rows)
+            if seq and mesh is None and role["mixer"] != "mamba":
+                # every head on this rank: its slab of the rows
+                c = A.cache_slab(cfg, c, rows)
+            for name, t in c.items():
                 if role["mixer"] == "mamba":
-                    cache["blocks"][bi][name][g] = rows
+                    cache["blocks"][bi][name][g] = t
                 else:
-                    cache["blocks"][bi][name][g, :, :S] = rows
+                    cache["blocks"][bi][name][g, :, :t.shape[1]] = t
             if snap is not None:
                 for name, t in snap.items():
                     snaps.setdefault(bi, {}).setdefault(name, []).append(t)
     h = rmsnorm_apply(params["final_norm"], h)
     last = S if length is None else int(length)
-    logits = head_apply(cfg, params["head"], h[:, last - 1:last])
+    logits = _logits(cfg, params, h[:, last - 1:last], mesh, fsdp)
     new_cache = {"blocks": cache["blocks"], "pos": last + off}
     if state_at is not None:
         return logits, new_cache, {
@@ -493,24 +590,44 @@ def lm_prefill(cfg: ModelConfig, params, batch, cache=None,
     return logits, new_cache
 
 
-def lm_decode_step(cfg: ModelConfig, params, cache, tokens):
+def lm_decode_step(cfg: ModelConfig, params, cache, tokens,
+                   shardings=None):
     """One-token decode -> (logits (B, 1, Vp) fp32, cache), the cache
     updated in place. A contiguous cache (``cache_init``, after
     ``lm_prefill``) is {"blocks", "pos": int}, every row at position pos; a
     paged one (``lm_decode_step_paged``) is {"blocks": the page pool,
-    "block_table": (L, C) int32, "pos": (L,) int32}. tokens (B, 1)."""
+    "block_table": (L, C) int32, "pos": (L,) int32}. tokens (B, 1).
+
+    On a training mesh (``shardings``: the params' placement, as in
+    ``lm_prefill``) ``tokens`` and the contiguous cache are this rank's
+    rows, the cache its slab of the rows over ``cfg.cache_seq_axes`` and
+    its d_inner channels of each mamba state; each layer group's FSDP
+    slices are gathered over "data" (no grad), q (and split k/v) gathered
+    over "model" before the slab's read (``attention.attention_decode``),
+    and the logits gathered over "model" to the whole vocab. A decode's
+    one routing group (``cfg.moe_groups`` 1) spans the batch ranks: the
+    tokens' expert choices are gathered over them (``moe.moe_apply``)."""
     block_table = cache.get("block_table")
     pos = cache["pos"]
-    h = embed_apply(cfg, params["embed"], tokens).to(cfg.dtype)
+    cfg, mesh, fsdp, route = _serve_split(cfg, shardings)
+    if shardings is not None and block_table is not None:
+        raise NotImplementedError("a sharded decode reads a contiguous "
+                                  "cache")
+    embed = params["embed"]
+    if fsdp is not None:
+        embed = fsdp.of(embed, fsdp.shardings["embed"])
+    h = embed_apply(cfg, embed, tokens, mesh).to(cfg.dtype)
     roles = block_roles(cfg)
     for g in range(cfg.n_groups):
         gp = index_tree(params["blocks"], g)
+        if fsdp is not None:
+            gp = fsdp.of(gp, fsdp.shardings["blocks"], lead=1)
         for i, role in enumerate(roles):
             gcache = index_tree(cache["blocks"][f"b{i}"], g)
             h = _apply_block_decode(cfg, gp[f"b{i}"], role, gcache, h, pos,
-                                    block_table)
+                                    block_table, route)
     h = rmsnorm_apply(params["final_norm"], h)
-    logits = head_apply(cfg, params["head"], h)
+    logits = _logits(cfg, params, h, mesh, fsdp)
     new_cache = {"blocks": cache["blocks"], "pos": pos + 1}
     if block_table is not None:
         new_cache["block_table"] = block_table

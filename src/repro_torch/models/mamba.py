@@ -18,13 +18,15 @@ of one chunk are the largest live.
 Decode: the O(1) single-step state update; the state is lane-indexed in a
 serving pool and never paged.
 
-Under a training mesh's "model" split (``modules.train_model_mesh``)
+Under a training mesh's "model" split (``modules.model_mesh``)
 d_inner splits, as the JAX package's specs place it: this rank's columns
 of ``in_x`` / ``in_z`` / ``dt_proj``, its channels of the conv, of
 ``dt_bias``, ``A_log`` and ``D`` and so of the scan, and its rows of
 ``x_proj`` and ``out_proj``, whose partial outputs (dt, B, C and the
 block's output) are summed over "model". B and C feed every rank's
-channels: their grads are summed over "model" too.
+channels: their grads are summed over "model" too. The prefill and
+decode steps split alike, and the state {"h", "conv"} of a rank holds
+its d_inner channels (the JAX package's cache specs).
 """
 from __future__ import annotations
 
@@ -33,8 +35,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .modules import (ModelConfig, copy_to_group, fp_weight, proj_apply,
-                      proj_init, train_model_mesh)
+from .modules import (ModelConfig, copy_to_group, fp_weight, model_mesh,
+                      proj_apply, proj_init)
 
 
 def mamba_init(gen: torch.Generator, cfg: ModelConfig, lead=()):
@@ -168,7 +170,7 @@ def mamba_apply(cfg: ModelConfig, p, x, h0=None, conv0=None,
     frozen state at ``length`` and garbage conv rows, which callers drop.
     """
     W, S = cfg.conv_width, x.shape[1]
-    mesh = train_model_mesh(cfg)
+    mesh = model_mesh(cfg)
     group = None if mesh is None else mesh.group("model")
     xin = proj_apply(cfg, p["in_x"], x, group=group)
     z = proj_apply(cfg, p["in_z"], x, group=group)
@@ -202,8 +204,11 @@ def mamba_apply(cfg: ModelConfig, p, x, h0=None, conv0=None,
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, device, lead=()):
     """Zeroed fp32 {"h": (*lead, batch, DI, N), "conv": (*lead, batch, W-1,
-    DI)}."""
+    DI)}; DI this rank's channels under a "model" split (``model_mesh``)."""
+    mesh = model_mesh(cfg)
     DI, N, W = cfg.d_inner_, cfg.ssm_state, cfg.conv_width
+    if mesh is not None:
+        DI //= mesh.shape["model"]
     return {"h": torch.zeros((*lead, batch, DI, N), device=device),
             "conv": torch.zeros((*lead, batch, W - 1, DI), device=device)}
 
@@ -220,15 +225,18 @@ def mamba_cache_lane_write(pool, state, lane: int):
 
 def mamba_decode(cfg: ModelConfig, p, x, cache):
     """One-token decode. x: (B, 1, D); cache: {"h": (B, DI, N), "conv": (B,
-    W-1, DI)} -> (out (B, 1, D), new state)."""
-    xin = proj_apply(cfg, p["in_x"], x)[:, 0]                   # (B, DI)
-    z = proj_apply(cfg, p["in_z"], x)[:, 0]
+    W-1, DI)} -> (out (B, 1, D), new state). Under a "model" split
+    (``model_mesh``) DI is this rank's channels, as in ``mamba_apply``."""
+    mesh = model_mesh(cfg)
+    group = None if mesh is None else mesh.group("model")
+    xin = proj_apply(cfg, p["in_x"], x, group=group)[:, 0]      # (B, DI)
+    z = proj_apply(cfg, p["in_z"], x, group=group)[:, 0]
     conv_hist = torch.cat([cache["conv"], xin[:, None].to(cache["conv"].dtype)],
                           dim=1)
     w = p["conv_w"].to(torch.float32)                            # (W, DI)
     xconv = torch.sum(conv_hist * w[None], dim=1) + p["conv_b"][None]
     xc = F.silu(xconv).to(x.dtype)
-    dt, Bm, Cm = _ssm_params(cfg, p, xc[:, None])
+    dt, Bm, Cm = _ssm_params(cfg, p, xc[:, None], mesh)
     dt, Bm, Cm = dt[:, 0], Bm[:, 0], Cm[:, 0]
     A = -torch.exp(p["A_log"].to(torch.float32))
     decay = torch.exp(dt[..., None] * A[None])                   # (B, DI, N)
@@ -237,5 +245,5 @@ def mamba_decode(cfg: ModelConfig, p, x, cache):
     y = torch.einsum("bdn,bn->bd", h, Cm) \
         + p["D"].to(torch.float32)[None] * xc.to(torch.float32)
     y = y.to(x.dtype) * F.silu(z.to(torch.float32)).to(x.dtype)
-    out = proj_apply(cfg, p["out_proj"], y[:, None])
+    out = proj_apply(cfg, p["out_proj"], y[:, None], rows=mesh)
     return out, {"h": h, "conv": conv_hist[:, 1:]}

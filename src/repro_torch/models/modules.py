@@ -8,11 +8,12 @@ over leaf by leaf (``repro_torch.bridge``).
 The JAX package's ``constrain`` (a ``with_sharding_constraint`` against the
 launcher's mesh) has no counterpart: the port computes eagerly on local
 tensors, which have no layout to constrain. ``use_sharding_constraints``
-selects the mesh paths, as in the JAX package: the training forward on
-this rank's "model" slices (``train_model_mesh``: the heads, d_ff, the
-mamba d_inner, the experts and the vocab; ``launch/shardings.py``) and
-the seq-sharded contiguous decode (``models/attention.py``) under the
-training mesh the launcher installs (``distributed.set_mesh``).
+selects the mesh paths, as in the JAX package: the training forward and
+the prefill and decode steps on this rank's "model" slices
+(``model_mesh``: the heads, d_ff, the mamba d_inner, the experts and the
+vocab; ``launch/shardings.py``), and the prefill's and decode's cache
+rows over ``cache_seq_axes`` (``models/attention.py``), under the training
+mesh the launcher installs (``distributed.set_mesh``).
 """
 from __future__ import annotations
 
@@ -197,13 +198,14 @@ def head_init(gen: torch.Generator, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # Projection dispatch: packed Boolean, int8 Boolean, or FP — one call site.
 # ---------------------------------------------------------------------------
-def train_model_mesh(cfg: ModelConfig) -> Optional[TrainMesh]:
-    """The training mesh whose "model" axis the training forward splits
-    over (the heads, d_ff, d_inner, the experts, the vocab), or None: a
-    ``TrainMesh`` installed under ``use_sharding_constraints`` with a
-    "model" axis of more than one rank that does not shard the cache rows
-    instead (the prefill and decode cells keep their weights whole)."""
-    if not cfg.use_sharding_constraints or "model" in cfg.cache_seq_axes:
+def model_mesh(cfg: ModelConfig) -> Optional[TrainMesh]:
+    """The training mesh whose "model" axis the model splits over (the
+    heads, d_ff, d_inner, the experts, the vocab), or None: a ``TrainMesh``
+    installed under ``use_sharding_constraints`` with a "model" axis of
+    more than one rank. The training step and the prefill and decode steps
+    split alike; beside the split the prefill and decode hold the cache
+    rows over ``cfg.cache_seq_axes``."""
+    if not cfg.use_sharding_constraints:
         return None
     mesh = get_mesh()
     if not isinstance(mesh, TrainMesh):

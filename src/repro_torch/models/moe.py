@@ -4,24 +4,30 @@ Router: FP dense + softmax + top-k with renormalised gates and the
 Switch/GShard load-balancing loss. Expert FFNs are gated MLPs with Boolean
 int8 weights stacked (E, D, F). Two dispatches, as in the JAX package's
 ``models/moe.py``, both with a static capacity C per expert a routing
-group:
+group, positions in each expert from a cumulative sum:
 
-* ``einsum``  — GShard dispatch through (T, E, C) one-hot products;
-* ``scatter`` — positions in each expert from a cumulative sum, tokens
-  scattered into (E, C + 1, D) buffers (slot C swallows overflow) and
-  gathered back.
+* ``einsum``  — GShard dispatch, whose (T, E, C) one-hot products the
+  JAX package builds; the port computes their function by index (tokens
+  scattered into (E, C + 1, D) buffers, slot C swallowing the overflow,
+  and gathered back), so no (T, E, C) tensor lives on a rank, and
+  combines in fp32;
+* ``scatter`` — the same buffers, the combine in x's dtype.
 
 The expert products are plain torch on the ±1 views summed in fp32; the
 JAX package leaves them to XLA too (no Pallas kernel).
 
-Under a training mesh's "model" split (``modules.train_model_mesh``) the
+Under a training mesh's "model" split (``modules.model_mesh``) the
 experts split, as the JAX package's specs place them (its EP layout):
 the router's columns are gathered first (small), so the routing is the
 unsharded routing; each rank builds the same dispatch, runs its E / tp
 experts on their rows, and the expert outputs are gathered over "model"
 before the combine, which then sums in the unsharded order. The grads of
 the dispatched tokens and of the replicated ``tau`` are summed over
-"model" (each rank's experts see part of them).
+"model" (each rank's experts see part of them). The prefill splits alike,
+its routing groups the rank's rows; a decode's one routing group spans
+the batch ranks (``route``): each rank gathers every rank's expert
+choices, so the capacity and the arrival order are the whole group's,
+and dispatches its own tokens at their places in the group.
 """
 from __future__ import annotations
 
@@ -31,9 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import boolean_activation, random_boolean
-from repro_torch.distributed import gather_heads
+from repro_torch.distributed import gather_heads, get_mesh
 
-from .modules import ModelConfig, copy_to_group, fp_weight, train_model_mesh
+from .modules import ModelConfig, copy_to_group, fp_weight, model_mesh
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0, lead=()):
@@ -114,6 +120,26 @@ def _arrival(onehot):
     return ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
 
 
+def _slots(cfg: ModelConfig, experts, route=()):
+    """-> (each (token, choice)'s arrival position in its expert, (T, k)
+    int64; the capacity C). ``route``: the routing group spans the ranks
+    of those mesh axes, each holding the next T tokens in rank order: the
+    expert choices of every rank are gathered (one all-gather of (T, k)
+    ints), the positions counted over the whole group and this rank's
+    taken, C the whole group's."""
+    T, k = experts.shape
+    E = cfg.n_experts
+    every, lo = experts, 0
+    if route:
+        mesh = get_mesh()
+        if mesh.size_of(route) > 1:
+            every = mesh.all_gather(experts.contiguous(), route, 0,
+                                    count="route_gathers")
+            lo = mesh.index(route) * T
+    pos = _arrival(F.one_hot(every, E).reshape(-1, E)).reshape(-1, k)
+    return pos[lo:lo + T], _capacity(cfg, every.shape[0])
+
+
 def _local_experts(cfg: ModelConfig, p, xin, mesh):
     """The expert MLP on this rank's experts' rows of the dispatched
     ``xin`` (E, C, D), the outputs of every expert gathered over "model"
@@ -127,34 +153,21 @@ def _local_experts(cfg: ModelConfig, p, xin, mesh):
     return gather_heads(out, mesh, 0, count="expert_gathers")
 
 
-def _moe_einsum_group(cfg: ModelConfig, p, xf, mesh=None):
-    T, _ = xf.shape
-    gates, experts, aux = _route(cfg, p, xf)
-    E, k, C = cfg.n_experts, cfg.top_k, _capacity(cfg, T)
-    onehot = F.one_hot(experts, E).to(torch.float32)         # (T, k, E)
-    pos = _arrival(onehot.reshape(T * k, E)).reshape(T, k).to(torch.int64)
-    keep = pos < C
-    gates = gates * keep
-    # an arrival past C one-hots to zeros, as jax.nn.one_hot does
-    pos_oh = (pos[..., None] == torch.arange(C, device=xf.device)) \
-        .to(xf.dtype)                                        # (T, k, C)
-    disp = torch.einsum("tke,tkc->tec", onehot.to(xf.dtype),
-                        pos_oh * keep[..., None].to(xf.dtype))
-    comb = torch.einsum("tke,tkc->tec", onehot * gates[..., None],
-                        pos_oh.to(torch.float32))
-    xd = xf if mesh is None else copy_to_group(xf, mesh.group("model"))
-    xin = torch.einsum("td,tec->ecd", xd, disp)              # (E, C, D)
-    out = _local_experts(cfg, p, xin, mesh)
-    y = torch.einsum("ecd,tec->td", out.to(torch.float32), comb)
-    return y, aux
-
-
-def _moe_scatter_group(cfg: ModelConfig, p, xf, mesh=None):
+def _moe_group(cfg: ModelConfig, p, xf, mesh=None, route=()):
+    """One routing group's tokens xf (T, D) through the MoE -> (y (T, D),
+    aux loss). The dispatch and the combine go by index: slot (e, c) of
+    the (E, C, D) buffer holds the token that arrived c-th at expert e
+    (zeros where none did), an arrival past C lands in a scratch slot C
+    and is dropped, and each token sums its k experts' outputs at its
+    gates. ``einsum`` is GShard's dispatch (the JAX package's one-hot (T,
+    E, C) products), computed so: the same slots and drops, its combine
+    in fp32; the (T, E, C) tensors are never built. ``scatter`` combines
+    in x's dtype by ``index_add_``, as the JAX package's does."""
     T, D = xf.shape
     gates, experts, aux = _route(cfg, p, xf)
-    E, k, C = cfg.n_experts, cfg.top_k, _capacity(cfg, T)
-    onehot = F.one_hot(experts, E).reshape(T * k, E)
-    pos = _arrival(onehot)
+    E, k = cfg.n_experts, cfg.top_k
+    pos, C = _slots(cfg, experts, route)
+    pos = pos.reshape(T * k)
     e_flat = experts.reshape(T * k)
     keep = pos < C
     pos_c = torch.where(keep, pos, C)            # overflow -> scratch slot C
@@ -166,24 +179,29 @@ def _moe_scatter_group(cfg: ModelConfig, p, xf, mesh=None):
     out_pad = torch.cat([out, torch.zeros((E, 1, D), dtype=out.dtype,
                                           device=out.device)], dim=1)
     got = out_pad[e_flat, pos_c]                 # (T·k, D)
-    w = (gates.reshape(T * k) * keep).to(xf.dtype)
-    y = torch.zeros((T, D), dtype=xf.dtype, device=xf.device) \
-        .index_add_(0, tok_idx, got * w[:, None])
+    w = gates.reshape(T * k) * keep
+    if cfg.moe_impl == "scatter":
+        y = torch.zeros((T, D), dtype=xf.dtype, device=xf.device) \
+            .index_add_(0, tok_idx, got * w.to(xf.dtype)[:, None])
+    else:
+        y = (got.to(torch.float32) * w[:, None]).reshape(T, k, D).sum(1)
     return y, aux
 
 
-def moe_apply(cfg: ModelConfig, p, x):
+def moe_apply(cfg: ModelConfig, p, x, route=()):
     """x: (B, S, D) -> (y (B, S, D) in x's dtype, mean aux loss over the
-    routing groups)."""
-    group = _moe_scatter_group if cfg.moe_impl == "scatter" \
-        else _moe_einsum_group
-    mesh = train_model_mesh(cfg)
+    routing groups). ``route``: the mesh axes whose ranks hold the parts
+    of one routing group (``_slots``); ``x`` is then one group."""
+    mesh = model_mesh(cfg)
     if mesh is not None:
         model = mesh.group("model")
         p = dict(p, router=gather_heads(p["router"], mesh, p["router"].dim()
                                         - 1, count="expert_gathers"),
                  tau=copy_to_group(p["tau"], model))
-    ys, auxs = zip(*(group(cfg, p, xg, mesh)
+    if route and cfg.moe_groups != 1:
+        raise ValueError("a routing group that spans ranks is the rank's "
+                         f"one group, not {cfg.moe_groups}")
+    ys, auxs = zip(*(_moe_group(cfg, p, xg, mesh, route)
                      for xg in _group_tokens(cfg, x)))
     return torch.stack(ys).reshape(x.shape).to(x.dtype), \
         torch.stack(auxs).mean()

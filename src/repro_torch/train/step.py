@@ -201,21 +201,33 @@ def _flip_total(opt_state):
     return sum(leaves)
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, shardings=None):
     """Serving prefill: ``prefill_step(params, batch) -> (last-position
     logits, cache)`` over raw int8 params (per-layer transient float
-    views), ``lm_prefill``'s cold route."""
+    views), ``lm_prefill``'s cold route.
+
+    ``shardings``: the parameters' placement on a training mesh
+    (``distributed.placement.named(mesh, train_param_specs(params))``),
+    as ``make_train_step(grad_shardings=)`` takes it; the step is then
+    one rank's part of the JAX package's placed prefill: ``params`` are
+    this rank's slices and ``batch`` its rows over ``cfg.batch_axes`` (the
+    JAX package's batch sharding hands each device its rows; the training
+    step takes the global batch for the loss weights of its microbatches,
+    which a serving step has not); the logits are its rows', whole over
+    the vocab, the cache its slab (``lm_prefill``)."""
     def prefill_step(params, batch):
-        return lm_prefill(cfg, params, batch)
+        return lm_prefill(cfg, params, batch, shardings=shardings)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, shardings=None):
     """``decode_step(params, cache, batch) -> (logits, cache)``: one token
     (``batch["tokens"]`` or the (B, 1) tokens themselves) over a
     contiguous cache from ``cache_init`` (after ``lm_prefill``), updated in
-    place."""
+    place. ``shardings``: as in ``make_prefill_step``; the tokens and the
+    cache are this rank's rows, the cache its slab (``lm_decode_step``)."""
     def decode_step(params, cache, batch):
         tokens = batch["tokens"] if isinstance(batch, dict) else batch
-        return lm_decode_step(cfg, params, cache, tokens)
+        return lm_decode_step(cfg, params, cache, tokens,
+                              shardings=shardings)
     return decode_step

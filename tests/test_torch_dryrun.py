@@ -2,12 +2,22 @@
 CPU: each cell in a subprocess, since the fake world belongs to its
 process, writing into ``tmp_path``; the subprocesses run at once.
 
-- gemma2-2b × decode_32k × single is ``ok``: peak under 80 GiB, and its
-  recorded collectives equal, op by op, the cell's formula: per attention
-  layer the three ``seq_combines`` all-reduces over "model" of the
-  seq-sharded decode (``models/attention.py::_decode_seq_sharded``: the
-  max, the rescaled sum, the rescaled accumulator), and nothing else (the
-  weights are replicated, the batch rows independent).
+- gemma2-2b × decode_32k and × prefill_32k × single are ``ok`` under the
+  JAX package's placement (``lm_init``'s specs: FSDP over "data", the
+  "model" splits; k/v replicated over the 16 "model" ranks, 4 KV heads),
+  peaks under those of whole weights on every rank (5.33 and 22.44 GiB),
+  and their recorded collectives equal, op by op, the cell's formula:
+  the embedding's FSDP gather over
+  "data" and its vocab-parallel sum over "model", then for each layer
+  group one flat FSDP gather of its int8 slices and, per attention layer,
+  the heads' gather over "model" (decode: the token's q heads, before
+  the slab's read; prefill: the flash kernel's outputs, before ``wo``),
+  the decode's three ``seq_combines`` all-reduces of the seq-sharded read
+  (``models/attention.py::_decode_seq_sharded``: the max, the rescaled
+  sum, the rescaled accumulator) and the row-split ``wd``'s sum; then the
+  head's FSDP gather and the logits' gather over "model" to the whole
+  vocab. The prefill trades no heads for cache rows (k/v replicated) and
+  launches row 4 once a layer.
 - gemma2-2b's smoke widths (``--variant``) × train_4k × single is ``ok``
   with every collective of the step under the JAX package's placement
   counted: per microbatch the FSDP all-gathers over "data" (the
@@ -29,6 +39,7 @@ process, writing into ``tmp_path``; the subprocesses run at once.
 - ``--lower-only`` builds the inputs and traces nothing.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -54,6 +65,8 @@ VARIANT = {k: getattr(SMOKE, k) for k in (
 RUNS = {
     "decode": ["--arch", "gemma2-2b", "--shape", "decode_32k", "--mesh",
                "single"],
+    "prefill": ["--arch", "gemma2-2b", "--shape", "prefill_32k", "--mesh",
+                "single"],
     "train": ["--arch", "gemma2-2b", "--shape", "train_4k", "--mesh",
               "single", "--variant", json.dumps(VARIANT), "--tag", "smoke"],
     "cut": ["--arch", "gemma2-2b", "--shape", "train_4k", "--mesh",
@@ -102,10 +115,51 @@ def _record(runs, name, file):
     return rec
 
 
+def _group_gather(cfg) -> int:
+    """The elements of one layer group's flat FSDP gather over "data" on
+    the 16 x 16 mesh: every leaf of the group cut over "data", at its
+    "model" slice (``train_param_specs``' placement)."""
+    from repro_torch.launch.shardings import kv_replicated, train_param_specs
+
+    params = _meta_params(cfg)
+    specs = train_param_specs(params, replicate_kv=kv_replicated(cfg, 16))
+    n = 0
+    for p, sp in zip(tree_leaves(params["blocks"]),
+                     tree_leaves(specs["blocks"])):
+        if "data" in sp:
+            # a group's slice: every split dim but the group axis cut
+            n += math.prod(p.shape[1:]) // 16 ** len(sp.axes())
+    return 16 * n
+
+
+def _meta_params(cfg):
+    """Fake params at published widths (shapes, no storage)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return lm_init(cfg, torch.Generator().manual_seed(0))
+
+
+def _serve_ops(cfg, per_layer, head_shape):
+    """A serving cell's collectives by formula, (kind, dtype, shape,
+    group) in order: the embedding's FSDP gather and vocab-parallel sum,
+    each group's FSDP gather and its layers' ``per_layer`` ops, the head's
+    FSDP gather, the logits' vocab gather."""
+    vd = cfg.vocab_padded * cfg.d_model // 16
+    ops = [("all-gather", "bf16", [vd], 16),
+           ("all-reduce", "bf16", head_shape + [cfg.d_model], 16)]
+    for _ in range(cfg.n_groups):
+        ops.append(("all-gather", "s8", [_group_gather(cfg)], 16))
+        ops += per_layer * cfg.group_size
+    ops += [("all-gather", "bf16", [vd], 16),
+            ("all-gather", "f32", [cfg.vocab_padded, head_shape[0], 1], 16)]
+    return ops
+
+
 def test_decode_cell_is_ok_and_its_collectives_are_the_formula(runs):
     rec = _record(runs, "decode", "gemma2-2b__decode_32k__single__baseline.json")
     assert rec["mesh"] == "16x16" and rec["n_chips"] == 256
-    assert 0 < rec["peak_bytes_per_device"] < 80 * 2 ** 30
+    # a rank holding the whole weights peaked at 5.33 GiB
+    assert 0 < rec["peak_bytes_per_device"] < 5.33 * 2 ** 30
     assert rec["roofline"]["bottleneck"] in ("compute", "memory",
                                              "collective")
     assert rec["roofline"]["step_time_lower_bound_s"] > 0
@@ -115,23 +169,60 @@ def test_decode_cell_is_ok_and_its_collectives_are_the_formula(runs):
     b = 128 // 16                                   # rows of a data rank
     kvp = cfg.kv_heads_padded()
     r = cfg.heads_padded() // kvp
-    n_attn = cfg.n_layers                          # every layer attends
-    want = [("all-reduce", "f32", [b, kvp, r], 16),           # max
-            ("all-reduce", "f32", [b, kvp, r], 16),           # sum
-            ("all-reduce", "f32", [b, kvp, r, cfg.head_dim_], 16)] * n_attn
+    hd, D = cfg.head_dim_, cfg.d_model
+    # each layer: the token's q head gathered (k/v replicated), the three
+    # seq combines, the row-split wd's sum
+    layer = [("all-gather", "bf16", [16, b, 1, 1, hd], 16),
+             ("all-reduce", "f32", [b, kvp, r], 16),           # max
+             ("all-reduce", "f32", [b, kvp, r], 16),           # sum
+             ("all-reduce", "f32", [b, kvp, r, hd], 16),       # acc
+             ("all-reduce", "f32", [b, 1, D], 16)]             # wd
+    want = _serve_ops(cfg, layer, [b, 1])
     got = [(op["kind"], op["dtype"], op["shape"], op["group"])
            for op in rec["collective_ops"]]
     assert got == want
-    assert {op["site"] for op in rec["collective_ops"]} == \
-        {"TrainMesh.all_reduce[seq_combines]"}
-    # bytes: the operand of each all-reduce is its result
-    assert rec["collectives"]["all-reduce"] == n_attn * 4 * b * kvp * r * (
-        2 + cfg.head_dim_)
-    assert rec["collectives"]["total"] == rec["collectives"]["all-reduce"]
-    assert rec["placement"]["cache_seq"] == ["model"]
+    n_attn = cfg.n_layers                          # every layer attends
+    assert rec["collective_sites"] == {
+        "all-gather TrainMesh.all_gather[fsdp_gathers]": 2 + cfg.n_groups,
+        "all-reduce TrainMesh.all_reduce[model_sums]": 1 + n_attn,
+        "all-gather TrainMesh.all_gather[head_gathers]": n_attn,
+        "all-reduce TrainMesh.all_reduce[seq_combines]": 3 * n_attn,
+        "all-gather TrainMesh.all_gather[vocab_gathers]": 1}
+    assert rec["collectives"]["total"] == sum(
+        rec["collectives"][k] for k in ("all-reduce", "all-gather"))
+    pl = rec["placement"]
+    assert pl["cache_seq"] == ["model"]
+    assert pl["heads"] == "'model': q columns, k/v replicated"
+    assert len(pl["stated_differences"]) == 2
+    assert "one placement" in rec["roofline_placement"]["shared"]
     # the KV cache (int8 rows + scales) of this rank's slab of 2,048 rows
     assert rec["mem_by_kind"]["BUFFER"] == n_attn * 2 * b * (32768 // 16) \
         * kvp * (cfg.head_dim_ + 4)
+    assert rec["fake_launches"] == {}
+
+
+def test_prefill_cell_is_ok_and_its_collectives_are_the_formula(runs):
+    rec = _record(runs, "prefill",
+                  "gemma2-2b__prefill_32k__single__baseline.json")
+    assert rec["mesh"] == "16x16"
+    # a rank holding the whole weights peaked at 22.44 GiB
+    assert 0 < rec["peak_bytes_per_device"] < 22.44 * 2 ** 30
+    cfg = get_config("gemma2-2b")
+    b, S = 32 // 16, 32768
+    hd, D = cfg.head_dim_, cfg.d_model
+    # each layer: the flash kernel's one q head gathered before wo, the
+    # row-split wd's sum; k/v replicated: no heads traded for cache rows
+    layer = [("all-gather", "bf16", [16, b, S, hd], 16),
+             ("all-reduce", "f32", [b, S, D], 16)]
+    want = _serve_ops(cfg, layer, [b, S])
+    got = [(op["kind"], op["dtype"], op["shape"], op["group"])
+           for op in rec["collective_ops"]]
+    assert got == want
+    assert "cache_exchanges" not in " ".join(rec["collective_sites"])
+    assert rec["placement"]["cache_rows"].startswith("k/v replicated")
+    # row 4 once a layer, on this rank's q head
+    assert rec["fake_launches"] == {"flash_attention_fwd": cfg.n_layers}
+    assert "one placement" in rec["roofline_placement"]["shared"]
 
 
 def test_smoke_train_cell_counts_every_collective(runs):

@@ -12,7 +12,9 @@ process, each rank's ``local`` slices tile the full leaf and ``full``
 gathers them back (a stub mesh whose all-gather hands over the peers'
 slices), an undivided split raises naming the leaf, and the PARAM and OPT
 bytes the placement leaves rank 0 of gemma2-2b's 16 x 16 train mesh at
-published widths (fake tensors) equal their formula.
+published widths (fake tensors) equal their formula. The serving cells'
+cache placement (``launch.shardings.cache_specs``) against the JAX
+package's ``cache_init`` specs for each arch and serving policy.
 """
 import math
 
@@ -215,3 +217,84 @@ def test_param_and_opt_bytes_of_a_rank_by_formula():
     assert tree_leaves(tree_map(tuple, sp["params"])) == \
         tree_leaves(tree_map(tuple, specs))
     assert param + opt < 2 ** 30, (param, opt)
+
+
+class _Layout:
+    """A production mesh's axis names and sizes (what ``apply_policy``
+    reads), without a world."""
+
+    def __init__(self, multi_pod):
+        self.axis_names = ("pod", "data", "model") if multi_pod \
+            else ("data", "model")
+        self.shape = dict(zip(self.axis_names,
+                              (2, 16, 16) if multi_pod else (16, 16)))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cache_specs_are_the_jax_packages(arch):
+    """``cache_specs`` leaf for leaf against the JAX package's
+    ``cache_init`` specs, under each serving cell's policy (prefill_32k,
+    decode_32k, long_500k where it applies) on the single- and multi-pod
+    meshes: the batch over the batch axes, the rows over the cache-seq
+    axes, every KV head, the mamba state's d_inner over "model" (a rank's
+    cache against its slice of the whole one under them:
+    ``tests/test_torch_split_serve.py``)."""
+    from repro.launch.shardings import apply_policy as jax_policy
+    from repro.models import cache_init as jax_cache_init
+    from repro_torch.launch.shapes import SHAPES, applicable
+    from repro_torch.launch.shardings import apply_policy, cache_specs
+    from repro_torch.models import cache_init
+
+    n = 0
+    for multi_pod in (False, True):
+        lay = _Layout(multi_pod)
+        for shape in ("prefill_32k", "decode_32k", "long_500k"):
+            if not applicable(get_smoke(arch), SHAPES[shape]):
+                continue
+            cfg_j = jax_policy(jax_smoke(arch), SHAPES[shape], lay)
+            cfg_t = apply_policy(get_smoke(arch), SHAPES[shape], lay)
+            _, want = jax_cache_init(cfg_j, 2, 32)
+            whole = cache_init(cfg_t.scaled(use_sharding_constraints=False),
+                               2, 32, "meta")
+            got = cache_specs(cfg_t, whole)
+            flat = jax.tree_util.tree_flatten_with_path(
+                want, is_leaf=lambda x: isinstance(
+                    x, jax.sharding.PartitionSpec))[0]
+            assert len(flat) == len(tree_leaves(got))
+            for path, spec in flat:
+                node = got
+                for k in path:
+                    node = node[str(getattr(k, "key", k))]
+                assert isinstance(node, P)
+                assert tuple(node) == tuple(spec), (shape, path, node, spec)
+                n += 1
+    assert n > 0
+
+
+@pytest.mark.parametrize("spec,dim", [(P(("data", "model")), 0),
+                                      (P(None, ("data", "model")), 1),
+                                      (P(None, None, ("pod", "data")), 2)])
+def test_a_dim_split_over_several_axes_is_row_major(spec, dim):
+    """A dim split over a tuple of axes (a cache's batch over ("pod",
+    "data"), long_500k's rows over every axis): rank (p, d, m)'s slice is
+    block ``index`` of the dim, ``index`` its row-major index over the
+    tuple's axes; axes out of the mesh's order or named twice are
+    refused."""
+    full = torch.arange(8 * 8 * 8, dtype=torch.float32).reshape(8, 8, 8)
+    sizes = {"pod": 2, "data": 2, "model": 2}
+    axes = spec[dim]
+    for p in range(2):
+        for d in range(2):
+            for m in range(2):
+                coords = {"pod": p, "data": d, "model": m}
+                pl = NamedPlacement(_Mesh(sizes, coords), spec, "x")
+                idx = 0
+                for a in axes:
+                    idx = idx * sizes[a] + coords[a]
+                want = full.narrow(dim, idx * 2, 2)
+                assert torch.equal(pl.local(full), want)
+                assert pl.shards == 4
+    with pytest.raises(ValueError):
+        P(("model", "data"))
+    with pytest.raises(ValueError):
+        P("data", ("data", "model"))

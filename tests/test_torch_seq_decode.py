@@ -5,11 +5,15 @@ this container, so the reference is its unsharded decode).
 
 A gloo world of 8 is a (data 2, model 4) training mesh; under
 ``use_sharding_constraints`` with ``batch_axes=("data",)`` and
-``cache_seq_axes=("model",)`` each rank holds its batch row of the cache
-and a slab of a quarter of its 64 rows, writes the new token's row only if
-``pos`` lands in its slab, reads its slab from the slab's global offset and
-combines the softmax statistics across the four slabs (one MAX and two
-SUM all-reduces a layer). gemma2-2b's smoke config (fp32, local layers of
+``cache_seq_axes=("model",)`` each rank holds its slices of the params
+(the JAX package's placement, ``launch.shardings.train_param_specs``:
+FSDP over "data", the heads, d_ff and vocab over "model", k/v replicated
+over the 4 ranks; ``lm_decode_step(shardings=)``), its batch row of the
+cache and a slab of a quarter of its 64 rows, gathers the token's q heads
+over "model", writes the new token's row only if ``pos`` lands in its
+slab, reads its slab from the slab's global offset and combines the
+softmax statistics across the four slabs (one MAX and two SUM
+all-reduces a layer). gemma2-2b's smoke config (fp32, local layers of
 window 32 across slab edges, global layers) decodes one token over a
 random cache in bf16 and in int8 with per-row scales, at pos 5 (slab 0)
 and 40 (slab 2, with 8-row decode chunks inside the slab). Every rank's
@@ -103,7 +107,9 @@ def run_world(n: int, script: str, tmp_path, *args: str,
 _DECODE = """
 from repro_torch import bridge
 from repro_torch.configs import get_smoke
+from repro_torch.distributed.placement import named, place
 from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.shardings import kv_replicated, train_param_specs
 from repro_torch.models import lm_decode_step
 
 mesh = make_local_mesh(4, "cpu")
@@ -126,6 +132,9 @@ for case in json.loads(sys.argv[4]):
                 node = node.setdefault(k, {})
             node[leaf] = inp[key]
     params = bridge.params_from_numpy(params, "cpu")
+    sh = named(mesh, train_param_specs(params, replicate_kv=kv_replicated(
+        cfg, mesh.shape["model"])))
+    params = place(params, sh)
     b = inp["tok"].shape[0] // 2
     blocks = {}
     for key in inp.files:
@@ -139,7 +148,8 @@ for case in json.loads(sys.argv[4]):
                 t[:, d * b:(d + 1) * b, m * rows:(m + 1) * rows].clone()
     tok = torch.from_numpy(inp["tok"][d * b:(d + 1) * b])
     logits, cache = lm_decode_step(cfg, params, {"blocks": blocks,
-                                                 "pos": case["pos"]}, tok)
+                                                 "pos": case["pos"]}, tok,
+                                   shardings=sh)
     every = [None] * WORLD
     dist.all_gather_object(every, {
         "d": d, "m": m, "logits": logits.numpy(),
