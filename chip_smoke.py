@@ -99,9 +99,10 @@ wall seconds, each on a line of its own:
 6. train check -- a small fp32 model (gemma2-2b smoke widths) trained 3
               steps on the card (kernels) and on the CPU (plain versions)
               from the same state each step: losses within tolerance, flip
-              decisions identical except counted ties, no launch on a
-              tensor-core route, and a checkpoint of the card's params and
-              optimizer state round-trips bit for bit;
+              decisions identical except counted ties, FP leaves within
+              tolerance (Adam's unsaturated elements counted), no launch
+              on a tensor-core route, and a checkpoint of the card's
+              params and optimizer state round-trips bit for bit;
 7. prefix  -- gemma2-2b at its published widths served through
               ServeEngine(packed=True, prefix_cache=True).session, once
               over a bf16 KV pool and once with kv_cache_quant (int8 pools
@@ -356,6 +357,24 @@ wall seconds, each on a line of its own:
               the libraries' tiles; and the achieved bf16 matmul (8192^3)
               and device-to-device copy (4 GiB) rates beside the record's
               peaks.
+18. examples and families' training -- the three examples of the port
+              through their own main on the card: quickstart (its acc >
+              0.8; 2 launches of row 3 an epoch, CUDA cores), serve_lm
+              plain, --packed and --packed --kv-quant (its four parity
+              checks; launches by route), train_lm --full-100m (100
+              steps, checkpoints at 50 and 100; step ms, tokens/s, loss,
+              max_memory_allocated, row 3's launches equal to one a
+              Boolean projection a layer a step, all on tensor cores),
+              then a run that kept only the step-50 checkpoint, resumed
+              with --resume (its losses the uninterrupted run's bit for
+              bit); phase 6's check, one step, of falcon-mamba-7b,
+              moonshot, arctic and jamba at smoke widths in fp32;
+              falcon-mamba-7b trained at its published widths (its first
+              16 of 64 blocks, FALCON_TRAIN_LAYERS; bf16) as phase 5
+              trains gemma2-2b, on its traffic: step ms,
+              tokens/s, peak, row 3's launches (5 a layer a microbatch,
+              all on tensor cores) and one profiled step by group, the
+              selective scan's among them.
 
 The last lines are one JSON object of kernel results, the card's name and
 power limit as nvidia-smi reports them, and the result object.
@@ -2009,29 +2028,87 @@ def _device_groups(prof, groups):
     return out, n, top
 
 
-def train(torch, seed: int):
-    import gc
-    import math
+def vote_launches(torch, params) -> int:
+    """Weight-backward launches a microbatch implies: one for each Boolean
+    projection of each layer (a stacked block leaf counts its groups)."""
+    from repro_torch.checkpoint.manager import _flatten
+
+    return sum(p.shape[0] if key.startswith("blocks/") else 1
+               for key, p in _flatten(params).items() if p.dtype == torch.int8)
+
+
+def _counts():
+    """(launches by kernel, launches by route) from the counters."""
+    from repro_torch.kernels import KERNELS
+
+    return ({k.__name__: k.launches for k in KERNELS}, route_counts())
+
+
+SCAN_GROUP = "mamba scan (ops on (..., d_inner, N) tensors)"
+
+
+def _scan_device_ms(prof, groups, tail):
+    """Device ms by ``groups`` (``_device_groups``) with one more,
+    SCAN_GROUP: the kernels launched by an aten op that reads a tensor of
+    shape (..., *tail) — the selective scan's (B, Q, d_inner, N) tensors
+    and A, forward, recompute and backward — taken out of the group their
+    name falls in. -> (groups, event count, top ten kernels)."""
+    out, n, top = _device_groups(prof, groups)
+
+    def reads(shapes):
+        for s in shapes or ():
+            if s and isinstance(s[0], (list, tuple)):
+                if reads(s):
+                    return True
+            elif len(s) >= 2 and tuple(s[-2:]) == tail:
+                return True
+        return False
+
+    scan = 0.0
+    for e in prof.events():
+        if str(e.device_type) != "DeviceType.CPU" or not e.kernels:
+            continue
+        if not reads(e.input_shapes):
+            continue
+        for k in e.kernels:
+            ms = k.duration / 1e3
+            name = k.name.lower()
+            g = next((g for g, keys in groups if any(x in name for x in keys)),
+                     "other kernels")
+            out[g] -= ms
+            scan += ms
+    out[SCAN_GROUP] = scan
+    return out, n, top
+
+
+def train(torch, seed: int, cfg, eta: float, scan_tail=None):
+    """``cfg`` (published widths, bf16, remat on) trained through
+    make_train_step + TrainLoop with hybrid_optimizer on cosine schedules
+    from ``eta``: TRAIN_BATCH x TRAIN_SEQ tokens a step in TRAIN_MICRO
+    microbatches, WARMUP_STEPS, then TIMED_STEPS with the counters zeroed
+    just before (row 3 launched once a Boolean projection a layer a
+    microbatch, all on tensor cores, and no other kernel), then one step
+    under torch.profiler: step ms, tokens/s, peak, the accumulators' reach
+    to the flip threshold, device ms by group. With ``scan_tail`` (d_inner,
+    N), the profiler records shapes and the selective scan's ops get a
+    group of their own (``_scan_device_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.core.optimizer import (cosine_schedule, hybrid_optimizer,
                                             tree_leaves)
     from repro_torch.data import make_pipeline
-    from repro_torch.kernels import KERNELS, boolean_weight_bwd
     from repro_torch.models import lm_init
     from repro_torch.train import TrainLoop, make_train_step
 
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_collect(torch)
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("gemma2-2b")
+    base = torch.cuda.memory_allocated()
     assert cfg.remat and cfg.dtype == torch.bfloat16
     total = WARMUP_STEPS + TIMED_STEPS + 1          # + the profiled step
     t0 = time.perf_counter()
     params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(seed))
     opt = hybrid_optimizer(
-        eta=cosine_schedule(4.0, total, warmup=total // 20),
+        eta=cosine_schedule(eta, total, warmup=total // 20),
         fp_lr=cosine_schedule(1e-3, total, warmup=total // 20))
     loop = TrainLoop(make_train_step(cfg, opt, TRAIN_MICRO), params,
                      opt.init(params),
@@ -2039,12 +2116,14 @@ def train(torch, seed: int):
                      log_every=1)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
     n_bool = sum(p.numel() for p in tree_leaves(params) if p.dtype == torch.int8)
-    print(f"  gemma2-2b {cfg.n_layers} layers d_model {cfg.d_model} vocab "
-          f"{cfg.vocab_size} {cfg.dtype}, {n_bool / 1e9:.3f} G Boolean weights: "
-          f"init + optimizer state {setup_s:.1f} s; {TRAIN_BATCH} x {TRAIN_SEQ} "
-          f"tokens a step in {TRAIN_MICRO} microbatches")
-
+    per_mb = vote_launches(torch, params)
+    print(f"  {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}: {n_params / 1e9:.3f} G parameters "
+          f"({n_bool / 1e9:.3f} G Boolean), init + optimizer state "
+          f"{setup_s:.1f} s; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
+          f"{TRAIN_MICRO} microbatches, eta {eta} (cosine)")
     flips = []
 
     def one_step():
@@ -2053,38 +2132,41 @@ def train(torch, seed: int):
         loop.run(1, install_signal_handlers=False)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t) * 1e3
-        flips.append(sum(float(f) for f in tree_leaves(loop.opt_state.boolean.flips)))
+        flips.append(sum(float(f) for f in
+                         tree_leaves(loop.opt_state.boolean.flips)))
         return dt
 
     warm_ms = [one_step() for _ in range(WARMUP_STEPS)]
     zero_counts()
     step_ms = [one_step() for _ in range(TIMED_STEPS)]
-    launches = {k.__name__: k.launches for k in KERNELS}
-    routes = {"tensor_cores": boolean_weight_bwd.tc_launches,
-              "cuda_cores": boolean_weight_bwd.cc_launches}
-    per_mb = 7 * cfg.n_layers
-    want = {"packed_xnor_gemv": 0, "paged_flash_decode": 0,
-            "boolean_weight_bwd": TIMED_STEPS * TRAIN_MICRO * per_mb,
-            "flash_attention_fwd": 0, "paged_prefix_attention": 0,
-            "boolean_matmul": 0, "packed_xnor_matmul": 0}
+    launches, routes = _counts()
+    want = TIMED_STEPS * TRAIN_MICRO * per_mb
     peak = torch.cuda.max_memory_allocated()
-    print(f"  launches over the {TIMED_STEPS} timed steps {launches}, expected "
-          f"{want} ({per_mb} weight-backward launches a microbatch)")
-    assert launches == want, (launches, want)
-    assert boolean_weight_bwd.launches > 0
-    print(f"  weight-backward launches by route {routes}")
-    assert routes == {"tensor_cores": want["boolean_weight_bwd"],
-                      "cuda_cores": 0}, routes
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    print(f"  launches over the {TIMED_STEPS} timed steps {launches}; weight "
+          f"backward by route {routes['boolean_weight_bwd']}, expected {want} "
+          f"({per_mb} a microbatch: one a Boolean projection a layer), all "
+          "on tensor cores")
+    assert launches == {k: (want if k == "boolean_weight_bwd" else 0)
+                        for k in launches}, launches
+    assert routes["boolean_weight_bwd"] == {"tensor_cores": want,
+                                            "cuda_cores": 0}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=scan_tail is not None) as prof:
         prof_ms = one_step()
-    groups, n_events, top = _device_groups(prof, TRAIN_GROUPS)
+    if scan_tail is None:
+        groups, n_events, top = _device_groups(prof, TRAIN_GROUPS)
+    else:
+        groups, n_events, top = _scan_device_ms(prof, TRAIN_GROUPS, scan_tail)
     busy = sum(groups.values())
 
     losses = loop.history
     assert len(losses) == total and all(math.isfinite(x) for x in losses), losses
-    w = loop.params["blocks"]["b0"]["ffn"]["wg"]["w"]
-    assert w.dtype == torch.int8 and bool(((w == 1) | (w == -1)).all())
+    bool_leaves = [p for p in tree_leaves(loop.params) if p.dtype == torch.int8]
+    assert all(bool(((w == 1) | (w == -1)).all()) for w in bool_leaves)
+    # how near the flip rule's threshold the accumulators came: m·w >= 1
+    # flips a weight
+    near = max(float((m * w.to(m.dtype)).amax()) for m, w in zip(
+        tree_leaves(loop.opt_state.boolean.accum), bool_leaves))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     med = statistics.median(step_ms)
     metrics = {
@@ -2093,24 +2175,33 @@ def train(torch, seed: int):
                    "dtype": str(cfg.dtype), "remat": cfg.remat,
                    "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
                    "microbatches": TRAIN_MICRO},
-        "setup_s": setup_s, "losses": losses, "flips": flips,
-        "warmup_step_ms": warm_ms, "step_ms": step_ms,
-        "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3),
-        "max_memory_allocated_bytes": peak, "launches": launches,
-        "weight_bwd_routes": routes,
+        "params": n_params, "boolean_params": n_bool, "setup_s": setup_s,
+        "losses": losses, "flips": flips, "eta": eta,
+        "max_accum_times_w": near, "warmup_step_ms": warm_ms,
+        "step_ms": step_ms, "step_ms_median": med,
+        "tokens_per_s": tokens / (med / 1e3),
+        "max_memory_allocated_bytes": peak, "held_before_bytes": base,
+        "launches": launches, "weight_bwd_routes": routes["boolean_weight_bwd"],
+        "expected_weight_bwd": want,
         "profiled_step": {"wall_ms": prof_ms, "device_ms": busy,
                           "device_events": n_events,
                           "idle_share": (1 - busy / prof_ms) if busy else None,
+                          "idle_share_vs_median": (1 - busy / med) if busy
+                          else None,
                           "device_ms_by_group": groups,
                           "top_kernels_ms": top},
     }
     print("  loss per step " + " ".join(f"{x:.4f}" for x in losses))
-    print("  flips per step " + " ".join(f"{x:.0f}" for x in flips))
+    print("  flips per step " + " ".join(f"{x:.0f}" for x in flips)
+          + f" (largest accumulator x weight after the last step {near:.4g}; "
+          "1 flips)")
     print(f"  median step {med:.1f} ms ({tokens / (med / 1e3):.0f} tokens/s), "
-          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+          f"max_memory_allocated {peak / 2**30:.2f} GiB ({base / 2**30:.2f} "
+          f"held before)")
     if busy:
-        print(f"  profiled step: wall {prof_ms:.1f} ms, device busy {busy:.1f} ms "
-              f"(idle share {1 - busy / prof_ms:.3f}), {n_events} device events")
+        print(f"  profiled step: wall {prof_ms:.1f} ms, device busy {busy:.1f} "
+              f"ms (idle share {1 - busy / prof_ms:.3f}; against the timed "
+              f"median step {1 - busy / med:.3f}), {n_events} device events")
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
             print(f"    {g}: {ms:.2f} ms ({ms / busy:.3f} of device time)")
         print("  kernels with the most device time:")
@@ -2119,12 +2210,21 @@ def train(torch, seed: int):
     else:
         print("  profiled step: the profiler reported no device time "
               "(device breakdown not measured)")
-    return launches, metrics
+    del loop, params, bool_leaves
+    gc_collect(torch)
+    return metrics
 
 
 # ---------------------------------------------------------------------------
 # 6. small model training: card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
+TRAIN_SMOKE_LOSS_ATOL = 1e-4     # fp32, votes and sums reassociated on the card
+# an FP leaf card vs CPU; beyond it only where Adam's step is not saturated
+# (|g| near eps), counted, at most 1% of the elements, and within two steps
+# of the learning rate
+TRAIN_SMOKE_FP_ATOL, TRAIN_SMOKE_FP_LR = 1e-4, 1e-3
+
+
 def _to(tree, device):
     """A copy of a tree of dicts / NamedTuples / tensors on ``device``."""
     if tree is None:
@@ -2136,10 +2236,15 @@ def _to(tree, device):
     return tree.to(device, copy=True)
 
 
-def train_agree_with_cpu(torch, seed: int):
-    import tempfile
-
-    from repro_torch.checkpoint import restore_pytree, save_pytree
+def train_agree_with_cpu(torch, seed: int, arch: str, steps: int):
+    """``steps`` make_train_step steps (2 microbatches, eta 1000) of
+    ``arch``'s smoke config in fp32, the kernels on the card and the plain
+    versions on the CPU, each step from the CPU's params and state on the
+    same batch: loss within TRAIN_SMOKE_LOSS_ATOL, flips identical but ties
+    at the threshold, FP leaves within TRAIN_SMOKE_FP_ATOL (Adam's
+    unsaturated elements counted), no launch on a tensor-core route.
+    -> (readings, the card's params and optimizer state after the last
+    step)."""
     from repro_torch.checkpoint.manager import _flatten
     from repro_torch.configs import get_smoke
     from repro_torch.core.optimizer import hybrid_optimizer
@@ -2147,49 +2252,78 @@ def train_agree_with_cpu(torch, seed: int):
     from repro_torch.models import lm_init
     from repro_torch.train import make_train_step
 
-    cfg = get_smoke("gemma2-2b").scaled(dtype=torch.float32)
+    cfg = get_smoke(arch).scaled(dtype=torch.float32)
     params = lm_init(cfg, torch.Generator().manual_seed(seed))
-    opt = hybrid_optimizer(eta=1000.0, fp_lr=1e-3)  # flips at smoke width
+    # eta 1000: weights flip at smoke width
+    opt = hybrid_optimizer(eta=1000.0, fp_lr=TRAIN_SMOKE_FP_LR)
     state = opt.init(params)
     step = make_train_step(cfg, opt, 2)
     pipe = make_pipeline(cfg, 32, 4, seed=seed)
-    loss_err, n_flips, n_ties = 0.0, 0, 0
+    loss_err = fp_err = 0.0
+    flips = ties = loose = total = 0
     zero_counts()
-    for i in range(3):
+    for i in range(steps):
         batch = {k: torch.from_numpy(v) for k, v in pipe.batch_at(i).items()}
         before = {k: v.clone() for k, v in _flatten(params).items()}
         p_c, s_c, m_c = step(_to(params, "cuda"), _to(state, "cuda"),
                              {k: v.cuda() for k, v in batch.items()})
         params, state, m_h = step(params, state, batch)      # CPU, in place
         err = abs(float(m_c["loss"]) - float(m_h["loss"]))
-        # fp32, 4 layers, votes and sums reassociated on the card
-        assert err <= 1e-4, (i, float(m_c["loss"]), float(m_h["loss"]))
+        assert err <= TRAIN_SMOKE_LOSS_ATOL, (arch, i, float(m_c["loss"]),
+                                              float(m_h["loss"]))
         loss_err = max(loss_err, err)
         card, host = _flatten(p_c), _flatten(params)
         acc_c = _flatten(s_c.boolean.accum)
         acc_h = _flatten(state.boolean.accum)
         for key, w0 in before.items():
-            if w0.dtype != torch.int8:
-                continue
             wc, wh = card[key].cpu(), host[key]
-            n_flips += int((wh != w0).sum())
-            differ = wc != wh
-            if differ.any():
-                # one side flipped and the other did not: a tie only if the
-                # side that kept its weight sits at the threshold (m·w ≥ 1),
-                # within the bf16 accumulator's resolution
-                kept = torch.where(wc == w0, acc_c[key].cpu(), acc_h[key])
-                margin = kept[differ].float() * w0[differ].float()
-                assert bool((margin >= 1 - 2 ** -7).all()), (key, margin.min())
-                n_ties += int(differ.sum())
-    print(f"  smoke fp32 training card vs CPU, 3 steps x 2 microbatches: loss "
-          f"max_abs_err={loss_err:.3g}, {n_flips} flips on the CPU, {n_ties} "
-          "differing decisions (all ties at the threshold)")
-    assert n_flips > 0
-    routes = route_counts()
-    print(f"  launches by route over the 3 card steps {routes}")
+            if w0.dtype == torch.int8:
+                flips += int((wh != w0).sum())
+                differ = wc != wh
+                if differ.any():
+                    # one side flipped and the other did not: a tie only if
+                    # the side that kept its weight sits at the threshold
+                    # (m·w ≥ 1), within the bf16 accumulator's resolution
+                    kept = torch.where(wc == w0, acc_c[key].cpu(), acc_h[key])
+                    margin = kept[differ].float() * w0[differ].float()
+                    assert bool((margin >= 1 - 2 ** -7).all()), (
+                        arch, key, margin.min())
+                    ties += int(differ.sum())
+                continue
+            total += w0.numel()
+            d = (wc.float() - wh.float()).abs()
+            far = d > TRAIN_SMOKE_FP_ATOL
+            if far.any():
+                moved = (wh.float() - w0.float()).abs()
+                assert bool((moved[far] < 0.99 * TRAIN_SMOKE_FP_LR).all()), (
+                    arch, key, float(d.max()))
+                assert float(d.max()) <= 2 * TRAIN_SMOKE_FP_LR, (arch, key)
+                loose += int(far.sum())
+            fp_err = max(fp_err, float(d[~far].max()) if (~far).any() else 0.0)
+    torch.cuda.synchronize()
+    launches, routes = _counts()
+    assert loose <= 0.01 * total, (arch, loose, total)
+    assert flips > 0, arch
     assert all(r["tensor_cores"] == 0 for r in routes.values()), routes
+    print(f"  {arch} (smoke, fp32) {steps} step(s) x 2 microbatches card vs "
+          f"CPU: loss max |diff| {loss_err:.3g}; {flips} flips on the CPU, "
+          f"{ties} differing decisions (all ties at the threshold); FP leaves "
+          f"max |diff| {fp_err:.3g} ({loose} unsaturated Adam elements of "
+          f"{total}); card launches {launches}, by route {routes}")
+    return ({"loss_abs_err": loss_err, "flips": flips, "ties": ties,
+             "fp_max_abs_err": fp_err, "fp_unsaturated": loose,
+             "launches": launches, "routes": routes}, p_c, s_c)
 
+
+def train_check(torch, seed: int):
+    """Phase 6: gemma2-2b's smoke config, 3 steps card vs CPU, then a
+    checkpoint of the card's params and optimizer state round-trips."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.checkpoint.manager import _flatten
+
+    r, p_c, s_c = train_agree_with_cpu(torch, seed, "gemma2-2b", 3)
     tree = {"params": p_c, "opt": s_c}
     with tempfile.TemporaryDirectory() as tmp:
         save_pytree(tree, tmp, 3, sync=True)
@@ -2202,10 +2336,12 @@ def train_agree_with_cpu(torch, seed: int):
         assert b.is_cuda and b.dtype == a.dtype and torch.equal(a, b), k
     print(f"  checkpoint of the card's params and optimizer state: "
           f"{len(flat_a)} leaves round-trip bit for bit")
-    return {"train_smoke_loss_max_abs_err": loss_err,
-            "train_smoke_flips": n_flips, "train_smoke_ties": n_ties,
-            "train_smoke_gemv_routes": routes["packed_xnor_gemv"],
-            "train_smoke_routes": routes}
+    return {"train_smoke_loss_max_abs_err": r["loss_abs_err"],
+            "train_smoke_flips": r["flips"], "train_smoke_ties": r["ties"],
+            "train_smoke_fp_max_abs_err": r["fp_max_abs_err"],
+            "train_smoke_fp_unsaturated": r["fp_unsaturated"],
+            "train_smoke_gemv_routes": r["routes"]["packed_xnor_gemv"],
+            "train_smoke_routes": r["routes"]}
 
 
 # ---------------------------------------------------------------------------
@@ -6678,6 +6814,273 @@ def dry_run(torch, seed: int, procs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 18. the examples on the card; the families' training; falcon-mamba-7b
+#     trained at its published widths
+# ---------------------------------------------------------------------------
+# serve_lm's runs (its default traffic: gemma2-2b smoke, 4 x 32-token
+# prompts, 24 tokens) and train_lm's (--full-100m: 100 steps, a checkpoint
+# at 50 and 100, then a run that kept only step 50 resumed with --resume)
+SERVE_LM_RUNS = ((), ("--packed",), ("--packed", "--kv-quant"))
+TRAIN_LM_ARGS = ("--full-100m", "--steps", "100", "--batch", "8", "--seq",
+                 "128")
+TRAIN_LM_CUT = 50
+FAMILY_TRAIN = ("falcon-mamba-7b", "moonshot-v1-16b-a3b", "arctic-480b",
+                "jamba-1.5-large-398b")
+# falcon-mamba-7b's flip rule at published widths: its votes are small. At
+# phase 5's eta of 4, and at 1,000, no weight of the 3.36 G flipped in 8
+# steps: the largest accumulator x weight read 0.1006 at 1,000 (a flip
+# needs 1; the accumulators grow with eta until a weight flips), so 1e5
+# puts the largest near 10
+FALCON_ETA = 1e5
+# phase 18 trains falcon-mamba-7b's first 16 of its 64 blocks: at 32
+# (phase 10's FALCON_LAYERS) it peaked at 50.49 GiB in 7.65 s a step, and
+# the script neared its 1,200 s on a slow host
+FALCON_TRAIN_LAYERS = 16
+
+
+def phase18_launch_cols(p18, name):
+    """Phase 18's launches of kernel ``name`` in each example run on the
+    card (quickstart, serve_lm's three) and each family's card step, by
+    route where the kernel has two: {"phase18_<run>_launches": ...}."""
+    runs = {**{k.replace(" ", "_").replace("-", ""): v
+               for k, v in p18["examples"].items()
+               if k == "quickstart" or k.startswith("serve_lm")},
+            **{f"train_{a.split('-')[0]}": v
+               for a, v in p18["families_train"].items()}}
+    return {f"phase18_{k}_launches": v["routes"].get(name, v["launches"][name])
+            for k, v in runs.items()}
+
+
+def smoke_head_dim_check(torch, seed: int):
+    """The three attention kernels' CUDA-core instances at head dim 16 (the
+    smoke configs', serve_lm's on the card) against their plain versions at
+    serve_lm's shapes (gemma2-2b smoke: its padded q and KV heads, softcap,
+    window 32, 8-row pages of 64 rows a lane): the flash prefill on bf16
+    and fp32 (32 rows, global and windowed), the decode over bf16 and int8
+    pools (4 lanes), the tail prefill of an 8-row tail over a 24-row prefix
+    in 3 scattered pages, both pools; each on the route its router names
+    (the CUDA-core one: hd 16 has no tensor-core instance). These launches
+    are checks, not serve_lm's: the counts are set to 0 after them."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import (decode_route, flash_attention_fwd,
+                                     flash_attention_plain, flash_route,
+                                     paged_flash_decode,
+                                     paged_flash_decode_plain,
+                                     paged_prefix_attention,
+                                     paged_prefix_attention_plain,
+                                     prefix_route)
+
+    cfg = get_smoke("gemma2-2b")
+    H, KV, hd = cfg.heads_padded(), cfg.kv_heads_padded(), cfg.head_dim_
+    assert hd == 16, hd
+    cap, win = cfg.attn_logit_softcap, cfg.sliding_window
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    worst = {}
+    for dt, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        for window in (0, win):
+            q = (8 * torch.randn((H, 32, hd), generator=gen, device="cuda")
+                 ).to(dtype)
+            k = torch.randn((KV, 32, hd), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((KV, 32, hd), generator=gen, device="cuda").to(dtype)
+            kw = dict(causal=True, window=window, softcap=cap, n_rep=H // KV)
+            assert flash_route(q) == "cuda_cores"
+            out = flash_attention_fwd(q, k, v, **kw).float()
+            ref = flash_attention_plain(q, k, v, **kw).float()
+            absv = flash_attention_plain(q, k, v.abs(), **kw).float()
+            # check_flash's per-element bounds: bf16 p and output roundings,
+            # fp32 reassociation
+            tol = ((2.0 ** -7 + 2.0 ** -12) * absv + 2.0 ** -7
+                   * torch.maximum(out.abs(), ref.abs())) if dt == "bf16" \
+                else 2.0 ** -17 * absv
+            diff = (out - ref).abs()
+            ratio = (diff / tol).max().item()
+            assert bool(torch.isfinite(out).all()) and ratio <= 1.0, (
+                "flash hd 16", dt, window, ratio)
+            worst[f"flash {dt} window {window}"] = diff.max().item()
+    R = H // KV
+    q, bt, pos, pools = decode_inputs(torch, gen, KV, R, hd, 8,
+                                      (0, 7, 30, 55), L=4, max_len=64)
+    for pool, (k_, v_, ks_, vs_) in pools.items():
+        for window in (0, win):
+            args = (q, k_, v_, bt, pos, ks_, vs_)
+            kw = dict(window=window, softcap_val=cap)
+            assert decode_route(q, k_) == "cuda_cores"
+            out = paged_flash_decode(*args, **kw)
+            err = (out - paged_flash_decode_plain(*args, **kw)).abs().max().item()
+            assert err <= 1e-4, ("decode hd 16", pool, window, err)
+            worst[f"decode {pool} window {window}"] = err
+    pools, perm = prefix_pools(torch, gen, KV, hd, page=8)
+    page_ids = perm[:3].contiguous()
+    qp = (8 * torch.randn((H, 8, hd), generator=gen, device="cuda")
+          ).to(torch.bfloat16)
+    kt = torch.randn((8, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    vt = torch.randn((8, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    for pool, (k_, v_, ks_, vs_) in pools.items():
+        for window in (0, win):
+            args = (qp, kt, vt, k_, v_, page_ids, 24, 24, 8, ks_, vs_)
+            kw = dict(n_rep=H // KV, window=window, softcap_val=cap)
+            assert prefix_route(qp, k_) == "cuda_cores"
+            out = paged_prefix_attention(*args, **kw)
+            ref = paged_prefix_attention_plain(*args, **kw)
+            absv = paged_prefix_attention_plain(
+                qp, kt, vt.abs(), k_, v_.abs(), page_ids, 24, 24, 8, ks_,
+                vs_, **kw)
+            # check_prefix's bound: p rounded to bf16 on one side only
+            ratio = ((out - ref).abs()
+                     / ((2.0 ** -7 + 2.0 ** -12) * absv)).max().item()
+            assert bool(torch.isfinite(out).all()) and ratio <= 1.0, (
+                "prefix hd 16", pool, window, ratio)
+            worst[f"prefix {pool} window {window}"] = \
+                (out - ref).abs().max().item()
+    torch.cuda.synchronize()
+    print("  the attention kernels' CUDA-core instances at head dim 16 "
+          "against their plain versions at serve_lm's shapes, max_abs_err: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    zero_counts()
+    return worst
+
+
+def examples_on_card(torch, work: Path):
+    """The three examples through their own ``main`` on the card: each one's
+    asserts, and the launches by route from the counters."""
+    import shutil
+
+    from repro_torch.examples import quickstart, serve_lm, train_lm
+
+    out = {"head_dim_16_check": smoke_head_dim_check(torch, 0)}
+    # quickstart: 60 full-batch epochs, two Boolean layers voting through
+    # row 3 (fp32 x: the CUDA-core route)
+    zero_counts()
+    t = time.perf_counter()
+    acc = quickstart.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches, routes = _counts()
+    want = 2 * quickstart.EPOCHS
+    print(f"  quickstart: final acc {acc:.4f} in {time.perf_counter() - t:.1f} "
+          f"s; launches {launches}, weight backward by route "
+          f"{routes['boolean_weight_bwd']} (expected {want}, CUDA cores)")
+    assert acc > 0.8
+    assert launches == {k: (want if k == "boolean_weight_bwd" else 0)
+                        for k in launches}, launches
+    assert routes["boolean_weight_bwd"] == {"tensor_cores": 0,
+                                            "cuda_cores": want}
+    out["quickstart"] = {"acc": acc, "launches": launches, "routes": routes}
+
+    # serve_lm: its four checks, plain, packed and packed over int8 pools
+    for flags in SERVE_LM_RUNS:
+        label = " ".join(flags) or "plain"
+        zero_counts()
+        t = time.perf_counter()
+        res = serve_lm.main(["--device", "cuda", *flags])
+        torch.cuda.synchronize()
+        launches, routes = _counts()
+        print(f"  serve_lm {label}: its four checks passed in "
+              f"{time.perf_counter() - t:.1f} s; launches {launches}; by "
+              f"route {routes}")
+        for k in ("paged_flash_decode", "flash_attention_fwd",
+                  "paged_prefix_attention"):
+            assert launches[k] > 0, (label, k)
+        assert (launches["packed_xnor_gemv"] > 0) == ("--packed" in flags)
+        assert launches["boolean_weight_bwd"] == 0
+        out[f"serve_lm {label}"] = {"launches": launches, "routes": routes,
+                                    "prefix_stats": res["prefix_stats"]}
+
+    # train_lm --full-100m: 100 steps (checkpoints at 50 and 100), then a
+    # run that kept only the step-50 checkpoint resumed with --resume
+    ck, cut = work / "train_lm_ckpt", work / "train_lm_cut"
+    shutil.rmtree(cut, ignore_errors=True)
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts()
+    loop = train_lm.main(["--device", "cuda", *TRAIN_LM_ARGS, "--ckpt-dir",
+                          str(ck)])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches, routes = _counts()
+    steps = len(loop.history)
+    per_step = vote_launches(torch, loop.params)
+    want = steps * per_step
+    ms = [dt * 1e3 for dt in loop.step_times[2:]]
+    med = statistics.median(ms)
+    cfg = train_lm.config(True)
+    batch, seq = int(TRAIN_LM_ARGS[4]), int(TRAIN_LM_ARGS[6])
+    print(f"  train_lm --full-100m ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}): {steps} steps, "
+          f"loss {loop.history[0]:.4f} -> {loop.history[-1]:.4f}; median step "
+          f"{med:.2f} ms over steps 3-{steps} (each ended by reading its "
+          f"loss), {batch * seq / (med / 1e3):.0f} tokens/s; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} held before; weight-backward launches "
+          f"{launches['boolean_weight_bwd']} (expected {want}: {per_step} a "
+          f"step), by route {routes['boolean_weight_bwd']}")
+    assert launches["boolean_weight_bwd"] == want, (launches, want)
+    assert routes["boolean_weight_bwd"] == {"tensor_cores": want,
+                                            "cuda_cores": 0}
+    assert all(v == 0 for k, v in launches.items()
+               if k != "boolean_weight_bwd"), launches
+    assert all(math.isfinite(x) for x in loop.history)
+    cut.mkdir(parents=True)
+    shutil.copytree(ck / f"step_{TRAIN_LM_CUT:09d}",
+                    cut / f"step_{TRAIN_LM_CUT:09d}")
+    hist = list(loop.history)
+    del loop
+    gc_collect(torch)
+    zero_counts()
+    resumed = train_lm.main(["--device", "cuda", *TRAIN_LM_ARGS, "--resume",
+                             "--ckpt-dir", str(cut)])
+    r_launches, _ = _counts()
+    diff = max(abs(a - b) for a, b in zip(resumed.history,
+                                          hist[TRAIN_LM_CUT:]))
+    print(f"  train_lm --resume from step {TRAIN_LM_CUT}: ran to step "
+          f"{resumed.step}; its first {steps - TRAIN_LM_CUT} losses against "
+          f"the uninterrupted run's steps {TRAIN_LM_CUT + 1}-{steps}: max "
+          f"|diff| {diff:.3g}; weight-backward launches "
+          f"{r_launches['boolean_weight_bwd']}")
+    assert resumed.step == TRAIN_LM_CUT + steps
+    # bit for bit: the restored params, optimizer state and schedule step
+    # take the same batches through the same kernels, so a resume that
+    # restored less (an accumulator, Adam's moments, the step) parts here
+    assert resumed.history[:steps - TRAIN_LM_CUT] == hist[TRAIN_LM_CUT:], diff
+    assert r_launches["boolean_weight_bwd"] == steps * per_step
+    out["train_lm"] = {
+        "config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                   "d_model": cfg.d_model, "vocab_size": cfg.vocab_size,
+                   "dtype": str(cfg.dtype), "batch": batch, "seq": seq},
+        "losses": hist, "step_ms": ms, "step_ms_median": med,
+        "tokens_per_s": batch * seq / (med / 1e3),
+        "max_memory_allocated_bytes": peak, "launches": launches,
+        "routes": routes, "expected_weight_bwd": want,
+        "resumed_losses": resumed.history, "resume_max_abs_diff": diff,
+        "resumed_launches": r_launches}
+    del resumed
+    shutil.rmtree(ck, ignore_errors=True)
+    shutil.rmtree(cut, ignore_errors=True)
+    gc_collect(torch)
+    return out
+
+
+def examples_and_families(torch, seed: int, work: Path):
+    """Phase 18."""
+    from repro_torch.configs import get_config
+
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"examples": examples_on_card(torch, work)}
+    # phase 6's check, one step of each family
+    out["families_train"] = {arch: train_agree_with_cpu(torch, seed, arch, 1)[0]
+                             for arch in FAMILY_TRAIN}
+    # falcon-mamba-7b at its published widths, depth cut only, on phase 5's
+    # traffic, the selective scan's device time in a group of its own
+    cfg = get_config("falcon-mamba-7b").scaled(n_layers=FALCON_TRAIN_LAYERS)
+    print(f"  falcon-mamba-7b: {cfg.n_layers} of its 64 blocks, d_inner "
+          f"{cfg.d_inner_}, state {cfg.ssm_state}")
+    m = train(torch, seed, cfg, FALCON_ETA, (cfg.d_inner_, cfg.ssm_state))
+    assert sum(m["flips"]) > 0, m["flips"]
+    out["falcon_train"] = m
+    return out
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -6778,11 +7181,11 @@ def main() -> int:
 
     with phase(5, "train gemma2-2b (published widths) through make_train_step "
                   "+ TrainLoop"):
-        train_launches, train_metrics = train(torch, args.seed)
+        train_metrics = train(torch, args.seed, get_config("gemma2-2b"), 4.0)
 
     with phase(6, "small fp32 model training: card kernels vs CPU plain "
                   "versions"):
-        train_metrics.update(train_agree_with_cpu(torch, args.seed))
+        train_metrics.update(train_check(torch, args.seed))
 
     with phase(7, "prefix-cached serving of gemma2-2b (published widths), "
                   "bf16 and int8 KV pools"):
@@ -6845,6 +7248,14 @@ def main() -> int:
                    "16 x 16 train, prefill and decode cells traced and run "
                    "on the card, the datasheet rates"):
         dry_metrics = dry_run(torch, args.seed, traces)
+        gc_collect(torch)
+
+    with phase(18, "the examples (quickstart, serve_lm, train_lm --full-100m "
+                   "and --resume) through their own main on the card; one "
+                   "training step of the ssm, moe and hybrid families card "
+                   "vs CPU; falcon-mamba-7b trained at its published widths"):
+        p18 = examples_and_families(torch, args.seed,
+                                    Path(args.out).parent / "phase18")
 
     rank_prefill = dry_metrics["serve_rank_cells"]["prefill_16x16_rank0"][
         "card"]
@@ -6917,6 +7328,11 @@ def main() -> int:
                 out[f"phase15_tp{r['tp']}_bound_ms"] = r["bound_ms"]
         return out
 
+    p18_ex = p18["examples"]
+
+    def p18_cols(name):
+        return phase18_launch_cols(p18, name)
+
     def phase11(name):
         """Phase 11's card launches of ``name`` by session (CUDA-core)."""
         return {k: v["launches"][name] for k, v in family_metrics.items()
@@ -6960,6 +7376,7 @@ def main() -> int:
          "phase14_launches": g_launch["packed_xnor_gemv"],
          "phase14_soak_launches": g_soak["packed_xnor_gemv"],
          "phase15_launches": s_launch["packed_xnor_gemv"],
+         **p18_cols("packed_xnor_gemv"),
          **tp_cols("packed_xnor_gemv", M=8),
          "shape": "sum over one layer's wqkv, wo, wgu, wd at M=8 lanes, bf16 x "
                   "(m16_* .. m256_*: the same at 16 to 256 prefill rows); "
@@ -7011,6 +7428,7 @@ def main() -> int:
          "phase14_launches": g_launch["paged_flash_decode"],
          "phase14_soak_launches": g_soak["paged_flash_decode"],
          "phase15_launches": s_launch["paged_flash_decode"],
+         **p18_cols("paged_flash_decode"),
          **tp_cols("paged_flash_decode", pool="bf16"),
          "phase9_launches_by_route_and_group":
              qwen_metrics["decode_group_sizes"],
@@ -7043,7 +7461,7 @@ def main() -> int:
          "phase13_launches": o_launch["boolean_weight_bwd"],
          "phase14_launches": g_launch["boolean_weight_bwd"],
          "phase14_soak_launches": g_soak["boolean_weight_bwd"],
-         "launches": train_launches["boolean_weight_bwd"],
+         "launches": train_metrics["launches"]["boolean_weight_bwd"],
          "tc_launches": train_metrics["weight_bwd_routes"]["tensor_cores"],
          "kernel_route": "tensor_cores",
          "max_abs_err": wbwd_err,
@@ -7064,6 +7482,14 @@ def main() -> int:
              "launches_per_call"]["boolean_weight_bwd"] * CELL_TIMED,
          "phase16_full_qkv_bound_ms":
              train_mesh_metrics["weight_bwd_full_qkv_bound_ms"],
+         **p18_cols("boolean_weight_bwd"),
+         "phase18_train_lm_launches": p18_ex["train_lm"]["launches"][
+             "boolean_weight_bwd"],
+         "phase18_train_lm_routes": p18_ex["train_lm"]["routes"][
+             "boolean_weight_bwd"],
+         "phase18_falcon_launches": p18["falcon_train"]["launches"][
+             "boolean_weight_bwd"],
+         "phase18_falcon_routes": p18["falcon_train"]["weight_bwd_routes"],
          "shape": f"sum over one layer's wq, wk, wv, wo, wg, wu, wd votes at "
                   f"B={WBWD_TOKENS} tokens (one microbatch), bf16 x and z, "
                   "alpha=0 (the tensor-core route; tc_launches: its launches "
@@ -7098,6 +7524,7 @@ def main() -> int:
          "phase14_launches": g_launch["flash_attention_fwd"],
          "phase14_soak_launches": g_soak["flash_attention_fwd"],
          "phase15_launches": s_launch["flash_attention_fwd"],
+         **p18_cols("flash_attention_fwd"),
          "phase17_launches": dry_metrics["cells"]["prefill"]["card"][
              "launches_per_call"]["flash_attention_fwd"] * CELL_TIMED,
          "phase17_rank_launches": rank_prefill["launches_per_call"][
@@ -7142,6 +7569,7 @@ def main() -> int:
          "int8_one_share_ms": pfx8["one_share_ms"],
          "int8_plain_ms": pfx8["plain_ms"], "int8_bound_ms": pfx8["bound_ms"],
          "phase11_launches": phase11("paged_prefix_attention"),
+         **p18_cols("paged_prefix_attention"),
          "phase12_launches": m_launch["paged_prefix_attention"],
          "phase13_launches": o_launch["paged_prefix_attention"],
          "phase14_launches": g_launch["paged_prefix_attention"],
@@ -7197,6 +7625,16 @@ def main() -> int:
                   "unpacked int8 operands (the faster w layout); launches "
                   "over phase 8"},
     ]
+    for row in kernels[:5]:
+        row["shape"] += (
+            "; phase18_*_launches: phase 18's launches (by route where the "
+            "kernel has two) in each example run on the card (quickstart, "
+            "serve_lm plain, --packed, --packed --kv-quant) and each "
+            "family's smoke training step on the card (train_falcon, "
+            "train_moonshot, train_arctic, train_jamba)")
+    kernels[2]["shape"] += ("; phase18_train_lm_*: train_lm --full-100m's "
+                            "100 steps; phase18_falcon_*: falcon-mamba-7b's "
+                            "5 timed training steps at published widths")
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"device": device_line, "seed": args.seed,
@@ -7227,6 +7665,7 @@ def main() -> int:
                                "serve_mesh": mesh_metrics,
                                "train_mesh": train_mesh_metrics,
                                "dry_run": dry_metrics,
+                               "phase18": p18,
                                "phase_wall_s": walls,
                                "phase_start_launch_us": launch_at,
                                "kernels": kernels}, indent=1))

@@ -42,7 +42,8 @@
 //    the key rows padded by 4 floats so the lanes hit distinct banks); the
 //    row max and sum are warp shuffles; for the value product lane j's
 //    probabilities are broadcast by shuffle and each lane accumulates
-//    hd / 32 dimensions of the eight rows in registers;
+//    hd / 32 dimensions of the eight rows in registers (at hd 16, the
+//    smoke configs', lanes 0-15 one each and the others none);
 //  * -1e30, never -inf, marks a masked score: a row whose every key in a
 //    live tile is masked (a window, or a padded row past S) adds exp(0) to
 //    l and v to acc, both wiped by corr = exp(-1e30 - m) = 0 at its first
@@ -99,7 +100,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           T* __restrict__ out, int S, int n_rep, int causal, int window,
           float softcap, float scale)
 {
-    constexpr int EPL = HD / 32;       // value dimensions a lane accumulates
+    constexpr int EPL = (HD + 31) / 32;  // value dimensions a lane accumulates
+    const bool holds = HD >= 32 || (threadIdx.x & 31) < HD;  // lanes past hd: none
     extern __shared__ float smem[];
     float* sq = smem;                  // [BQ][HD]
     float* sk = sq + BQ * HD;          // [BK][HD + KPAD]
@@ -187,7 +189,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         for (int j = 0; j < BK; ++j) {
             float vr[EPL];
 #pragma unroll
-            for (int e = 0; e < EPL; ++e) vr[e] = sv[j * HD + lane + 32 * e];
+            for (int e = 0; e < EPL; ++e) vr[e] = holds ? sv[j * HD + lane + 32 * e] : 0.f;
 #pragma unroll
             for (int r = 0; r < RPW; ++r) {
                 const float pj = __shfl_sync(0xffffffffu, p[r], j);
@@ -200,7 +202,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
         const int t = q0 + row0 + r;
-        if (t >= S) continue;
+        if (t >= S || !holds) continue;
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
         T* o = out + ((size_t)bh * S + t) * HD;
 #pragma unroll
@@ -234,6 +236,7 @@ int launch_hd(int HD, const void* q, const void* k, const void* v, void* out, in
               cudaStream_t s)
 {
     switch (HD) {
+        case 16: return launch<T, 16>(q, k, v, out, BH, S, n_rep, causal, window, softcap, scale, s);
         case 64: return launch<T, 64>(q, k, v, out, BH, S, n_rep, causal, window, softcap, scale, s);
         case 128: return launch<T, 128>(q, k, v, out, BH, S, n_rep, causal, window, softcap, scale, s);
         case 256: return launch<T, 256>(q, k, v, out, BH, S, n_rep, causal, window, softcap, scale, s);
@@ -372,8 +375,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, in
 extern "C" {
 
 // q, out: (BH, S, HD); k, v: (BH / n_rep, S, HD); bf16 (is_bf16 = 1) or
-// fp32, all alike. HD in {64, 128, 256}. Returns cudaGetLastError() after
-// the launch.
+// fp32, all alike. HD in {16, 64, 128, 256}. Returns cudaGetLastError()
+// after the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                         int is_bf16, int BH, int S, int HD, int n_rep, int causal,
                         int window, float softcap, float scale, void* stream)

@@ -70,7 +70,8 @@
 //    into VMEM; one KV head of a 4096-row window is 2 MB at gemma2-2b
 //    widths, against 227 KB of shared memory. Rows stream through an online
 //    softmax instead: each warp takes one row at a time (a lane of the warp
-//    holds hd/32 contiguous elements, so a row is one coalesced read) and
+//    holds hd/32 contiguous elements, so a row is one coalesced read; at
+//    hd 16, the smoke configs', lanes 0-15 one each and the rest none) and
 //    keeps m, l and acc for the R query heads of its KV head in registers;
 //  * flash-decoding split: grid (L, KV, nsplit), each block a contiguous run
 //    of the lane's pages, so 8 lanes x 4 KV heads still fill 132 SMs. The
@@ -162,10 +163,11 @@ paged_decode_split(const T* __restrict__ q, const KT* __restrict__ kpool,
                    int KV, int page, int C, int pps, int window, float softcap,
                    float scale)
 {
-    constexpr int EPL = HD / 32;          // row elements per thread
+    constexpr int EPL = (HD + 31) / 32;   // row elements per thread
     const int ln = blockIdx.x, g = blockIdx.y, split = blockIdx.z;
     const int nsplit = gridDim.z;
     const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+    const bool holds = HD >= 32 || t < HD;        // at hd 16 lanes 16-31: none
 
     const int p = pos[ln];
     const int n_live = min(C, (p + page) / page);
@@ -173,10 +175,10 @@ paged_decode_split(const T* __restrict__ q, const KT* __restrict__ kpool,
     const int c1 = min(n_live, c0 + pps);
     const int nrows = max(0, c1 - c0) * page;
 
-    float qv[R][EPL];
+    float qv[R][EPL] = {};
 #pragma unroll
     for (int r = 0; r < R; ++r)
-        load_row(q + ((size_t)(ln * KV + g) * R + r) * HD + t * EPL, qv[r]);
+        if (holds) load_row(q + ((size_t)(ln * KV + g) * R + r) * HD + t * EPL, qv[r]);
 
     float m[R], l[R], acc[R][EPL];
 #pragma unroll
@@ -193,9 +195,11 @@ paged_decode_split(const T* __restrict__ q, const KT* __restrict__ kpool,
         const int pid = bt[(size_t)ln * C + c];
         const size_t cell = ((size_t)pid * page + row) * KV + g;
         const size_t base = cell * HD + t * EPL;
-        float kr[EPL], vr[EPL];
-        load_row(kpool + base, kr);
-        load_row(vpool + base, vr);
+        float kr[EPL] = {}, vr[EPL] = {};
+        if (holds) {
+            load_row(kpool + base, kr);
+            load_row(vpool + base, vr);
+        }
         if constexpr (sizeof(KT) == 1) {   // _dequant: fp32(int8) * scale
             const float ks = __ldg(kscale + cell), vs = __ldg(vscale + cell);
 #pragma unroll
@@ -235,8 +239,10 @@ paged_decode_split(const T* __restrict__ q, const KT* __restrict__ kpool,
             sm_m[warp][r] = m[r];
             sm_l[warp][r] = l[r];
         }
+        if (holds) {
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) sm_acc[warp][r][t * EPL + e] = acc[r][e];
+            for (int e = 0; e < EPL; ++e) sm_acc[warp][r][t * EPL + e] = acc[r][e];
+        }
     }
     __syncthreads();
 
@@ -319,6 +325,7 @@ template <typename T, typename KT>
 bool launch_hd(int HD, int R, const Args& a, cudaStream_t s)
 {
     switch (HD) {
+        case 16: return launch_r<T, KT, 16>(R, a, s);
         case 64: return launch_r<T, KT, 64>(R, a, s);
         case 128: return launch_r<T, KT, 128>(R, a, s);
         case 256: return launch_r<T, KT, 256>(R, a, s);
@@ -1005,8 +1012,8 @@ extern "C" {
 // KV) scales kscale/vscale (ignored otherwise); bt: (L, C); pos: (L,); out:
 // (L, KV, R, HD) fp32. Scratch: part_m/part_l (L, KV, nsplit, R), part_acc
 // (L, KV, nsplit, R, HD) fp32. pps pages per split, nsplit * pps >= C. HD
-// in {64, 128, 256}, R in {1, 2, 4, 6, 8}. Returns cudaGetLastError() after
-// the launches.
+// in {16, 64, 128, 256}, R in {1, 2, 4, 6, 8}. Returns cudaGetLastError()
+// after the launches.
 int paged_flash_decode(const void* q, const void* kpool, const void* vpool,
                        const float* kscale, const float* vscale, int is_bf16,
                        int pool_int8, const int32_t* bt, const int32_t* pos, float* out,

@@ -156,7 +156,8 @@ prefix_fwd(const T* __restrict__ q, const T* __restrict__ kt, const T* __restric
            int KV, int n_rep, int page, int npp, int offset, int prefix_len, int length,
            int window, float softcap, float scale)
 {
-    constexpr int EPL = HD / 32;
+    constexpr int EPL = (HD + 31) / 32;  // value dimensions a lane accumulates
+    const bool holds = HD >= 32 || (threadIdx.x & 31) < HD;  // lanes past hd: none
     extern __shared__ float smem[];
     float* sq = smem;                   // [BQ][HD]
     float* sk = sq + BQ * HD;           // [BK][HD + KPAD]
@@ -268,7 +269,7 @@ prefix_fwd(const T* __restrict__ q, const T* __restrict__ kt, const T* __restric
         for (int j = 0; j < BK; ++j) {
             float vr[EPL];
 #pragma unroll
-            for (int e = 0; e < EPL; ++e) vr[e] = sv[j * HD + lane + 32 * e];
+            for (int e = 0; e < EPL; ++e) vr[e] = holds ? sv[j * HD + lane + 32 * e] : 0.f;
 #pragma unroll
             for (int r = 0; r < RPW; ++r) {
                 const float pj = __shfl_sync(0xffffffffu, p[r], j);
@@ -281,7 +282,7 @@ prefix_fwd(const T* __restrict__ q, const T* __restrict__ kt, const T* __restric
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
         const int t = t0 + row0 + r;
-        if (t >= T_) continue;
+        if (t >= T_ || !holds) continue;
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
         float* o = out + ((size_t)h * T_ + t) * HD;
 #pragma unroll
@@ -323,6 +324,7 @@ template <typename P, typename T>
 int launch_hd(int HD, const Args& a, cudaStream_t s)
 {
     switch (HD) {
+        case 16: return launch<P, T, 16>(a, s);
         case 64: return launch<P, T, 64>(a, s);
         case 128: return launch<P, T, 128>(a, s);
         case 256: return launch<P, T, 256>(a, s);
@@ -642,7 +644,8 @@ extern "C" {
 // HD); scales (n_pages, page, KV) fp32 when pool_int8 (else ignored);
 // page_ids: (npp,) int32; out: (H, T, HD) fp32. q and the tail are bf16
 // (is_bf16 = 1) or fp32; the pools are int8 (pool_int8 = 1) or the tail's
-// dtype. HD in {64, 128, 256}; H = KV * n_rep. Returns cudaGetLastError().
+// dtype. HD in {16, 64, 128, 256}; H = KV * n_rep. Returns
+// cudaGetLastError().
 int paged_prefix_attention(const void* q, const void* k_tail, const void* v_tail,
                            const void* k_pool, const void* v_pool, const float* k_scale,
                            const float* v_scale, const int32_t* page_ids, float* out,

@@ -31,6 +31,9 @@ from . import build
 BLOCK_Q, BLOCK_K = 64, 32
 #: head dims both routes are built for
 _HEAD_DIMS = (64, 128, 256)
+#: head dims the CUDA-core kernel is also built for (the smoke configs'
+#: 16; lanes past hd sit idle in its value product)
+_CC_HEAD_DIMS = (16,) + _HEAD_DIMS
 
 
 def _kv_rows(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -157,9 +160,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("flash attention operands must all lie on one CUDA "
                          "device")
     hd = q.shape[2]
-    if hd not in _HEAD_DIMS:
+    if hd not in _CC_HEAD_DIMS:
         raise ValueError(f"flash attention kernel takes head_dim in "
-                         f"{_HEAD_DIMS}, got {hd}")
+                         f"{_CC_HEAD_DIMS} (the tensor-core route "
+                         f"{_HEAD_DIMS}), got {hd}")
     if not all(t.is_contiguous() and build.address(t) % 16 == 0
                for t in tensors):
         raise ValueError("flash attention operands must be contiguous and "

@@ -32,8 +32,11 @@ import torch
 
 from . import build
 
-#: head dims every kernel here (both routes of the prefix kernel) is built for
+#: head dims every kernel here (both routes of each) is built for
 _HEAD_DIMS = (64, 128, 256)
+#: head dims the CUDA-core kernels are also built for (the smoke configs'
+#: 16; lanes past hd hold nothing)
+_CC_HEAD_DIMS = (16,) + _HEAD_DIMS
 _GROUP_SIZES = (1, 2, 4, 6, 8)
 
 
@@ -301,16 +304,18 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos,
         raise TypeError(f"paged decode takes bf16 or fp32 q and pools of the "
                         f"same dtype or int8, got {q.dtype}/{k_pool.dtype}/"
                         f"{v_pool.dtype}")
-    if hd not in _HEAD_DIMS or R not in _GROUP_SIZES:
-        raise ValueError(f"paged decode kernel takes head_dim in {_HEAD_DIMS} "
-                         f"and group size in {_GROUP_SIZES}, got {hd}, {R}")
+    if hd not in _CC_HEAD_DIMS or R not in _GROUP_SIZES:
+        raise ValueError(f"paged decode kernel takes head_dim in "
+                         f"{_CC_HEAD_DIMS} (the tensor-core route "
+                         f"{_HEAD_DIMS}) and group size in {_GROUP_SIZES}, "
+                         f"got {hd}, {R}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged decode operands must be contiguous")
     route = decode_route(q, k_pool)
     # the CUDA-core kernel reads q and pool rows by vector loads of up to 16
-    # bytes (hd / 32 elements a lane, .cu load_row); the tensor-core route
-    # asks it of every operand (TMA boxes of the pools, bulk copies of the
-    # scales)
+    # bytes (hd / 32 elements a lane, one at hd 16, .cu load_row); the
+    # tensor-core route asks it of every operand (TMA boxes of the pools,
+    # bulk copies of the scales)
     if any(build.address(t) % 16 for t in
            (tensors if route == "tensor_cores" else (q, k_pool, v_pool))):
         raise ValueError(f"paged decode on the {route} route takes "
@@ -599,9 +604,10 @@ def paged_prefix_attention(q, k_tail, v_tail, k_pool, v_pool, page_ids,
         raise TypeError(f"paged prefix takes bf16 or fp32 q and tail, pools of "
                         f"their dtype or int8, got {q.dtype}/{k_tail.dtype}/"
                         f"{k_pool.dtype}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"paged prefix kernel takes head_dim in {_HEAD_DIMS}, "
-                         f"got {hd}")
+    if hd not in _CC_HEAD_DIMS:
+        raise ValueError(f"paged prefix kernel takes head_dim in "
+                         f"{_CC_HEAD_DIMS} (the tensor-core route "
+                         f"{_HEAD_DIMS}), got {hd}")
     if not all(t.is_contiguous() and build.address(t) % 16 == 0
                for t in tensors):
         raise ValueError("paged prefix operands must be contiguous and "

@@ -48,6 +48,8 @@ _BF, _I8, _F32 = torch.bfloat16, torch.int8, torch.float32
     (_F32, _I8, 64, 4, 16, "cuda_cores"),
     (_BF, _BF, 96, 4, 16, "cuda_cores"),       # a head dim neither is built for
     (_BF, _BF, 256, 16, 16, "cuda_cores"),     # a group size neither is built for
+    (_BF, _BF, 16, 8, 8, "cuda_cores"),        # the smoke configs' head dim:
+    (_BF, _I8, 16, 4, 8, "cuda_cores"),        # the CUDA-core kernel only
 ])
 def test_decode_route(q_dtype, pool, hd, R, page, want):
     """bf16 q over bf16 or int8 pools whose pages TMA boxes whole (a power

@@ -63,7 +63,9 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.launch.mesh", "repro_torch.launch.shardings",
             "repro_torch.distributed.compression",
             "repro_torch.distributed.placement",
-            "repro_torch.launch.shapes"} <= set(SUBMODULES)
+            "repro_torch.launch.shapes",
+            "repro_torch.examples.quickstart", "repro_torch.examples.train_lm",
+            "repro_torch.examples.serve_lm"} <= set(SUBMODULES)
 
 
 IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|repro)(?!\w)", re.M)
@@ -105,3 +107,16 @@ def test_serve_launcher_default_device_refuses_a_host_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         serve_launcher.main(["--arch", "qwen2.5-14b", "--smoke"])
+
+
+@pytest.mark.parametrize("name", ["quickstart", "train_lm", "serve_lm"])
+def test_examples_default_device_refuses_a_host_without_cuda(monkeypatch,
+                                                             name):
+    """The three LM-and-MLP examples' ``--device`` defaults to "cuda" too,
+    and raises before drawing anything."""
+    import importlib
+
+    example = importlib.import_module(f"repro_torch.examples.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        example.main([])

@@ -45,6 +45,7 @@ def _t(a):
     (256, 64, True, 0, 50.0),       # gemma2 softcap
     (256, 64, True, 64, 0.0),       # sliding window: the block skip binds
     (96, 32, False, 0, 0.0),        # ragged, non-causal
+    (64, 16, True, 32, 50.0),       # the smoke configs' head dim and window
 ])
 def test_flash_plain_matches_jax_kernel(s, hd, causal, window, softcap):
     """fp32, rtol = atol = 2e-4 (the JAX package's own kernel-vs-oracle
@@ -347,10 +348,14 @@ def test_tail_prefill_logits_and_rows_match_jax(smoke, quant):
 @pytest.mark.parametrize("dtype,hd,want", [
     (torch.bfloat16, 64, "tensor_cores"), (torch.bfloat16, 128, "tensor_cores"),
     (torch.bfloat16, 256, "tensor_cores"), (torch.float32, 64, "cuda_cores"),
-    (torch.float32, 256, "cuda_cores")])
+    (torch.float32, 256, "cuda_cores"),
+    (torch.bfloat16, 16, "cuda_cores"),
+    (torch.bfloat16, 32, "cuda_cores")])     # a head dim neither is built for
 def test_flash_route(dtype, hd, want):
-    """bf16 takes the tensor cores at every head dim the wrapper accepts;
-    fp32 (which they would round) the CUDA-core kernel."""
+    """bf16 takes the tensor cores at every head dim they are built for
+    (64-256), the CUDA-core kernel at the smoke configs' 16 (and at a head
+    dim neither is built for, where the wrapper then refuses); fp32 (which
+    the tensor cores would round) the CUDA-core kernel."""
     assert flash_route(torch.zeros((4, 8, hd), dtype=dtype)) == want
 
 
@@ -362,7 +367,9 @@ def test_flash_route(dtype, hd, want):
     (torch.bfloat16, torch.bfloat16, 256, 4, "cuda_cores"),    # below a swizzle period
     (torch.bfloat16, torch.int8, 256, 24, "cuda_cores"),       # not a power of two
     (torch.float32, torch.float32, 256, 16, "cuda_cores"),
-    (torch.float32, torch.int8, 64, 16, "cuda_cores")])
+    (torch.float32, torch.int8, 64, 16, "cuda_cores"),
+    (torch.bfloat16, torch.bfloat16, 16, 8, "cuda_cores"),    # smoke head dim
+    (torch.bfloat16, torch.int8, 16, 8, "cuda_cores")])
 def test_prefix_route(dtype, pool, hd, page, want):
     """bf16 q over bf16 or int8 pools whose pages TMA boxes whole (a power
     of two of at least 8 rows) takes the tensor cores; the rest the
@@ -385,6 +392,37 @@ def test_prefix_split(H, T, KV, n_tiles, want):
     blocks = -(-(H // KV) * T // 128) * KV
     assert got == want
     assert got == 1 or (got * blocks <= 132 and 2 * got <= n_tiles)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2.5-14b", "qwen1.5-32b",
+                                  "moonshot-v1-16b-a3b",
+                                  "arctic-480b", "jamba-1.5-large-398b",
+                                  "musicgen-medium", "internvl2-26b",
+                                  "bold-bert"])
+def test_every_config_has_a_kernel_head_dim(arch):
+    """The three attention kernels take every head dim the registry serves:
+    the published configs' on both routes, the smoke configs' (16, which
+    the examples serve on the card) on the CUDA-core kernels (lanes past
+    hd idle; ``csrc/flash_attention.cu``, ``paged_flash_decode.cu``,
+    ``paged_prefix_attention.cu``), which every route picks there.
+    qwen1.5-110b's smoke config (head dim 8, below one 16-byte int8 pool
+    load) has no kernel instance: it is served on the CPU only."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_route
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+
+    assert FA._CC_HEAD_DIMS == PA._CC_HEAD_DIMS
+    smoke = get_smoke(arch)
+    assert smoke.head_dim_ in PA._CC_HEAD_DIMS, smoke.head_dim_
+    if arch != "bold-bert":     # fails in the reference too at full width
+        assert get_config(arch).head_dim_ in PA._HEAD_DIMS
+    hd = smoke.head_dim_
+    q = torch.zeros((4, 8, hd), dtype=torch.bfloat16)
+    pool = torch.zeros((3, 8, 2, hd), dtype=torch.bfloat16)
+    if hd not in PA._HEAD_DIMS:
+        assert flash_route(q) == prefix_route(q, pool) == "cuda_cores"
+        assert decode_route(q[None, :2, :4], pool) == "cuda_cores"
 
 
 def test_cpu_tensors_never_count_launches():
