@@ -23,6 +23,7 @@ from repro_torch.kernels import (boolean_matmul, boolean_weight_bwd,
                                  pack_bits, packed_xnor_gemv,
                                  packed_xnor_matmul, unpack_bits)
 from repro_torch.kernels.build import on_card
+from repro_torch.spans import span
 
 from .scaling import backward_scale
 
@@ -241,7 +242,8 @@ def boolean_dense_inference(x: torch.Tensor, w, b=None, *,
             y = packed_xnor_matmul(xp, w.bits, k_valid=w.k).to(torch.float32)
             y = y.reshape(*lead, y.shape[-1])
         elif m > PACKED_GEMV_MAX_M:
-            wv = unpack_bits(w.bits, w.k, axis=-2).to(x.dtype)
+            with span("linear.unpack"):
+                wv = unpack_bits(w.bits, w.k, axis=-2).to(x.dtype)
             y = matmul_f32(x, wv)
         else:
             y = packed_xnor_gemv(x.reshape(-1, x.shape[-1]).contiguous(),

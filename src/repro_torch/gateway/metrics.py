@@ -2,8 +2,7 @@
 
 A copy of the JAX package's ``gateway/metrics.py``, series for series and
 bound for bound: for the same traffic, ``/metrics`` renders the same names,
-labels and counts as the JAX gateway. The port's ``stats()`` also carries a
-``work`` key (device work counters); no series reads it.
+labels and counts as the JAX gateway.
 
 Two kinds of series share one exposition:
 

@@ -35,6 +35,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.spans import span
+
 from .modules import (ModelConfig, copy_to_group, fp_weight, model_mesh,
                       proj_apply, proj_init)
 
@@ -124,31 +126,35 @@ def mamba_ssm(cfg: ModelConfig, p, xc, dt, Bm, Cm, h0=None,
     ``hs_at`` (positions b, 1 <= b <= S) also the states after the first b
     tokens, stacked (B, len(hs_at), DI, N): the JAX package's per-position
     states ``hs[:, b - 1]``."""
-    Bsz, S, DI = xc.shape
-    A = -torch.exp(p["A_log"].to(torch.float32))                # (DI, N)
-    h = torch.zeros((Bsz, DI, cfg.ssm_state), dtype=torch.float32,
-                    device=xc.device) if h0 is None else h0.to(torch.float32)
-    xf = xc.to(torch.float32)
-    want = {} if hs_at is None else {b - 1: i for i, b in enumerate(hs_at)}
-    kept = [None] * len(want)
-    ys = []
-    for q0 in range(0, S, chunk):
-        q1 = min(q0 + chunk, S)
-        d = dt[:, q0:q1]
-        decay = torch.exp(d[..., None] * A[None, None])
-        xbar = (d * xf[:, q0:q1])[..., None] * Bm[:, q0:q1, None, :]
-        hs = _scan_chunk(decay, xbar, h)
-        del decay, xbar
-        ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cm[:, q0:q1]))
-        for t in range(q0, q1):
-            if t in want:
-                kept[want[t]] = hs[:, t - q0]
-        h = hs[:, -1]
-        del hs
-    y = torch.cat(ys, dim=1) + p["D"].to(torch.float32)[None, None] * xf
-    if hs_at is not None:
-        return y.to(xc.dtype), h, torch.stack(kept, dim=1)
-    return y.to(xc.dtype), h
+    with span("mamba.scan"):
+        Bsz, S, DI = xc.shape
+        A = -torch.exp(p["A_log"].to(torch.float32))            # (DI, N)
+        h = torch.zeros((Bsz, DI, cfg.ssm_state), dtype=torch.float32,
+                        device=xc.device) if h0 is None \
+            else h0.to(torch.float32)
+        xf = xc.to(torch.float32)
+        want = {} if hs_at is None \
+            else {b - 1: i for i, b in enumerate(hs_at)}
+        kept = [None] * len(want)
+        ys = []
+        for q0 in range(0, S, chunk):
+            q1 = min(q0 + chunk, S)
+            d = dt[:, q0:q1]
+            decay = torch.exp(d[..., None] * A[None, None])
+            xbar = (d * xf[:, q0:q1])[..., None] * Bm[:, q0:q1, None, :]
+            hs = _scan_chunk(decay, xbar, h)
+            del decay, xbar
+            ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cm[:, q0:q1]))
+            for t in range(q0, q1):
+                if t in want:
+                    kept[want[t]] = hs[:, t - q0]
+            h = hs[:, -1]
+            del hs
+        y = torch.cat(ys, dim=1) \
+            + p["D"].to(torch.float32)[None, None] * xf
+        if hs_at is not None:
+            return y.to(xc.dtype), h, torch.stack(kept, dim=1)
+        return y.to(xc.dtype), h
 
 
 def mamba_apply(cfg: ModelConfig, p, x, h0=None, conv0=None,

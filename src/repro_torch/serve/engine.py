@@ -41,6 +41,7 @@ from repro_torch.launch.shardings import serve_param_specs, shard_tree
 from repro_torch.models import (ModelConfig, block_roles, cache_init,
                                 lm_decode_step, lm_decode_step_paged,
                                 lm_prefill)
+from repro_torch.spans import span
 
 from .paged_cache import CachePool, commit_prefill, paged_pool_init
 from .sampling import sample_tokens
@@ -410,7 +411,7 @@ class ServeEngine:
             keys_t = torch.from_numpy(keys.astype(np.int64)).to(dev)
             steps_t = torch.from_numpy(steps).to(dev)
         toks = []
-        with serving(self.mesh):
+        with serving(self.mesh), span("serve.segment.launch"):
             for i in range(segment):
                 logits, cache = self.decode_step(cache, tok)
                 if sampled:
@@ -419,13 +420,14 @@ class ServeEngine:
                 else:
                     tok = sample_tokens(self.cfg, logits[:, -1])
                 toks.append(tok[:, 0])
-        out = torch.stack(toks)
+            out = torch.stack(toks)
         if self.mesh is not None and not self.mesh.agree(out) \
                 and self.mesh.rank == 0:
             raise ShardDisagreement(
                 f"the {self.tp} ranks of the serve mesh emitted different "
                 "tokens in one segment")
-        return out.cpu().numpy(), tok.cpu().numpy()
+        with span("serve.segment.read"):
+            return out.cpu().numpy(), tok.cpu().numpy()
 
     # -- one fixed batch over a contiguous cache ------------------------------
     def _single_device(self, what: str) -> None:

@@ -75,6 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.mamba import mamba_cache_lane_write
+from repro_torch.spans import span
 
 from . import reasons
 from .faults import FaultInjector, InjectedFault, corrupt_prefix_index
@@ -225,7 +226,7 @@ class ServeSession:
     ``redispatched_segments`` (segments re-issued after an injected
     ``kernel_dispatch`` fault) and ``prefix`` (the prefix
     index's counters; None without the index). ``stats()`` is the JAX
-    package's snapshot with ``work`` beside it."""
+    package's snapshot."""
 
     def __init__(self, engine, *, lanes: int = 4, page_size: int = 16,
                  n_pages: Optional[int] = None, segment: int = 1,
@@ -372,8 +373,11 @@ class ServeSession:
             # the next lookup (or audit)
             corrupt_prefix_index(self.prefix)
         if not self.sched.idle:
-            if not self._admit_and_prefill() and self._decode_segment():
-                self._drain_finished()
+            with span("serve.admit"):
+                admitted = self._admit_and_prefill()
+            if not admitted and self._decode_segment():
+                with span("serve.drain"):
+                    self._drain_finished()
         if self.audit_mode:
             try:
                 self.audit()
@@ -475,7 +479,7 @@ class ServeSession:
         """One host-side snapshot of every serving counter, with the JAX
         package's keys (scheduler lifecycle counters, queue and lane
         occupancy, pool pages, the prefix and swap counters, the mesh's
-        health) and ``work`` beside them."""
+        health)."""
         alloc = self.sched.alloc
         return {
             "sched": dict(self.sched.stats),
@@ -489,8 +493,6 @@ class ServeSession:
             "swap": self.swap_mgr.stats_dict()
             if self.swap_mgr is not None else None,
             "mesh": self._mesh_stats(),
-            "work": {k: (dict(v) if isinstance(v, (dict, Counter)) else v)
-                     for k, v in self.work.items()},
         }
 
     def _mesh_stats(self) -> Optional[dict]:
@@ -681,7 +683,8 @@ class ServeSession:
                 if req.hit is not None and req.hit.exact:
                     logits = self._admit_exact(req, S)
                 else:
-                    logits = self._admit_prefill(req, eff, S)
+                    with span("serve.prefill"):
+                        logits = self._admit_prefill(req, eff, S)
             except InjectedFault as e:
                 # polled before the pool was touched: only the victim fails
                 self._fail_admitted(req, reasons.format_reason(
@@ -694,8 +697,10 @@ class ServeSession:
             lane_key = self._lane_key(req)
             e = len(req.emitted)
             temp = req.params.temperature
-            tok0 = int(sample_tokens(self.cfg, logits[:, -1], temp,
-                                     lane_key if temp > 0 else None, e)[0, 0])
+            with span("serve.first_token"):
+                tok0 = int(sample_tokens(self.cfg, logits[:, -1], temp,
+                                         lane_key if temp > 0 else None,
+                                         e)[0, 0])
             if req.first_token_at is None:
                 req.first_token_at = time.perf_counter()
             lane = req.lane
@@ -809,7 +814,8 @@ class ServeSession:
                 and self.faults.should_fire("kernel_dispatch"):
             self.work["redispatched_segments"] += 1
         try:
-            self._dispatch_segment(sampled)
+            with span("serve.segment"):
+                self._dispatch_segment(sampled)
         except Exception as e:       # noqa: BLE001 — contained, not hidden
             self._contain_pool_loss(e)
             return False

@@ -18,6 +18,7 @@ from repro_torch.core.optimizer import (Optimizer, is_boolean_leaf,
                                         tree_unflatten)
 from repro_torch.distributed.placement import BatchRows
 from repro_torch.models import ModelConfig, lm_decode_step, lm_loss, lm_prefill
+from repro_torch.spans import span
 
 
 def bool_view(params, dtype=torch.bfloat16, wide=None, wide_dtype=None):
@@ -92,11 +93,14 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     rest = tuple(a for a in (axes or ()) if a != "data")
 
     def grads_of(pf, leaves, mb, share):
-        loss, parts = lm_loss(cfg, pf, mb, grad_shardings, grad_accum_dtype)
-        if share is not None:
-            # this rank's share of the global microbatch's loss
-            loss = parts["nll"] * share + 0.01 * parts["aux"] / dp
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with span("train.forward"):
+            loss, parts = lm_loss(cfg, pf, mb, grad_shardings,
+                                  grad_accum_dtype)
+            if share is not None:
+                # this rank's share of the global microbatch's loss
+                loss = parts["nll"] * share + 0.01 * parts["aux"] / dp
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         return loss.detach(), [torch.zeros_like(l) if g is None else g
                                for l, g in zip(leaves, grads)]
 
@@ -152,8 +156,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                 g.div_(microbatches)
         del pf, leaves
         kw = {} if grad_shardings is None else {"shardings": grad_shardings}
-        new_params, new_state = optimizer.update(tree_unflatten(params, grads),
-                                                 opt_state, params, **kw)
+        with span("train.optimizer"):
+            new_params, new_state = optimizer.update(
+                tree_unflatten(params, grads), opt_state, params, **kw)
         metrics = {"loss": loss.to(torch.float32),
                    "flips": _flip_total(new_state)}
         return new_params, new_state, metrics
